@@ -1,0 +1,245 @@
+"""Mixed-precision panel Cholesky on split (band, off) storage.
+
+Counterpart of `repro.core.panel_cholesky`, the performance engine: the
+factorization runs as p panel steps over
+
+  band : (p, t, nb, nb) in hi -- band[i, d] = tile (i, i-d), the diag_thick
+         tile sub-diagonals kept in high precision;
+  off  : (p, p, nb, nb) in lo -- tiles with i - j >= t (lower triangle).
+
+Per step k:
+  1. potrf(band[k,0]) in hi                               (dpotrf)
+  2. hi TRSM on the <= t-1 band panel tiles               (dtrsm)
+     lo TRSM on the off panel tiles                       (strsm)
+  3. U = C C^T of the gathered panel column C, in hi inside the band and
+     in lo (fp32 sum rounded once to lo) outside it; U's band blocks update
+     the hi sub-diagonals, its off-band blocks the lo region    (syrk/gemm)
+
+`impl` picks who computes the three hot operations: "kernel" calls the
+kernels' `ops` functions (the CUDA kernels on a CUDA tensor, their plain
+versions on a CPU tensor), "plain" their plain versions (`ref`) on any
+device.  With off_update="chunked" step 3 stays plain PyTorch on both, like
+the reference.
+
+Unlike the reference, the factorization works in place on (band, off): at
+the main path's size a second copy would cost 10.7 GB.  A tile that is not
+positive definite raises a flag on the device (no host sync per step), and
+`banded_loglik` returns NaN where it is set.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.blocked_potrf import ops as potrf_ops, ref as potrf_ref
+from ..kernels.matern_cov import ops as matern_ops, ref as matern_ref
+from ..kernels.mp_gemm import ops as syrk_ops, ref as syrk_ref
+from .precision import PrecisionPolicy, lo_matmul, require_ieee_fp32
+
+_IMPLS = {
+    "kernel": (matern_ops, potrf_ops.potrf, syrk_ops.mp_syrk),
+    "plain": (matern_ref, potrf_ref.potrf, syrk_ref.mp_syrk),
+}
+
+
+def _impl(impl):
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return _IMPLS[impl]
+
+
+def _host_theta(theta):
+    """theta as host floats: the kernels take it as launch arguments."""
+    return [float(v) for v in torch.as_tensor(theta).reshape(-1).tolist()]
+
+
+# ----------------------------------------------------------------------
+# banded storage construction
+# ----------------------------------------------------------------------
+
+def build_banded_covariance(locs, theta, *, nb: int, policy: PrecisionPolicy,
+                            nu_static=None, metric="euclidean", jitter=1e-6,
+                            impl: str = "kernel"):
+    """Matern covariance directly into (band, off) split storage.
+
+    band[i, d] = Sigma tile (i, i-d) in hi; off[i, j] = tile (i, j) in lo
+    (only i - j >= t is filled; the rest is zero).
+    """
+    if nu_static is None:
+        raise NotImplementedError("general-nu kv: ROADMAP A2")
+    matern, _, _ = _impl(impl)
+    n = locs.shape[0]
+    if n % nb:
+        raise ValueError(f"n={n} is not a multiple of nb={nb}")
+    p = n // nb
+    t = min(policy.diag_thick, p)
+    hi, lo = policy.hi, (policy.lo if policy.mode != "full" else policy.hi)
+    theta = _host_theta(theta)
+    locs_t = locs.reshape(p, nb, locs.shape[-1])
+
+    band = torch.zeros((p, t, nb, nb), dtype=hi, device=locs.device)
+    for d in range(t):  # band sub-diagonals, written in place
+        matern.matern_cov_tiles(locs_t[d:], locs_t[:p - d], theta,
+                                nu=nu_static, out_dtype=hi, metric=metric,
+                                out=band[d:, d])
+    band[:, 0].diagonal(dim1=-2, dim2=-1).add_(jitter)
+    off = matern.matern_cov_lower(locs_t, theta, nu=nu_static, min_lag=t,
+                                  out_dtype=lo, metric=metric)
+    return band, off
+
+
+def assemble_from_banded(band, off, t: int, dtype=None):
+    """(band, off) -> dense lower-triangular (n, n) matrix in hi."""
+    p, _, nb, _ = band.shape
+    dtype = dtype or band.dtype
+    n = p * nb
+    out = torch.zeros((n, n), dtype=dtype, device=band.device)
+    for i in range(p):
+        for d in range(min(i + 1, t)):
+            j = i - d
+            out[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = band[i, d]
+        for j in range(0, i - t + 1):
+            out[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = off[i, j]
+    return torch.tril(out)
+
+
+# ----------------------------------------------------------------------
+# the factorization
+# ----------------------------------------------------------------------
+
+def _trsm_right_lt(l, a, exec_dtype, out_dtype):
+    """a[i] <- a[i] L^{-T} for a: (m, nb, nb), solved in exec_dtype."""
+    x = torch.linalg.solve_triangular(l.to(exec_dtype).mT, a.to(exec_dtype),
+                                      upper=True, left=False)
+    return x.to(out_dtype)
+
+
+def panel_cholesky_banded(band, off, policy: PrecisionPolicy, *,
+                          off_update: str = "square", impl: str = "kernel"):
+    """Factor the banded-storage SPD matrix in place.
+
+    Returns (band, off, failed): failed is a 0-d bool tensor on the device,
+    set when a diagonal tile was not positive definite.
+
+    off_update: "square"  -- one m x m SYRK per step (mp_syrk), whose
+                             off-band blocks update the lo region;
+                "chunked" -- per-column-block lo GEMMs over the lower
+                             trapezoid only (plain PyTorch).
+    """
+    if off_update not in ("square", "chunked"):
+        raise ValueError(off_update)
+    require_ieee_fp32()
+    _, potrf, syrk = _impl(impl)
+    p, t, nb, _ = band.shape
+    hi = policy.hi
+    lo = off.dtype
+    failed = torch.zeros((), dtype=torch.bool, device=band.device)
+
+    for k in range(p):
+        lkk, info = potrf(band[k, 0])
+        band[k, 0] = lkk
+        failed |= info != 0
+        m_t = p - k - 1
+        if m_t == 0:
+            break
+
+        # --- panel TRSMs -------------------------------------------------
+        # the lo TRSM solves with the lo-rounded factor, as the SP tiles of
+        # the paper's algorithm see it
+        d_idx = torch.arange(1, min(t - 1, m_t) + 1, device=band.device)
+        band[k + d_idx, d_idx] = _trsm_right_lt(lkk, band[k + d_idx, d_idx],
+                                                hi, hi)
+        if k + t <= p - 1:
+            off[k + t:, k] = _trsm_right_lt(lkk.to(lo), off[k + t:, k],
+                                            policy.solve_dtype, lo)
+
+        # --- the factored panel column as hi tiles ------------------------
+        # c_hi[m] = tile (k+1+m, k), shape (m_t, nb, nb)
+        c_hi = torch.cat([band[k + d_idx, d_idx], off[k + t:, k].to(hi)])
+
+        if off_update == "square":
+            u = syrk(c_hi.reshape(m_t * nb, nb), tile=nb, round_k=nb,
+                     band_blocks=t, hi=hi, lo=lo, accum=policy.accum_dtype)
+            u4 = u.view(m_t, nb, m_t, nb)
+            for d in range(min(t, m_t)):    # hi sub-diagonal d: u4[a+d, :, a, :]
+                band[k + 1 + d:, d] -= torch.diagonal(
+                    u4, offset=-d, dim1=0, dim2=2).permute(2, 0, 1)
+            # lo update of tiles (i, j), i - j >= t, one tile row at a time
+            # and in place: a masked update of the whole square would take
+            # three lo temporaries of its size (8.6 GB each at step 0 of the
+            # main path)
+            for i in range(t, m_t):
+                off[k + 1 + i, k + 1:k + 2 + i - t] -= (
+                    u4[i, :, :i - t + 1].transpose(0, 1).to(lo))
+        else:
+            for d in range(min(t, m_t)):
+                band[k + 1 + d:, d] -= torch.einsum(
+                    "iab,icb->iac", c_hi[d:], c_hi[:m_t - d])
+            # exact lower trapezoid: for each target column-tile j, only
+            # rows i >= j + t receive the lo update
+            c_lo = c_hi.to(lo)
+            for j in range(k + 1, p - t):
+                lhs = c_lo[j + t - k - 1:]              # tiles (j+t..p-1, k)
+                rhs = c_lo[j - k - 1]                   # tile (j, k)
+                off[j + t:, j] -= lo_matmul(lhs, rhs.T, policy)
+    return band, off, failed
+
+
+# ----------------------------------------------------------------------
+# solve / likelihood on banded storage
+# ----------------------------------------------------------------------
+
+def banded_forward_solve(band, off, z, t: int):
+    """w = L^{-1} z via blocked forward substitution on split storage."""
+    require_ieee_fp32()
+    p, _, nb, _ = band.shape
+    hi = band.dtype
+    z_t = z.to(hi).reshape(p, nb)
+    ws = []
+    for i in range(p):
+        acc = z_t[i]
+        for d in range(1, min(i + 1, t)):
+            acc = acc - band[i, d] @ ws[i - d]
+        if i - t >= 0:
+            w_mat = torch.stack(ws[:i - t + 1])            # (i-t+1, nb)
+            acc = acc - torch.einsum("jab,jb->a", off[i, :i - t + 1].to(hi),
+                                     w_mat)
+        ws.append(torch.linalg.solve_triangular(
+            band[i, 0], acc[:, None], upper=False)[:, 0])
+    return torch.cat(ws)
+
+
+def banded_loglik(band, off, z, t: int, failed=None):
+    """Gaussian log-likelihood (Eq. 2) from the factored banded storage.
+
+    NaN where `failed` (from `panel_cholesky_banded`) is set.
+    """
+    p, _, nb, _ = band.shape
+    n = p * nb
+    diag = torch.diagonal(band[:, 0], dim1=-2, dim2=-1)
+    logdet_half = torch.sum(torch.log(diag))
+    w = banded_forward_solve(band, off, z, t)
+    ll = -0.5 * n * math.log(2.0 * math.pi) - logdet_half - 0.5 * torch.sum(w * w)
+    if failed is not None:
+        ll = torch.where(failed, torch.nan, ll)
+    return ll
+
+
+def geostat_loglik_step(locs, z, theta, *, nb: int, policy: PrecisionPolicy,
+                        nu_static=None, metric="euclidean", jitter=1e-6,
+                        off_update: str = "square", impl: str = "kernel"):
+    """One full likelihood evaluation: cov-gen -> factor -> solve -> ll.
+
+    Computes on the device of `locs` and returns a 0-d tensor there.  This
+    is the unit the paper benchmarks ("time per iteration").
+    """
+    require_ieee_fp32()
+    band, off = build_banded_covariance(locs, theta, nb=nb, policy=policy,
+                                        nu_static=nu_static, metric=metric,
+                                        jitter=jitter, impl=impl)
+    t = min(policy.diag_thick, band.shape[0])
+    band, off, failed = panel_cholesky_banded(band, off, policy,
+                                              off_update=off_update, impl=impl)
+    return banded_loglik(band, off, z, t, failed)

@@ -1,0 +1,46 @@
+"""Carry the reference's data and precision policies into the port.
+
+This system has no weights; a dataset (locations, observations, generating
+theta) and a precision policy take their place.  Everything crosses as
+numpy arrays and dtype names, so nothing here needs JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.precision import PrecisionPolicy, as_dtype
+from .covariance.generator import Dataset
+
+
+def dataset_from_numpy(locs, z, theta0, metric: str = "euclidean", *,
+                       device="cuda") -> Dataset:
+    """A Dataset on `device` from numpy-convertible arrays (fp32)."""
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return Dataset(locs=tensor(locs), z=tensor(z), theta0=tensor(theta0),
+                   metric=metric)
+
+
+def policy_from_fields(mode: str, hi: str, lo: str, diag_thick: int,
+                       lo2: str | None = None, diag_thick2: int = 0,
+                       solve_dtype: str = "float32",
+                       accum_dtype: str = "float32") -> PrecisionPolicy:
+    """A PrecisionPolicy from the reference policy's fields, dtypes by name
+    ("float32", "bfloat16", "float8_e4m3fn", ...)."""
+    return PrecisionPolicy(
+        mode=mode, hi=as_dtype(hi), lo=as_dtype(lo), diag_thick=diag_thick,
+        lo2=None if lo2 is None else as_dtype(lo2), diag_thick2=diag_thick2,
+        solve_dtype=as_dtype(solve_dtype), accum_dtype=as_dtype(accum_dtype))
+
+
+def banded_from_numpy(band, off, *, lo, device="cuda"):
+    """(band, off) split storage from numpy-convertible arrays.
+
+    A bf16 array arrives as `ml_dtypes.bfloat16`, which torch.from_numpy
+    rejects; it goes through float32, which holds every bf16 value exactly.
+    """
+    band_t = torch.as_tensor(np.asarray(band), device=device)
+    off_t = torch.as_tensor(np.asarray(off, np.float32), device=device)
+    return band_t, off_t.to(as_dtype(lo))

@@ -1,0 +1,36 @@
+"""Plain PyTorch version of the banded mixed-precision SYRK."""
+
+from __future__ import annotations
+
+import torch
+
+
+def mp_syrk(p, *, tile, round_k, band_blocks, hi=torch.float32,
+            lo=torch.bfloat16, accum=torch.float32):
+    """U = P P^T, (m, kdim) -> (m, m) in `hi`, with banded precision.
+
+    Element (r, c) is in the band when |r // tile - c // tile| < band_blocks:
+    a `hi` dot product.  Off the band: `lo` operands, products summed in
+    `accum` over each `round_k` columns of K, each partial sum rounded to
+    `lo`, and the rounded partials summed in `accum`.  Computed one row of
+    tiles at a time, so the temporaries stay one (tile, m) slab.
+    """
+    m, kdim = p.shape
+    if m % tile or kdim % round_k:
+        raise ValueError(f"m={m} must divide by tile={tile} and "
+                         f"kdim={kdim} by round_k={round_k}")
+    n_tiles = m // tile
+    p_lo = p.to(lo).to(accum)
+    p_hi = p.to(hi)
+    out = torch.empty((m, m), dtype=hi, device=p.device)
+    for i in range(n_tiles):
+        rows = slice(i * tile, (i + 1) * tile)
+        acc = torch.zeros((tile, m), dtype=accum, device=p.device)
+        for k0 in range(0, kdim, round_k):
+            ks = slice(k0, k0 + round_k)
+            acc += (p_lo[rows, ks] @ p_lo[:, ks].T).to(lo).to(accum)
+        out[rows] = acc.to(hi)
+        band = slice(max(0, i - band_blocks + 1) * tile,
+                     min(n_tiles, i + band_blocks) * tile)
+        out[rows, band] = p_hi[rows] @ p_hi[band].T
+    return out
