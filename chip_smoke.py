@@ -11,12 +11,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      at the main path's shapes, with errors, tolerances and CUDA-event times
      (kernel, plain version, one library call where one computes the same
      function) and the bound: the least time the card could take;
+     3b. mp_attention (banded-precision flash decode) against its plain
+     version on the kernel tests' shapes, logit scales, ragged lengths
+     (an empty far segment among them) and fp32 / bf16 near K/V;
   4. main path: geostat_loglik_step at n = 65536, nb = 1024, band t = 8,
      {fp32 band, bf16 off-band}, three requests (theta), each through the
      kernels and through the plain versions; launch counts, log-likelihoods,
      seconds per evaluation and peak memory;
-  5. a small input held against the plain path on the CPU;
+  5. small inputs held against the plain path on the CPU: the likelihood,
+     and llama3.2-1b's SMOKE model (fp32 compute) through forward_lm,
+     prefill, generate and decode_step;
   6. a short Nelder-Mead MLE (fit_mle) through the kernel path;
+  7. serving: llama3.2-1b at full width and depth (random weights from a
+     seed), batch 4 x 8,192-token prompts, 64 greedy tokens (bf16 compute),
+     then every layer's served cache through the banded-precision attention
+     (near 1,024 positions bf16, the rest int8 blocks of 128) against its
+     plain version and exact attention, with launch counts and times;
 then the card's name and power limit, one JSON line of every kernel's
 numbers, and last the result line.
 """
@@ -40,6 +50,15 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
+# phase 7: batch, prompt length, generated tokens, near window, key block
+SERVE = dict(batch=4, prompt=8_192, new=64, near=1_024, blk=128)
+SERVE_QUICK = dict(batch=2, prompt=1_024, new=8, near=256, blk=128)
+# phase 3b: (b, g, d, sn, sf, blk) of tests/test_kernels.py and the
+# conformance sweep, its logit scales, and the bound of verify/bounds.py
+ATTN_SHAPES = ((2, 4, 64, 128, 256, 128), (1, 8, 128, 256, 128, 64),
+               (4, 1, 64, 128, 128, 128))
+ATTN_SCALES = (0.5, 1.0, 2.0)
+ATTN_MAX_ABS = 1e-3
 MLE = dict(n=8_192, nb=512, t=4, max_iters=15)
 WEAK = (1.0, 0.03, 0.5)
 MEDIUM = (1.0, 0.10, 0.5)
@@ -347,11 +366,12 @@ def main_path(ds, cfg, results):
     n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
     p = n // nb
     policy = PrecisionPolicy.tpu(t)
-    expected = {"blocked_potrf": p, "mp_syrk": p - 1, "matern_cov": t + 1}
+    expected = {"blocked_potrf": p, "mp_syrk": p - 1, "matern_cov": t + 1,
+                "mp_attention": 0}
     th0 = [float(v) for v in ds.theta0.tolist()]
     requests = [th0, [th0[0], th0[1] * 0.8, th0[2]],
                 [th0[0], th0[1] * 1.25, th0[2]]]
-    total = dict.fromkeys(expected, 0)
+    total = {k: 0 for k, count in expected.items() if count}
     n_finite = 0
     for theta in requests:
         lls, secs, peaks, launched = {}, {}, {}, {}
@@ -391,20 +411,18 @@ def main_path(ds, cfg, results):
     profile_evaluation(ds, cfg, policy, th0)
 
 
-def profile_evaluation(ds, cfg, policy, theta):
-    """One more kernel-path evaluation under torch.profiler: device time
-    by kernel name, and the device's idle share of the evaluation's wall
-    time (one stream, so kernel times do not overlap)."""
+def device_profile(fn):
+    """fn() under torch.profiler: (wall ms, device busy ms, rows of (name,
+    count, ms) by device time).  fn ends in a host read or a sync; one
+    stream, so the device events do not overlap."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import geostat_loglik_step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(geostat_loglik_step(ds.locs, ds.z, theta, nb=cfg["nb"],
-                                  policy=policy, nu_static=cfg["nu"],
-                                  off_update=cfg["off_update"]))
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = {}  # device-side events only: kernels, copies, sets
     for e in prof.events():
@@ -415,6 +433,17 @@ def profile_evaluation(ds, cfg, policy, theta):
                   key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     require(0 < busy <= 1e3 * wall, f"device busy {busy} ms in {wall} s")
+    return 1e3 * wall, busy, rows
+
+
+def profile_evaluation(ds, cfg, policy, theta):
+    """One more kernel-path evaluation under torch.profiler: device time
+    by kernel name, and the device's idle share of the evaluation's wall
+    time."""
+    from repro_torch.core import geostat_loglik_step
+    wall_ms, busy, rows = device_profile(lambda: float(geostat_loglik_step(
+        ds.locs, ds.z, theta, nb=cfg["nb"], policy=policy, nu_static=cfg["nu"],
+        off_update=cfg["off_update"])))
     # the evaluation's SYRK work: lower-triangle tile products in and off
     # the band, summed over the p - 1 steps, and their bounds at the fp32
     # and bf16 peaks
@@ -424,8 +453,8 @@ def profile_evaluation(ds, cfg, policy, theta):
     in_band = sum(i for i, _ in products)
     off_band = sum(o for _, o in products)
     flops = 2 * nb ** 3
-    emit(phase="profile", wall_ms=wall * 1e3, device_busy_ms=busy,
-         idle_share=1 - busy / (wall * 1e3),
+    emit(phase="profile", wall_ms=wall_ms, device_busy_ms=busy,
+         idle_share=1 - busy / wall_ms,
          syrk_products_in_band=in_band, syrk_products_off_band=off_band,
          syrk_in_band_bound_ms=1e3 * in_band * flops / FP32_FLOPS,
          syrk_off_band_bound_ms=1e3 * off_band * flops / BF16_FLOPS,
@@ -481,10 +510,350 @@ def mle():
          seconds_per_eval=secs / res.n_evals, launches=launch_counts())
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: mp_attention against its plain version
+# ---------------------------------------------------------------------------
+
+def _attn_errors(q, segments, *, blk, sm_scale):
+    """Kernel against plain partials and merged outputs, and the merged
+    kernel output against the full-softmax oracle.  A partial (acc, m, l)
+    is held per query head at rel 1e-4 of max(max |plain| over d, 1): acc
+    sums thousands of signed terms at the served shapes, so one element
+    can cancel to ~0 while its head's row is O(10).  Returns max |kernel -
+    plain|, max |kernel - oracle|, the worst partial rel and the plain
+    merged output; fails on a NaN or a wrongly masked segment."""
+    import torch
+    from repro_torch.kernels.mp_attention import ops, ref
+    kn, vn, near_len, kf, vf, scales, far_len = segments
+    kw = dict(blk=blk, sm_scale=sm_scale)
+    parts, plain, part_rel = [], [], 0.0
+    for k, v, sc, n in ((kn, vn, None, near_len), (kf, vf, scales, far_len)):
+        got = ops.flash_decode_segment(q, k, v, sc, n, **kw)
+        want = ref.flash_decode_segment(q, k, v, sc, n, **kw)
+        for name, g, w in zip(("acc", "m", "l"), got, want):
+            require(bool(torch.isfinite(g).all()), f"mp_attention {name}: not finite")
+            rel = float(((g - w).abs().amax(-1)
+                         / w.abs().amax(-1).clamp_min(1.0)).max())
+            require(rel <= 1e-4, f"mp_attention partial {name}: rel {rel}")
+            part_rel = max(part_rel, rel)
+        empty = n <= 0  # no valid key: m = -1e30 and l = S, as the reference
+        require(bool((got[1][empty] == -1e30).all())
+                and bool((got[2][empty] == k.shape[1]).all()),
+                "mp_attention: a fully masked segment is not (m=-1e30, l=S)")
+        parts.append(got)
+        plain.append(want)
+    out = ops.merge_partials(parts)
+    want = ops.merge_partials(plain)
+    oracle = ref.banded_decode_attention_ref(q, *segments, **kw)
+    require(bool(torch.isfinite(out).all()), "mp_attention output not finite")
+    return dict(vs_plain=float((out - want).abs().max()),
+                vs_oracle=float((out - oracle).abs().max()),
+                partials_rel=part_rel, plain=want)
+
+
+def check_attention(gen, results):
+    import torch
+    from repro_torch.kernels.mp_attention import ops
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    worst = 0.0
+    for shape in ATTN_SHAPES:
+        b, g, d, sn, sf, blk = shape
+        for scale in ATTN_SCALES:
+            for near_dt in (torch.float32, torch.bfloat16):
+                for lengths in ("full", "ragged"):
+                    q = scale * randn(b, g, d)
+                    kn, vn = randn(b, sn, d).to(near_dt), randn(b, sn, d).to(near_dt)
+                    kq, vq, sc = ops.quantize_kv(randn(b, sf, d), randn(b, sf, d),
+                                                 blk=blk)
+                    if lengths == "full":
+                        near_len = torch.full((b,), sn, device="cuda")
+                        far_len = torch.full((b,), sf, device="cuda")
+                    else:  # row 0 has no far key (tests/test_kernels.py)
+                        near_len = torch.randint(1, sn + 1, (b,), generator=gen,
+                                                 device="cuda")
+                        far_len = torch.randint(0, sf + 1, (b,), generator=gen,
+                                                device="cuda")
+                        far_len[0] = 0
+                    segs = (kn, vn, near_len.int(), kq, vq, sc, far_len.int())
+                    err = _attn_errors(q, segs, blk=blk, sm_scale=d ** -0.5)
+                    vs_plain, vs_oracle = err["vs_plain"], err["vs_oracle"]
+                    require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
+                            f"mp_attention {shape} scale {scale}: {vs_plain}, "
+                            f"{vs_oracle} > {ATTN_MAX_ABS}")
+                    worst = max(worst, vs_plain)
+                    emit(phase="kernels", kernel="mp_attention", shape=shape,
+                         logit_scale=scale, near_dtype=str(near_dt),
+                         lengths=lengths, max_abs_vs_plain=vs_plain,
+                         max_abs_vs_oracle=vs_oracle, bound=ATTN_MAX_ABS,
+                         partials_rel=err["partials_rel"])
+    # a bf16 query, once per head dim, and the widest G the kernel takes
+    for (b, g, d, sn, sf, blk), q_dt in (
+            (ATTN_SHAPES[0], torch.bfloat16), (ATTN_SHAPES[1], torch.bfloat16),
+            ((2, 16, 128, 192, 384, 64), torch.float32),
+            ((2, 16, 64, 192, 384, 64), torch.bfloat16)):
+        q = randn(b, g, d).to(q_dt)
+        kv = [randn(b, s_, d) for s_ in (sn, sn, sf, sf)]
+        kq, vq, sc = ops.quantize_kv(kv[2], kv[3], blk=blk)
+        segs = (kv[0].bfloat16(), kv[1].bfloat16(),
+                torch.full((b,), sn, dtype=torch.int32, device="cuda"), kq, vq,
+                sc, torch.full((b,), sf, dtype=torch.int32, device="cuda"))
+        err = _attn_errors(q, segs, blk=blk, sm_scale=d ** -0.5)
+        vs_plain, vs_oracle = err["vs_plain"], err["vs_oracle"]
+        require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
+                f"mp_attention q {q_dt} G={g} d={d}: {vs_plain}, {vs_oracle}")
+        worst = max(worst, vs_plain)
+        emit(phase="kernels", kernel="mp_attention", shape=(b, g, d, sn, sf, blk),
+             q_dtype=str(q_dt), max_abs_vs_plain=vs_plain,
+             max_abs_vs_oracle=vs_oracle, bound=ATTN_MAX_ABS,
+             partials_rel=err["partials_rel"])
+    results["mp_attention"] = dict(
+        name="mp_attention", route="cuda",
+        source="src/repro_torch/csrc/mp_attention.cu",
+        replaces="src/repro/kernels/mp_attention/mp_attention.py:78",
+        max_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b and 7: the LM serving path
+# ---------------------------------------------------------------------------
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def smoke_lm_vs_cpu():
+    """llama3.2-1b's SMOKE model in fp32 compute on the card and on the CPU,
+    the same weights and prompt: logits within 1e-4 of max |logit|, the same
+    greedy ids.  The last decode step runs on both from the card's cache:
+    each device rounds its own cache rows to bf16, and a row that rounds the
+    other way moves the logits by ~1e-4 of their scale by itself."""
+    import torch
+    from repro_torch.configs import LM_SMOKE_CONFIGS
+    from repro_torch.models import decode_step, forward_lm, init_lm, prefill
+    from repro_torch.serve_lm import generate
+    cfg = LM_SMOKE_CONFIGS["llama3.2-1b"]
+    gen = torch.Generator().manual_seed(5)
+    params = {"cpu": init_lm(gen, cfg, device="cpu")}
+    params["cuda"] = _to_device(params["cpu"], "cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, 24), generator=gen)
+    n_new = 8
+    kw = dict(compute_dtype=torch.float32)
+    out, caches = {}, {}
+    for dev, p in params.items():
+        tp = prompt.to(dev)
+        ids, caches[dev] = generate(p, cfg, tp, n_new, **kw)
+        out[dev] = dict(forward=forward_lm(p, tp, cfg, **kw)[0].cpu(),
+                        prefill=prefill(p, tp, cfg, **kw)[0].cpu(), ids=ids.cpu())
+    # the last id was never written: one more step fills the last slot
+    last = out["cuda"]["ids"][:, -1:]
+    for dev, p in params.items():
+        cache = _to_device(caches["cuda"], "cpu")  # a copy: the step writes it
+        step = decode_step(p, _to_device(cache, dev), last.to(dev),
+                           prompt.shape[1] + n_new - 1, cfg, **kw)[0]
+        out[dev]["step"] = step.cpu()
+    rels = {}
+    for name in ("forward", "prefill", "step"):
+        g, w = out["cuda"][name], out["cpu"][name]
+        require(bool(torch.isfinite(g).all()), f"SMOKE {name}: not finite")
+        rels[name] = float((g - w).abs().max() / w.abs().max())
+        require(rels[name] <= 1e-4, f"SMOKE {name}: card vs CPU {rels[name]}")
+    same = bool((out["cuda"]["ids"] == out["cpu"]["ids"]).all())
+    require(same, "SMOKE: greedy ids differ between the card and the CPU")
+    emit(phase="small_vs_cpu", model=cfg.name + " SMOKE", compute="float32",
+         prompt=list(prompt.shape), new_tokens=n_new, rel_diff=rels, tol=1e-4,
+         same_ids=same, ids_card=out["cuda"]["ids"].tolist())
+
+
+def _ids_checksum(ids) -> str:
+    import hashlib
+    return hashlib.sha256(ids.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def serving(scfg, results):
+    """Phase 7: generate on llama3.2-1b, then every layer's served cache
+    through the banded-precision attention, counted, compared and timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import LM_CONFIGS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mp_attention import ops, ref
+    from repro_torch.kernels.mp_attention.mp_attention import launch
+    from repro_torch.models import decode_step, init_lm, prefill
+    from repro_torch.serve_lm import (banded_kv_attention, cache_bytes_saved,
+                                      fold_banded, generate)
+    cfg = LM_CONFIGS["llama3.2-1b"]
+    b, s, n_new = scfg["batch"], scfg["prompt"], scfg["new"]
+    near, blk = scfg["near"], scfg["blk"]
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t0 = time.perf_counter()
+    params = init_lm(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    q = torch.randn((b * kv, g, hd), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    length = s + n_new - 1  # the last generated id is never written
+
+    # the main path, counted: generate, then every layer's banded attention
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = {}
+    ids, cache = generate(params, cfg, prompt, n_new, stats=stats)
+    peak_gen = torch.cuda.max_memory_allocated() / 2 ** 30
+    layer_k, layer_v = cache["b0"]["k"], cache["b0"]["v"]
+    banded = [banded_kv_attention(layer_k[c], layer_v[c], q, length,
+                                  near=near, blk=blk)
+              for c in range(cfg.n_cycles)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0,
+                "mp_attention": 2 * cfg.n_cycles}
+    require(counts == expected, f"serving launches {counts}, expected {expected}")
+    require(tuple(ids.shape) == (b, n_new) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab, f"generated ids {tuple(ids.shape)}")
+    require(tuple(layer_k.shape) == (cfg.n_cycles, b, s + n_new, kv, hd)
+            and bool(torch.isfinite(layer_k[:, :, :length]).all())
+            and bool(torch.isfinite(layer_v[:, :, :length]).all()),
+            "served cache: wrong shape or not finite")
+
+    # each layer: the kernel's partials against the plain version's at rel
+    # 1e-4 and the merged outputs at ATTN_MAX_ABS (_attn_errors, at the
+    # served shapes), the main path's output against the plain merge and
+    # against exact attention
+    sm_scale = hd ** -0.5
+    kw = dict(blk=blk, sm_scale=sm_scale)
+    layer_segs, vs_plain, vs_oracle, vs_exact, plain_vs_exact, plain_max = (
+        [], 0.0, 0.0, 0.0, 0.0, 0.0)
+    partials_rel = 0.0
+    for c, (out, exact) in enumerate(banded):
+        segs, _ = fold_banded(layer_k[c], layer_v[c], length, near=near, blk=blk)
+        layer_segs.append(segs)
+        err = _attn_errors(q, segs, **kw)
+        plain = err["plain"]
+        require(bool(torch.isfinite(out).all()), f"layer {c}: banded not finite")
+        vs_plain = max(vs_plain, err["vs_plain"], float((out - plain).abs().max()))
+        vs_oracle = max(vs_oracle, err["vs_oracle"])
+        partials_rel = max(partials_rel, err["partials_rel"])
+        vs_exact = max(vs_exact, float((out - exact).abs().max()))
+        plain_vs_exact = max(plain_vs_exact, float((plain - exact).abs().max()))
+        plain_max = max(plain_max, float(plain.abs().max()))
+    require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
+            f"served cache: kernel vs plain {vs_plain}, vs oracle {vs_oracle} "
+            f"> {ATTN_MAX_ABS}")
+    # the int8 far blocks' cost against exact attention: ~1e-3 here, ~1e-2
+    # on the kernel tests' inputs, which tests/test_kernels.py holds < 0.05
+    require(vs_exact < 0.05, f"served cache: banded vs exact {vs_exact}")
+    del banded
+
+    # one more step fills the last slot: finite logits of the full vocab
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = decode_step(params, cache, ids[:, -1:], length, cfg)
+    torch.cuda.synchronize()
+    last_step_ms = 1e3 * (time.perf_counter() - t0)
+    require(tuple(logits.shape) == (b, 1, cfg.vocab)
+            and bool(torch.isfinite(logits).all()), "decode logits not finite")
+    # where the time goes: one decode step (rewriting the last slot) and one
+    # prefill under the profiler
+    for what, fn in (
+            ("decode_step", lambda: decode_step(params, cache, ids[:, -1:],
+                                                length, cfg)),
+            ("prefill", lambda: prefill(params, prompt, cfg))):
+        wall_ms, busy, rows = device_profile(fn)
+        emit(phase="serving_profile", what=what, wall_ms=wall_ms,
+             device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+             kernels=sum(c for _, c, _ in rows),
+             top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:10]])
+    del cache, layer_k, layer_v, params
+    torch.cuda.empty_cache()
+
+    # times: each layer in turn, so that each layer's ~39 MB of K/V come
+    # from device memory (16 layers are 12x the 50 MB L2), per layer: the
+    # two segment launches alone (the kernel's time), their plain versions,
+    # and the whole banded call with its plain-PyTorch merge
+    n_layers = len(layer_segs)
+
+    def segments_all(fn):
+        for kn, vn, near_len, kf, vf, sc, far_len in layer_segs:
+            fn(q, kn, vn, None, near_len, **kw)
+            fn(q, kf, vf, sc, far_len, **kw)
+    ms = time_ms(lambda: segments_all(launch)) / n_layers
+    plain_ms = time_ms(lambda: segments_all(ref.flash_decode_segment)) / n_layers
+    merged_ms = time_ms(lambda: [ops.banded_decode_attention(q, *sg, **kw)
+                                 for sg in layer_segs]) / n_layers
+
+    # library yardstick: one SDPA call over the dequantized K/V (bf16) with
+    # the validity mask, G query heads as G queries of one KV head
+    sdpa_in = []
+    for kn, vn, near_len, kf, vf, sc, far_len in layer_segs:
+        nblk = kf.shape[1] // blk
+        deq = [(x.float().reshape(x.shape[0], nblk, blk, hd)
+                * sc[:, :, i, None, None]).reshape(x.shape).bfloat16()
+               for i, x in enumerate((kf, vf))]
+        k_all = torch.cat([deq[0], kn], dim=1)[:, None]
+        v_all = torch.cat([deq[1], vn], dim=1)[:, None]
+        pos = torch.arange(k_all.shape[2], device="cuda")
+        mask = ((pos < far_len[0]) | ((pos >= kf.shape[1])
+                                      & (pos < kf.shape[1] + near_len[0])))
+        sdpa_in.append((k_all, v_all, mask[None, None, None, :].expand(
+            k_all.shape[0], 1, 1, -1)))
+    q_sdpa = q.bfloat16()[:, None]
+    lib_out = F.scaled_dot_product_attention(q_sdpa, *sdpa_in[0][:2],
+                                             attn_mask=sdpa_in[0][2])
+    library_ms = time_ms(lambda: [
+        F.scaled_dot_product_attention(q_sdpa, k_, v_, attn_mask=m_)
+        for k_, v_, m_ in sdpa_in]) / n_layers
+    kn, vn, near_len, kf, vf, sc, far_len = layer_segs[0]
+    lib_vs_kernel = float((lib_out[:, 0].float() - ops.banded_decode_attention(
+        q, *layer_segs[0], **kw)).abs().max())
+
+    # bound: the bytes the two launches need per layer: q for each, the
+    # filled K/V rows of each segment, the far scales, each (acc, m, l)
+    rows = q.shape[0]
+    near_n, far_n = int(near_len[0]), int(far_len[0])
+    bytes_moved = (2 * q.numel() * 4
+                   + 2 * rows * hd * (near_n * kn.element_size()
+                                      + far_n * kf.element_size())
+                   + sc.numel() * 4 + 2 * (q.numel() + 2 * rows * g) * 4)
+    flops = 4 * rows * g * hd * (near_n + far_n)
+    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    saved = cache_bytes_saved(kn.shape[1], kf.shape[1])
+    emit(phase="serving", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=b, prompt=s, new_tokens=n_new, compute="bfloat16",
+         init_seconds=init_s, prefill_seconds=stats["prefill_s"],
+         decode_ms_per_step=1e3 * stats["decode_s"] / stats["decode_steps"],
+         last_step_ms=last_step_ms, peak_gib=peak_gen,
+         ids_sha256=_ids_checksum(ids), ids_head=ids[0, :8].tolist(),
+         launches=counts)
+    emit(phase="serving", banded="every layer's served cache", slots=s + n_new,
+         filled=length, near_filled=near_n, near_slots=kn.shape[1],
+         far_slots=far_n, far_blocks=far_n // blk, rows=rows, g=g, d=hd,
+         max_abs_kernel_vs_plain=vs_plain, max_abs_kernel_vs_oracle=vs_oracle,
+         bound=ATTN_MAX_ABS, partials_rel=partials_rel, partials_rel_bound=1e-4,
+         max_abs_plain=plain_max,
+         max_abs_banded_vs_exact=vs_exact, max_abs_plain_vs_exact=plain_vs_exact,
+         max_abs_sdpa_vs_kernel=lib_vs_kernel, cache_bytes_saved=saved,
+         kernel_ms_per_layer=ms, plain_ms_per_layer=plain_ms,
+         banded_call_ms_per_layer=merged_ms, sdpa_ms_per_layer=library_ms,
+         bound_ms=bound_ms, bytes=bytes_moved)
+    r = results["mp_attention"]
+    r.update(launches=counts["mp_attention"], ms=ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, library_ms=library_ms,
+             bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+             else "operations",
+             max_abs_err=max(r["max_abs_err"], vs_plain))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="small main-path shape, no MLE: a build-and-check run")
+                    help="small main-path and serving shapes, no MLE: a "
+                    "build-and-check run")
     args = ap.parse_args(argv)
 
     import torch
@@ -524,20 +893,32 @@ def main(argv=None):
          z_finite=bool(torch.isfinite(ds.z).all()))
     require(bool(torch.isfinite(ds.z).all()), "simulated field is not finite")
 
-    results = {}
+    results, seconds = {}, {}
+
+    def timed(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        fn(*fn_args)
+        seconds[name] = time.perf_counter() - t0
+
     p = cfg["n"] // cfg["nb"]
     locs_t = ds.locs.reshape(p, cfg["nb"], 2)
-    check_matern(locs_t, ds.theta0.tolist(), cfg["t"], cfg["nu"], results)
-    check_potrf(gen, cfg["nb"], results)
-    check_syrk(gen, cfg["n"] - cfg["nb"], cfg["nb"], cfg["t"], results)
+    timed("3 matern_cov", check_matern, locs_t, ds.theta0.tolist(), cfg["t"],
+          cfg["nu"], results)
+    timed("3 blocked_potrf", check_potrf, gen, cfg["nb"], results)
+    timed("3 mp_syrk", check_syrk, gen, cfg["n"] - cfg["nb"], cfg["nb"],
+          cfg["t"], results)
+    timed("3b mp_attention", check_attention, gen, results)
     torch.cuda.empty_cache()
 
-    main_path(ds, cfg, results)
+    timed("4 main path", main_path, ds, cfg, results)
     del ds, locs_t
     torch.cuda.empty_cache()
-    small_vs_cpu()
+    timed("5 likelihood vs CPU", small_vs_cpu)
+    timed("5 SMOKE LM vs CPU", smoke_lm_vs_cpu)
     if not args.quick:
-        mle()
+        timed("6 MLE", mle)
+    timed("7 serving", serving, SERVE_QUICK if args.quick else SERVE, results)
+    emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

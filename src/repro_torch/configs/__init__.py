@@ -1,3 +1,11 @@
+from . import llama3_2_1b
 from .geostat import GEOSTAT_CONFIGS, GeostatConfig
 
-__all__ = ["GEOSTAT_CONFIGS", "GeostatConfig"]
+# the model zoo's architectures ported so far; the others come with their
+# families (ROADMAP A)
+_MODULES = (llama3_2_1b,)
+LM_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+LM_SMOKE_CONFIGS = {m.CONFIG.name: m.SMOKE for m in _MODULES}
+
+__all__ = ["GEOSTAT_CONFIGS", "GeostatConfig", "LM_CONFIGS",
+           "LM_SMOKE_CONFIGS"]

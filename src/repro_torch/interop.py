@@ -1,8 +1,10 @@
-"""Carry the reference's data and precision policies into the port.
+"""Carry the reference's data, precision policies and LM weights into the
+port.
 
-This system has no weights; a dataset (locations, observations, generating
-theta) and a precision policy take their place.  Everything crosses as
-numpy arrays and dtype names, so nothing here needs JAX.
+The geostatistics path has no weights; a dataset (locations, observations,
+generating theta) and a precision policy take their place.  The LM path
+takes the reference's `init_lm` param tree.  Everything crosses as numpy
+arrays and dtype names, so nothing here needs JAX.
 """
 
 from __future__ import annotations
@@ -44,3 +46,14 @@ def banded_from_numpy(band, off, *, lo, device="cuda"):
     band_t = torch.as_tensor(np.asarray(band), device=device)
     off_t = torch.as_tensor(np.asarray(off, np.float32), device=device)
     return band_t, off_t.to(as_dtype(lo))
+
+
+def lm_params_from_numpy(tree, *, device="cuda", dtype=torch.float32):
+    """The reference's LM param tree (nested dicts of numpy-convertible
+    arrays, e.g. `jax.tree.map(np.asarray, params)`) as the port's: the same
+    keys and shapes, each leaf a `dtype` tensor on `device`."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, np.float32), dtype=dtype,
+                        device=device)

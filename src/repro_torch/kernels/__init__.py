@@ -11,7 +11,8 @@ counts to 0 (`reset_launch_counts`) and reads them afterwards to show that
 it went through the kernels.
 """
 
-LAUNCHES = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0}
+LAUNCHES = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0,
+            "mp_attention": 0}
 
 
 def reset_launch_counts() -> None:

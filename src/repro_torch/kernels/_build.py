@@ -43,6 +43,10 @@ SIGNATURES = {
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _P],
     # p, out, m, kdim, tile, round_k, band_blocks, lo_bf16, stream
     "mp_syrk_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, scales, seg_len, acc, m, l, batch, g, d, s, blk, sm_scale,
+    # q_bf16, kv_dtype, stream
+    "mp_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _F, _I, _I, _P],
 }
 
 

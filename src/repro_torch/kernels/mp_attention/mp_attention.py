@@ -1,0 +1,80 @@
+"""Launch wrapper of the CUDA flash-decode segment kernel
+(csrc/mp_attention.cu).
+
+Replaces the Pallas TPU kernel
+`repro.kernels.mp_attention.mp_attention.flash_decode_segment`: the
+online-softmax partials (acc, m, l) of G query heads over one KV segment,
+int8 K/V dequantized in the kernel with per-(row, block) scales.  One
+thread block per row of B (batch * kv_heads); it walks the segment in
+tiles of TILE keys, so `blk` must be a multiple of TILE.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import LAUNCHES
+from .._build import check, library
+
+TILE = 64                 # keys per shared-memory tile of the kernel
+MAX_G = 16                # query heads per KV head
+HEAD_DIMS = (64, 128)
+KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
+    """(acc (B, G, d) f32, m (B, G, 1) f32, l (B, G, 1) f32) of one segment.
+
+    q: (B, G, d) fp32/bf16; k, v: (B, S, d) fp32, bf16 or int8 (then with
+    scales (B, S//blk, 2) fp32, else scales is None); seg_len: (B,) int32.
+    """
+    tensors = [q, k, v, seg_len] + ([] if scales is None else [scales])
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("mp_attention kernel: every input must be a CUDA tensor")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("mp_attention kernel: inputs on different devices")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"mp_attention kernel: q dtype {q.dtype}; "
+                                  "it takes float32 or bfloat16")
+    if k.dtype not in KV_CODES or v.dtype != k.dtype:
+        raise NotImplementedError(
+            f"mp_attention kernel: k/v dtypes {k.dtype}/{v.dtype}; it takes "
+            "one of float32, bfloat16 or int8 for both")
+    if (q.ndim != 3 or k.ndim != 3 or k.shape != v.shape
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]):
+        raise ValueError(f"mp_attention kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, g, d = q.shape
+    s = k.shape[1]
+    if not 1 <= g <= MAX_G or d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"mp_attention kernel: G={g}, d={d}; it takes G <= {MAX_G} and "
+            f"d in {HEAD_DIMS}")
+    if b < 1 or blk % TILE or s % blk:
+        raise ValueError(f"mp_attention kernel: needs B >= 1, blk % {TILE} "
+                         f"== 0 and S % blk == 0; got B={b}, blk={blk}, S={s}")
+    if (k.dtype == torch.int8) != (scales is not None):
+        raise ValueError("mp_attention kernel: int8 K/V take scales, "
+                         "float K/V take none")
+    if scales is not None and (scales.dtype != torch.float32
+                               or scales.shape != (b, s // blk, 2)):
+        raise ValueError(f"mp_attention kernel: scales must be float32 "
+                         f"{(b, s // blk, 2)}")
+    if seg_len.dtype != torch.int32 or seg_len.shape != (b,):
+        raise ValueError(f"mp_attention kernel: seg_len must be int32 ({b},)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("mp_attention kernel: inputs must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("mp_attention kernel: k and v must be 16-byte aligned")
+    acc = torch.empty((b, g, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, g, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, g, 1), dtype=torch.float32, device=q.device)
+    status = library().mp_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if scales is None else scales.data_ptr(), seg_len.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, g, d, s, blk,
+        float(sm_scale), int(q.dtype == torch.bfloat16), KV_CODES[k.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(status, "mp_attention")
+    LAUNCHES["mp_attention"] += 1
+    return acc, m, l

@@ -1,0 +1,195 @@
+"""Serving: cache construction, prefill, and single-token decode.
+
+The port of `repro.models.decode` for the attention blocks.  Cache layout,
+one entry per block slot of the cycle pattern, stacked over cycles as the
+reference's (so caches compare directly with it):
+
+  attn (full) : {k, v: (C, B, S_max, KV, hd)}           (rope'd at write)
+  attn (SWA)  : {k, v: (C, B, W, KV, hd), pos: (C, W)}  (circular)
+  kv_quant    : k, v int8 and {k_scale, v_scale: (C, B, S_max, KV)} fp32
+
+Where the reference returns a new cache from each decode step,
+`decode_step` writes the new row into the cache it is given and returns
+that same cache: a copy per step would move the whole cache for one row.
+Decode attention is plain PyTorch here, as in the reference; the
+banded-precision kernel serves `serve_lm.banded_kv_attention`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import NEG_INF, attention, mlp, rmsnorm, rope
+from .transformer import _check_supported, cycle_slice, unembed_logits
+
+CACHE_DTYPE = torch.bfloat16
+
+
+def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
+               device="cuda"):
+    """Empty cache for decode.
+
+    kv_quant=True stores attention KV int8 with per-row fp32 scales (the
+    reference's XLA-path form of distance-banded precision at t = 0)."""
+    _check_supported(cfg)
+    c = cfg.n_cycles
+    kv, hd = cfg.n_kv_heads, cfg.d_head
+    w = min(cfg.swa_window or max_len, max_len)
+    dt = torch.int8 if kv_quant else CACHE_DTYPE
+    cache = {}
+    for i in range(len(cfg.block_pattern)):
+        entry = {name: torch.zeros((c, batch, w, kv, hd), dtype=dt,
+                                   device=device) for name in ("k", "v")}
+        if kv_quant:
+            for name in ("k_scale", "v_scale"):
+                entry[name] = torch.zeros((c, batch, w, kv),
+                                          dtype=torch.float32, device=device)
+        if cfg.swa_window is not None:
+            entry["pos"] = torch.full((c, w), -1, dtype=torch.int32,
+                                      device=device)
+        cache[f"b{i}"] = entry
+    return cache
+
+
+def quantize_rows(t):
+    """Symmetric int8 per row of the last axis: (int8 values, fp32 scales)."""
+    sc = torch.amax(torch.abs(t), dim=-1) / 127.0 + 1e-12
+    return torch.round(t / sc[..., None]).to(torch.int8), sc
+
+
+def _decode_attn(p, x, cfg, cache, pos: int):
+    """Single-token GQA attention against one layer's cache (written in
+    place at the token's slot). x: (B, 1, d)."""
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = h // kv
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+
+    w = cache["k"].shape[1]
+    slot = pos % w if cfg.swa_window is not None else pos
+    if not 0 <= slot < w:
+        raise ValueError(f"position {pos} is past the cache's {w} slots")
+    quant = "k_scale" in cache
+    if quant:
+        k_q, k_sc = quantize_rows(k.float())
+        v_q, v_sc = quantize_rows(v.float())
+        cache["k"][:, slot] = k_q[:, 0]
+        cache["v"][:, slot] = v_q[:, 0]
+        cache["k_scale"][:, slot] = k_sc[:, 0]
+        cache["v_scale"][:, slot] = v_sc[:, 0]
+        ck = cache["k"].to(dt) * cache["k_scale"][..., None].to(dt)
+        cv = cache["v"].to(dt) * cache["v_scale"][..., None].to(dt)
+    else:
+        cache["k"][:, slot] = k[:, 0].to(CACHE_DTYPE)
+        cache["v"][:, slot] = v[:, 0].to(CACHE_DTYPE)
+        ck, cv = cache["k"].to(dt), cache["v"].to(dt)
+    if cfg.swa_window is not None:
+        cpos = cache["pos"]
+        cpos[slot] = pos
+        valid = (cpos >= 0) & (cpos > pos - cfg.swa_window)
+    else:
+        valid = torch.arange(w, device=x.device) <= pos
+
+    qg = q.reshape(b, 1, kv, g, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), ck.float())
+    scores = scores / math.sqrt(hd)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    wts = torch.softmax(scores, dim=-1).to(dt)
+    out = torch.einsum("bkgst,btkh->bskgh", wts, cv).reshape(b, 1, h, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def _decode_block(p, x, cfg, cache, pos: int):
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + _decode_attn(p["inner"], h, cfg, cache, pos)
+    if "ffn" in p:
+        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x
+
+
+def decode_step(params, cache, tokens, pos: int, cfg, *,
+                compute_dtype=torch.bfloat16):
+    """One decode step. tokens: (B, 1) integer; pos: the token's position.
+    Returns (logits (B, 1, vocab) fp32, cache), the cache updated in place."""
+    _check_supported(cfg)
+    x = params["embed"][tokens].to(compute_dtype)
+    for c in range(cfg.n_cycles):
+        cyc_params = cycle_slice(params["cycles"], c)
+        cyc_cache = cycle_slice(cache, c)
+        for i in range(len(cfg.block_pattern)):
+            x = _decode_block(cyc_params[f"b{i}"], x, cfg, cyc_cache[f"b{i}"],
+                              pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed_logits(params, x, cfg), cache
+
+
+# ------------------------------------------------------------- prefill
+
+def _prefill_entry(cfg, kr, v, s_tot: int):
+    """One layer's cache entry from its rope'd k and its v (B, S, KV, hd)."""
+    w = cfg.swa_window
+    if w is not None and w < s_tot:
+        return {"k": kr[:, -w:].to(CACHE_DTYPE),
+                "v": v[:, -w:].to(CACHE_DTYPE),
+                "pos": torch.arange(s_tot - w, s_tot, dtype=torch.int32,
+                                    device=kr.device)}
+    if w is not None:
+        pad = w - s_tot
+        return {"k": F.pad(kr, (0, 0, 0, 0, 0, pad)).to(CACHE_DTYPE),
+                "v": F.pad(v, (0, 0, 0, 0, 0, pad)).to(CACHE_DTYPE),
+                "pos": torch.cat([
+                    torch.arange(s_tot, dtype=torch.int32, device=kr.device),
+                    torch.full((pad,), -1, dtype=torch.int32,
+                               device=kr.device)])}
+    return {"k": kr.to(CACHE_DTYPE), "v": v.to(CACHE_DTYPE)}
+
+
+def prefill(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
+    """Process a full prompt, returning (logits (B, 1, vocab), cache) ready
+    for decode.
+
+    The cache covers exactly the prompt length (padded or trimmed to the
+    SWA window for SWA archs); decode continues at pos = S.  Only the last
+    position's logits are computed: (B, S, vocab) fp32 is GiBs at 8k.
+    """
+    _check_supported(cfg)
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(compute_dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cache = {}
+    for c in range(cfg.n_cycles):
+        cyc = cycle_slice(params["cycles"], c)
+        for i in range(len(cfg.block_pattern)):
+            p = cyc[f"b{i}"]
+            h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+            # run attention AND capture rope'd k/v for the cache
+            k = torch.einsum("bsd,dhk->bshk", h, p["inner"]["wk"].to(h.dtype))
+            v = torch.einsum("bsd,dhk->bshk", h, p["inner"]["wv"].to(h.dtype))
+            if cfg.qk_norm:
+                k = rmsnorm(p["inner"]["k_norm"], k, cfg.norm_eps)
+            kr = rope(k, positions, cfg.rope_theta)
+            x = x + attention(p["inner"], h, cfg, positions=positions)
+            entry = _prefill_entry(cfg, kr, v, s)
+            if c == 0:  # stacked storage, filled one cycle at a time
+                cache[f"b{i}"] = {
+                    name: torch.empty((cfg.n_cycles,) + t.shape, dtype=t.dtype,
+                                      device=t.device)
+                    for name, t in entry.items()}
+            for name, t in entry.items():
+                cache[f"b{i}"][name][c] = t
+            if "ffn" in p:
+                x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return unembed_logits(params, x, cfg), cache

@@ -1,0 +1,109 @@
+"""Full-model init + forward of the decoder-only LM (inference).
+
+The port of `repro.models.transformer` for the dense attention family:
+layers are grouped into cycles (`cfg.block_pattern`) and the per-cycle
+params are stacked on a leading "cycles" axis, the reference's tree, so
+its weights carry across unchanged (`interop.lm_params_from_numpy`).
+The forward pass loops over that axis where the reference scans.
+
+Not ported yet (ROADMAP A11): the mamba / mLSTM / sLSTM mixers, MoE FFNs,
+the whisper encoder and cross-attention, the vision stub, remat and
+`lm_loss`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .layers import (_init, attention, attention_init, mlp, mlp_init, rmsnorm,
+                     rmsnorm_init)
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP A11")
+
+
+def _check_supported(cfg) -> None:
+    if cfg.enc_dec:
+        raise _not_ported("the encoder-decoder (whisper) family")
+    if cfg.frontend is not None:
+        raise _not_ported(f"the {cfg.frontend} frontend")
+    for i, bt in enumerate(cfg.block_pattern):
+        if bt != "attn":
+            raise _not_ported(f"the {bt} mixer")
+        if cfg.layer_is_moe(i):
+            raise _not_ported("the MoE FFN")
+
+
+def cycle_slice(tree, c: int):
+    """The same nested dict with every leaf indexed at cycle c (views, so
+    writes into a cache slice land in the stacked tensor)."""
+    if isinstance(tree, dict):
+        return {k: cycle_slice(v, c) for k, v in tree.items()}
+    return tree[c]
+
+
+def _block_init(gen, cfg, idx_in_pattern: int, *, stack=(), device="cuda"):
+    """An attention block (the only kind ported: `_check_supported`)."""
+    kw = dict(stack=stack, device=device)
+    p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
+         "inner": attention_init(gen, cfg, **kw)}
+    if cfg.d_ff > 0:
+        p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
+        p["ffn"] = mlp_init(gen, cfg, **kw)
+    return p
+
+
+def _apply_block(p, x, cfg, *, positions):
+    """One attention block: mixer + optional FFN, pre-norm residuals.  (The
+    reference also returns the MoE aux loss and the SSM state, neither of
+    which an attention block has.)"""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + attention(p["inner"], h, cfg, positions=positions)
+    if "ffn" in p:
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp(p["ffn"], h)
+    return x
+
+
+# --------------------------------------------------------------- init
+
+def init_lm(gen, cfg, *, device="cuda"):
+    """Random fp32 params from `gen` (a torch.Generator on `device`), in the
+    reference's tree: embed, [unembed], final_norm, cycles/b{i}/..., each
+    leaf of `cycles` with a leading (n_cycles,) axis."""
+    _check_supported(cfg)
+    p = {"embed": _init(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                        device=device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = _init(gen, (cfg.d_model, cfg.vocab), device=device)
+    p["final_norm"] = rmsnorm_init(cfg.d_model, device=device)
+    p["cycles"] = {f"b{i}": _block_init(gen, cfg, i, stack=(cfg.n_cycles,),
+                                        device=device)
+                   for i in range(len(cfg.block_pattern))}
+    return p
+
+
+# ------------------------------------------------------------- forward
+
+def unembed_logits(params, x, cfg):
+    """fp32 logits of x (..., d) in the compute dtype."""
+    unembed = (params["embed"].T if cfg.tie_embeddings
+               else params["unembed"]).to(x.dtype)
+    return (x @ unembed).float()
+
+
+def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
+    """tokens: (B, S) integer -> (logits (B, S, vocab) fp32, aux loss); the
+    aux loss is 0 without MoE layers."""
+    _check_supported(cfg)
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(compute_dtype)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for c in range(cfg.n_cycles):
+        cyc = cycle_slice(params["cycles"], c)
+        for i in range(len(cfg.block_pattern)):
+            x = _apply_block(cyc[f"b{i}"], x, cfg, positions=positions)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed_logits(params, x, cfg), aux

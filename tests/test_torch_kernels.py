@@ -25,6 +25,7 @@ from repro_torch.kernels.blocked_potrf import blocked_potrf as potrf_kernel
 from repro_torch.kernels.blocked_potrf import ops as potrf_ops
 from repro_torch.kernels.blocked_potrf import ref as potrf_ref
 from repro_torch.kernels.matern_cov import matern_cov as matern_kernel
+from repro_torch.kernels.mp_attention import mp_attention as attn_kernel
 from repro_torch.kernels.matern_cov import ops as matern_ops
 from repro_torch.kernels.matern_cov import ref as matern_ref
 from repro_torch.kernels.mp_gemm import mp_gemm as syrk_kernel
@@ -215,7 +216,7 @@ def test_ops_on_cpu_are_the_plain_versions_and_launch_nothing():
     torch.testing.assert_close(syrk_ops.mp_syrk(p, **kw),
                                syrk_ref.mp_syrk(p, **kw), rtol=0, atol=0)
     assert launch_counts() == {"matern_cov": 0, "blocked_potrf": 0,
-                               "mp_syrk": 0}
+                               "mp_syrk": 0, "mp_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -230,6 +231,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         syrk_kernel.launch(torch.ones(128, 64), tile=64, round_k=64,
                            band_blocks=1, hi=torch.float32, lo=torch.bfloat16,
                            accum=torch.float32)
+    q = torch.zeros((2, 4, 64))
+    kv = torch.zeros((2, 128, 64), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_kernel.launch(q, kv, kv, torch.ones((2, 1, 2)),
+                           torch.full((2,), 128, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="haversine"):
         matern_kernel.launch(locs, locs, [1.0, 0.1], nu=0.5, out=out,
                              outer=False, metric="haversine")
@@ -237,7 +243,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         matern_kernel.launch(locs, locs, [1.0, 0.1], nu=1.3, out=out,
                              outer=False)
     assert launch_counts() == {"matern_cov": 0, "blocked_potrf": 0,
-                               "mp_syrk": 0}
+                               "mp_syrk": 0, "mp_attention": 0}
 
 
 def _c_params(name):

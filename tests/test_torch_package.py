@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch.configs.llama3_2_1b import SMOKE
 from repro_torch.covariance import make_dataset
+from repro_torch.models import init_cache, init_lm
+from repro_torch.serve_lm import generate
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -72,6 +75,21 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((RuntimeError, AssertionError)):
         make_dataset(torch.Generator(device="cuda"), 64, [1.0, 0.1, 0.5],
                      nu_static=0.5)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_lm(torch.Generator(), SMOKE)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_cache(SMOKE, 1, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        interop.lm_params_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+
+
+def test_generate_computes_on_the_device_of_its_inputs():
+    # generate takes tensors: on CPU tensors it runs there, kernels unused
+    params = init_lm(torch.Generator().manual_seed(0), SMOKE, device="cpu")
+    ids, cache = generate(params, SMOKE, torch.zeros((1, 4), dtype=torch.long),
+                          2, compute_dtype=torch.float32)
+    assert ids.device.type == "cpu" and ids.shape == (1, 2)
+    assert cache["b0"]["k"].device.type == "cpu"
 
 
 def test_interop_carries_data_and_policy_on_request():
