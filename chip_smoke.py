@@ -11,9 +11,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      at the main path's shapes, with errors, tolerances and CUDA-event times
      (kernel, plain version, one library call where one computes the same
      function) and the bound: the least time the card could take;
+     blocked_potrf at nb in {32, 128, 520, 1000, 1024} (batch 8; 520, 1000
+     and 1024 also batch 1), and indefinite tiles at nb = 128 and at
+     nb = 1024 with the bad pivot in the last panel;
      3b. mp_attention (banded-precision flash decode) against its plain
      version on the kernel tests' shapes, logit scales, ragged lengths
-     (an empty far segment among them) and fp32 / bf16 near K/V;
+     (an empty far segment among them) and fp32 / bf16 near K/V, and at
+     the served segment sizes with B*KV = 1 and 32: ragged lengths that
+     end mid-chunk, chunks wholly past the end, seg_len = 0;
   4. main path: geostat_loglik_step at n = 65536, nb = 1024, band t = 8,
      {fp32 band, bf16 off-band}, three requests (theta), each through the
      kernels and through the plain versions; launch counts, log-likelihoods,
@@ -26,7 +31,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      seed), batch 4 x 8,192-token prompts, 64 greedy tokens (bf16 compute),
      then every layer's served cache through the banded-precision attention
      (near 1,024 positions bf16, the rest int8 blocks of 128) against its
-     plain version and exact attention, with launch counts and times;
+     plain version and exact attention, with launch counts, times and the
+     device time of the segment launches under the profiler;
 then the card's name and power limit, one JSON line of every kernel's
 numbers, and last the result line.
 """
@@ -213,12 +219,28 @@ def spd_batch(gen, b, nb, *, indefinite=False):
     return ((q * eigs) @ q.mT).float().contiguous()
 
 
+def indefinite_at(a, j):
+    """a (nb, nb) SPD fp32 tile with a[j, j] lowered so that its (j + 1)-th
+    pivot is -1 and the leading j pivots are those of a."""
+    import torch
+    a = a.clone()
+    a64 = a.double()
+    lead = torch.linalg.cholesky(a64[:j, :j])
+    x = torch.linalg.solve_triangular(lead, a64[:j, j:j + 1], upper=False)
+    a[j, j] = float(a64[j, j] - (x * x).sum() - 1.0)  # pivot d_j - d_j - 1
+    return a
+
+
 def check_potrf(gen, nb_main, results):
     import torch
     from repro_torch.kernels.blocked_potrf import ops, ref
     worst = 0.0
-    for nb in sorted({32, 128, 1024, nb_main}):
-        a = spd_batch(gen, 8, nb)
+    # batch 8 at every size, batch 1 where the grid path's ragged last panel
+    # (nb not a multiple of 64) or the main path's single tile is exercised
+    cases = [(nb, 8) for nb in sorted({32, 128, 520, 1000, 1024, nb_main})]
+    cases += [(520, 1), (1000, 1), (nb_main, 1)]
+    for nb, batch in cases:
+        a = spd_batch(gen, batch, nb)
         l, info = ops.potrf(a)
         want, info_ref = ref.potrf(a)
         require(int(info.abs().sum()) == 0 and int(info_ref.abs().sum()) == 0,
@@ -228,19 +250,41 @@ def check_potrf(gen, nb_main, results):
         l64, a64 = l.double(), a.double()
         back = float(((l64 @ l64.mT - a64).norm(dim=(-2, -1))
                       / a64.norm(dim=(-2, -1))).max())
-        require(rel <= 1e-3 and back <= 1e-4,
-                f"potrf nb={nb}: max_rel {rel}, backward {back}")
+        upper = bool((torch.triu(l, diagonal=1) == 0).all())
+        require(rel <= 1e-3 and back <= 1e-4 and upper,
+                f"potrf nb={nb} batch={batch}: max_rel {rel}, backward {back}, "
+                f"upper zero {upper}")
         worst = max(worst, float((l - want).abs().max()))
-        emit(phase="kernels", kernel="blocked_potrf", nb=nb, batch=8,
+        emit(phase="kernels", kernel="blocked_potrf", nb=nb, batch=batch,
              max_rel=rel, backward_rel=back)
+    # indefinite tiles: at nb = 128 (one-block path) a negative eigenvalue;
+    # at nb = 1024 (grid path) a bad pivot in the last panel, at column
+    # 1001, beside an SPD tile: the same info as the plain version, and
+    # only the failed tile all NaN
     a = spd_batch(gen, 2, 128, indefinite=True)
     l, info = ops.potrf(a)
     _, info_ref = ref.potrf(a)
     require(bool((info > 0).all()) and bool((info_ref > 0).all()),
             f"potrf indefinite: info {info.tolist()} / {info_ref.tolist()}")
     require(bool(torch.isnan(l).all()), "potrf indefinite: factor not NaN")
-    emit(phase="kernels", kernel="blocked_potrf", indefinite=True,
+    emit(phase="kernels", kernel="blocked_potrf", indefinite=True, nb=128,
          info=info.tolist(), info_plain=info_ref.tolist())
+    a = spd_batch(gen, 2, 1024)
+    a[1] = indefinite_at(a[1], 1000)
+    for batch in (2, 1):
+        x = a[2 - batch:].contiguous()
+        l, info = ops.potrf(x)
+        want, info_ref = ref.potrf(x)
+        require(info.tolist() == info_ref.tolist() and info[-1] == 1001,
+                f"potrf nb=1024 indefinite: info {info.tolist()} / "
+                f"{info_ref.tolist()}")
+        require(bool(torch.isnan(l[-1]).all()), "potrf nb=1024: factor not NaN")
+        if batch == 2:
+            require(bool(torch.isfinite(l[0]).all())
+                    and scale_rel(l[0], want[0]) <= 1e-3,
+                    "potrf nb=1024: the SPD tile beside a failed one")
+        emit(phase="kernels", kernel="blocked_potrf", indefinite=True, nb=1024,
+             batch=batch, info=info.tolist(), info_plain=info_ref.tolist())
     # timing at the main path's shape: one tile of nb_main per launch
     a1 = spd_batch(gen, 1, nb_main)[0]
     ms = time_ms(lambda: ops.potrf(a1))
@@ -609,6 +653,42 @@ def check_attention(gen, results):
              q_dtype=str(q_dt), max_abs_vs_plain=vs_plain,
              max_abs_vs_oracle=vs_oracle, bound=ATTN_MAX_ABS,
              partials_rel=err["partials_rel"])
+    # the split-KV grid's schedules at the served segment sizes (near 1,152
+    # bf16 slots, far 7,168 int8 keys, blk 128): B*KV = 1 (one chunk per
+    # key block, the most chunks per row); B*KV = 32 with ragged lengths
+    # that end mid-chunk and leave whole chunks past the end, and rows with
+    # no valid key (seg_len = 0 over several chunks)
+    from repro_torch.kernels.mp_attention.mp_attention import split_plan
+    for b, lengths in ((1, "full"), (1, "ragged"), (1, "empty"),
+                       (32, "ragged")):
+        g, d, sn, sf, blk = 4, 64, 1152, 7168, 128
+        q = randn(b, g, d)
+        kn, vn = randn(b, sn, d).bfloat16(), randn(b, sn, d).bfloat16()
+        kq, vq, sc = ops.quantize_kv(randn(b, sf, d), randn(b, sf, d), blk=blk)
+        near_len = torch.full((b,), sn, dtype=torch.int32, device="cuda")
+        far_len = torch.full((b,), sf, dtype=torch.int32, device="cuda")
+        far_chunk = split_plan(b, sf, blk)[0]
+        if lengths == "ragged":  # mid-chunk ends, chunks wholly past them
+            near_len = torch.randint(1, sn + 1, (b,), generator=gen,
+                                     device="cuda").int()
+            far_len = (torch.randint(0, sf // far_chunk, (b,), generator=gen,
+                                     device="cuda") * far_chunk
+                       + far_chunk // 2 + 3).int()
+            far_len[0] = 0 if b > 1 else far_len[0]
+            near_len[-1] = 1
+        elif lengths == "empty":
+            far_len.zero_()
+        segs = (kn, vn, near_len, kq, vq, sc, far_len)
+        err = _attn_errors(q, segs, blk=blk, sm_scale=d ** -0.5)
+        vs_plain, vs_oracle = err["vs_plain"], err["vs_oracle"]
+        require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
+                f"mp_attention split B={b} {lengths}: {vs_plain}, {vs_oracle}")
+        worst = max(worst, vs_plain)
+        emit(phase="kernels", kernel="mp_attention", shape=(b, g, d, sn, sf, blk),
+             lengths=lengths, n_split_near=split_plan(b, sn, blk)[1],
+             n_split_far=split_plan(b, sf, blk)[1], max_abs_vs_plain=vs_plain,
+             max_abs_vs_oracle=vs_oracle, bound=ATTN_MAX_ABS,
+             partials_rel=err["partials_rel"])
     results["mp_attention"] = dict(
         name="mp_attention", route="cuda",
         source="src/repro_torch/csrc/mp_attention.cu",
@@ -783,6 +863,12 @@ def serving(scfg, results):
             fn(q, kn, vn, None, near_len, **kw)
             fn(q, kf, vf, sc, far_len, **kw)
     ms = time_ms(lambda: segments_all(launch)) / n_layers
+    # the same launches under the profiler: device time by kernel against
+    # wall time says how much of `ms` is the wrapper's host work
+    wall_ms, busy, rows = device_profile(lambda: segments_all(launch))
+    emit(phase="serving_profile", what="mp_attention segments, all layers",
+         wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+         top=[{"name": k[:90], "count": c, "ms": ms_} for k, c, ms_ in rows[:6]])
     plain_ms = time_ms(lambda: segments_all(ref.flash_decode_segment)) / n_layers
     merged_ms = time_ms(lambda: [ops.banded_decode_attention(q, *sg, **kw)
                                  for sg in layer_segs]) / n_layers

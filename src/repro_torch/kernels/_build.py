@@ -39,14 +39,14 @@ SIGNATURES = {
     # min_lag, th1, th2, nu_code, out_bf16, stream
     "matern_cov_launch": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
                           _I, _F, _F, _I, _I, _P],
-    # a, out, info, batch, nb, stream
-    "blocked_potrf_launch": [_P, _P, _P, _I, _I, _P],
+    # a, out, info, batch, nb, max_blocks, stream
+    "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
     # p, out, m, kdim, tile, round_k, band_blocks, lo_bf16, stream
     "mp_syrk_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, scales, seg_len, acc, m, l, batch, g, d, s, blk, sm_scale,
-    # q_bf16, kv_dtype, stream
-    "mp_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _F, _I, _I, _P],
+    # q, k, v, scales, seg_len, acc, m, l, ws_acc, ws_m, ws_l, batch, g, d,
+    # s, blk, chunk, sm_scale, q_bf16, kv_dtype, stream
+    "mp_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 

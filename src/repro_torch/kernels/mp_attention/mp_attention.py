@@ -4,9 +4,12 @@
 Replaces the Pallas TPU kernel
 `repro.kernels.mp_attention.mp_attention.flash_decode_segment`: the
 online-softmax partials (acc, m, l) of G query heads over one KV segment,
-int8 K/V dequantized in the kernel with per-(row, block) scales.  One
-thread block per row of B (batch * kv_heads); it walks the segment in
-tiles of TILE keys, so `blk` must be a multiple of TILE.
+int8 K/V dequantized in the kernel with per-(row, block) scales.  The
+grid is (B, n_split): each block takes one chunk of whole `blk`-key blocks
+of one row of B (batch * kv_heads) and walks it in tiles of TILE keys, so
+`blk` must be a multiple of TILE.  With more than one chunk per row a
+second launch combines the chunks' partials (two device launches per call,
+one count in LAUNCHES).
 """
 
 from __future__ import annotations
@@ -20,6 +23,21 @@ TILE = 64                 # keys per shared-memory tile of the kernel
 MAX_G = 16                # query heads per KV head
 HEAD_DIMS = (64, 128)
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+TARGET_BLOCKS = 528       # four blocks for each of the H100's 132 SMs
+
+
+def split_plan(b: int, s: int, blk: int) -> tuple[int, int]:
+    """(chunk, n_split): keys per block, a whole number of blk-key blocks,
+    and chunks per row, so that the (b, n_split) grid has at least
+    TARGET_BLOCKS blocks where the segment has enough blocks of keys.
+    Chunk i holds keys [i chunk, min((i + 1) chunk, s)); an empty segment
+    is one empty chunk."""
+    if b < 1 or blk < TILE or blk % TILE or s < 0 or s % blk:
+        raise ValueError(f"mp_attention kernel: needs B >= 1, blk % {TILE} "
+                         f"== 0 and S % blk == 0; got B={b}, blk={blk}, S={s}")
+    n_blk = s // blk
+    per_chunk = max(1, n_blk * b // TARGET_BLOCKS)
+    return per_chunk * blk, max(1, -(-n_blk // per_chunk))
 
 
 def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
@@ -50,9 +68,7 @@ def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
         raise NotImplementedError(
             f"mp_attention kernel: G={g}, d={d}; it takes G <= {MAX_G} and "
             f"d in {HEAD_DIMS}")
-    if b < 1 or blk % TILE or s % blk:
-        raise ValueError(f"mp_attention kernel: needs B >= 1, blk % {TILE} "
-                         f"== 0 and S % blk == 0; got B={b}, blk={blk}, S={s}")
+    chunk, n_split = split_plan(b, s, blk)
     if (k.dtype == torch.int8) != (scales is not None):
         raise ValueError("mp_attention kernel: int8 K/V take scales, "
                          "float K/V take none")
@@ -67,14 +83,19 @@ def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("mp_attention kernel: k and v must be 16-byte aligned")
     acc = torch.empty((b, g, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, g, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, g, 1), dtype=torch.float32, device=q.device)
+    m, l = torch.empty((2, b, g, 1), dtype=torch.float32, device=q.device)
+    ws = [None] * 3  # the chunks' partials (acc, m, l), for the second launch
+    if n_split > 1:
+        parts = b * n_split * g
+        buf = torch.empty((parts * (d + 2),), dtype=torch.float32,
+                          device=q.device)
+        ws = [buf.data_ptr() + 4 * off for off in (0, parts * d, parts * (d + 1))]
     status = library().mp_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if scales is None else scales.data_ptr(), seg_len.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, g, d, s, blk,
-        float(sm_scale), int(q.dtype == torch.bfloat16), KV_CODES[k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), *ws, b, g, d, s, blk,
+        chunk, float(sm_scale), int(q.dtype == torch.bfloat16),
+        KV_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     check(status, "mp_attention")
     LAUNCHES["mp_attention"] += 1
     return acc, m, l

@@ -37,17 +37,8 @@ def quantize_kv(k, v, *, blk: int = 128):
 
 def merge_partials(parts):
     """Combine per-segment (acc, m, l) with the log-sum-exp merge."""
-    accs, ms, ls = zip(*parts)
-    m_tot = ms[0]
-    for m in ms[1:]:
-        m_tot = torch.maximum(m_tot, m)
-    num = torch.zeros_like(accs[0])
-    den = torch.zeros_like(ls[0])
-    for acc, m, l in parts:
-        w = torch.exp(m - m_tot)
-        num = num + acc * w
-        den = den + l * w
-    return num / den
+    acc, _, l = ref.combine_chunks(parts)
+    return acc / l
 
 
 def flash_decode_segment(q, k, v, scales, seg_len, *, blk: int = 128,

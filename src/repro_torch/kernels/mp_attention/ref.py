@@ -46,6 +46,51 @@ def flash_decode_segment(q, k, v, scales, seg_len, *, blk: int = 128,
     return acc, m, l
 
 
+def combine_chunks(parts):
+    """The segment's (acc, m, l) from the partials of its key chunks, in
+    chunk order: m = max m_c, acc = sum acc_c exp(m_c - m), l = sum l_c
+    exp(m_c - m).  The plain counterpart of the CUDA kernel's combine
+    step."""
+    m_tot = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_tot = torch.maximum(m_tot, m)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for acc_c, m, l_c in parts:
+        w = torch.exp(m - m_tot)
+        acc = acc + acc_c * w
+        l = l + l_c * w
+    return acc, m_tot, l
+
+
+def flash_decode_segment_split(q, k, v, scales, seg_len, *, chunk: int,
+                               blk: int = 128, sm_scale: float = 1.0):
+    """flash_decode_segment computed as the split-KV kernel does: one
+    partial per chunk of `chunk` keys (a multiple of blk), combined by
+    combine_chunks.  With no valid key every chunk reads its keys (l = its
+    length); otherwise a chunk wholly past seg_len reads nothing and gives
+    (acc = 0, m = -1e30, l = 0)."""
+    s = k.shape[1]
+    if chunk < blk or chunk % blk or s % blk:
+        raise ValueError(f"chunk {chunk} is not a multiple of blk={blk} "
+                         f"dividing S={s}")
+    seg_len = seg_len.to(torch.int64)
+    parts = []
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        sc = None if scales is None else scales[:, c0 // blk:c1 // blk]
+        local = (seg_len - c0).clamp(0, c1 - c0)
+        acc, m, l = flash_decode_segment(q, k[:, c0:c1], v[:, c0:c1], sc, local,
+                                         blk=blk, sm_scale=sm_scale)
+        past = ((seg_len > 0) & (seg_len <= c0))[:, None, None]
+        parts.append((acc.masked_fill(past, 0.0), m.masked_fill(past, NEG_INF),
+                      l.masked_fill(past, 0.0)))
+    if not parts:  # an empty segment: the unsplit version's zeros
+        return flash_decode_segment(q, k, v, scales, seg_len, blk=blk,
+                                    sm_scale=sm_scale)
+    return combine_chunks(parts)
+
+
 def banded_decode_attention_ref(q, k_near, v_near, near_len,
                                 k_far, v_far, far_scales, far_len, *,
                                 blk: int = 128, sm_scale: float = 1.0):
