@@ -13,7 +13,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      function) and the bound: the least time the card could take;
      blocked_potrf at nb in {32, 128, 520, 1000, 1024} (batch 8; 520, 1000
      and 1024 also batch 1), and indefinite tiles at nb = 128 and at
-     nb = 1024 with the bad pivot in the last panel;
+     nb = 1024 with the bad pivot in the last panel; mp_syrk at the
+     conformance sweep's shapes and with round_k < kdim, lo bf16 and fp32,
+     each U equal to its transpose, and at the main path's step 0 (U = U^T
+     slab by slab, bit for bit), timed at m_t in {63, 32, 8} tile rows
+     with the device time of each of its kernels at step 0;
      3b. mp_attention (banded-precision flash decode) against its plain
      version on the kernel tests' shapes, logit scales, ragged lengths
      (an empty far segment among them) and fp32 / bf16 near K/V, and at
@@ -55,6 +59,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
+# the kernels of one mp_syrk call, as the profiler names them
+SYRK_KERNELS = ("syrk_band_fp32_lower_kernel", "syrk_offband_bf16_wgmma_kernel",
+                "to_bf16_kernel")
 QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
 # phase 7: batch, prompt length, generated tokens, near window, key block
 SERVE = dict(batch=4, prompt=8_192, new=64, near=1_024, blk=128)
@@ -340,24 +347,58 @@ def _syrk_errors(out, want, p, *, tile, round_k, band):
     return band_num / max(band_den, 1e-30), off_ratio, max_abs
 
 
+def syrk_flops(n_t, nb, t):
+    """(in-band, off-band) flops of a SYRK of P = (n_t nb, nb), tile = nb:
+    2 nb per dot product, nb^2 of them in a lower tile off the diagonal and
+    nb (nb + 1) / 2 in a diagonal tile, since U is symmetric."""
+    in_band, off_band = syrk_products(n_t, t)
+    whole, diag = nb * nb, nb * (nb + 1) // 2
+    return (2 * nb * ((in_band - n_t) * whole + n_t * diag),
+            2 * nb * off_band * whole)
+
+
+def syrk_bounds(n_t, nb, t):
+    """Least ms of the two SYRK kernels on P = (n_t nb, nb), tile = nb: each
+    the larger of its flops at the peak of their type (fp32 in the band,
+    bf16 off it) and its bytes: P read once and its part of the fp32 square
+    written, each lower tile and its mirror, a diagonal tile once."""
+    in_band, off_band = syrk_products(n_t, t)
+    band_f, off_f = syrk_flops(n_t, nb, t)
+    tile_b, p_b = 4 * nb * nb, 4 * n_t * nb * nb
+    band = max(band_f / FP32_FLOPS,
+               (p_b + (2 * in_band - n_t) * tile_b) / HBM_BYTES_PER_S)
+    off = max(off_f / BF16_FLOPS,
+              (p_b + 2 * off_band * tile_b) / HBM_BYTES_PER_S) if off_band else 0.0
+    return 1e3 * band, 1e3 * off
+
+
 def check_syrk(gen, m_main, nb, t, results):
     import torch
     from repro_torch.kernels.mp_gemm import ops, ref
     # the conformance sweep's small shapes (m, k, bm = tile, bk = round_k)
+    # and round_k < kdim at a larger tile, with lo = bf16 and lo = fp32
+    # (then every element is in the band); U must equal U^T exactly
     worst = 0.0
-    for m, k, bm, bk in ((128, 64, 64, 64), (256, 128, 64, 64),
-                         (256, 64, 128, 64)):
+    for m, k, bm, bk, bands in ((128, 64, 64, 64, (1, 2, 4)),
+                                (256, 128, 64, 64, (1, 2, 4)),
+                                (256, 64, 128, 64, (1, 2, 4)),
+                                (2048, 512, 512, 128, (1, 2))):
         p = torch.randn((m, k), generator=gen, device="cuda")
-        for band in (1, 2, 4):
-            kw = dict(tile=bm, round_k=bk, band_blocks=band)
-            out, want = ops.mp_syrk(p, **kw), ref.mp_syrk(p, **kw)
-            rel, ratio, mx = _syrk_errors(out, want, p, tile=bm, round_k=bk,
-                                          band=band)
-            require(rel <= 1e-5 and ratio <= 1.0,
-                    f"mp_syrk m={m} k={k} band={band}: rel {rel} off {ratio}")
-            worst = max(worst, mx)
-            emit(phase="kernels", kernel="mp_syrk", m=m, k=k, tile=bm,
-                 round_k=bk, band=band, inband_rel=rel, offband_err_over_tol=ratio)
+        for lo in (torch.bfloat16, torch.float32):
+            for band in bands if lo == torch.bfloat16 else bands[:1]:
+                kw = dict(tile=bm, round_k=bk, band_blocks=band, lo=lo)
+                out, want = ops.mp_syrk(p, **kw), ref.mp_syrk(p, **kw)
+                rel, ratio, mx = _syrk_errors(
+                    out, want, p, tile=bm, round_k=bk,
+                    band=band if lo == torch.bfloat16 else m // bm)
+                sym = bool(torch.equal(out, out.T))
+                require(rel <= 1e-5 and ratio <= 1.0 and sym,
+                        f"mp_syrk m={m} k={k} round_k={bk} band={band} lo={lo}: "
+                        f"rel {rel} off {ratio} symmetric {sym}")
+                worst = max(worst, mx)
+                emit(phase="kernels", kernel="mp_syrk", m=m, k=k, tile=bm,
+                     round_k=bk, band=band, lo=str(lo), inband_rel=rel,
+                     offband_err_over_tol=ratio, symmetric=sym)
     # step 0 of the main path: P is (m_main, nb), tile = round_k = nb
     p = torch.randn((m_main, nb), generator=gen, device="cuda")
     kw = dict(tile=nb, round_k=nb, band_blocks=t)
@@ -367,36 +408,70 @@ def check_syrk(gen, m_main, nb, t, results):
     require(rel <= 1e-5 and ratio <= 1.0,
             f"mp_syrk step-0 shape: rel {rel} off {ratio}")
     worst = max(worst, mx)
-    del out, want
-    ms = time_ms(lambda: ops.mp_syrk(p, **kw))
-    plain_ms = time_ms(lambda: ref.mp_syrk(p, **kw))
+    del want
+    # U equals U^T bit for bit, one slab of tile rows at a time
+    for r0 in range(0, m_main, nb):
+        require(torch.equal(out[r0:r0 + nb], out[:, r0:r0 + nb].T),
+                f"mp_syrk step-0 shape: U != U^T in rows {r0}..{r0 + nb}")
+    del out
     n_t = m_main // nb
-    pb = p.to(torch.bfloat16)
-    lib_bf16_ms = time_ms(lambda: torch.matmul(pb, pb.T))
 
-    def fp32_band():
-        for i in range(n_t):
-            cols = slice(max(0, i - t + 1) * nb, min(n_t, i + t) * nb)
-            torch.matmul(p[i * nb:(i + 1) * nb], p[cols].T)
-    lib_fp32_ms = time_ms(fp32_band)
-    in_band, off_band = syrk_products(n_t, t)
-    in_flops = 2 * nb * in_band * nb * nb
-    off_flops = 2 * nb * off_band * nb * nb
-    ops_s = in_flops / FP32_FLOPS + off_flops / BF16_FLOPS
-    bytes_s = (p.numel() * 4 + m_main * m_main * 4) / HBM_BYTES_PER_S
-    bound_ms = 1e3 * max(ops_s, bytes_s)
+    def library(m_t, lower):
+        """The yardstick (torch.matmul, P cast to bf16 beforehand): per tile
+        row its fp32 band slab and its bf16 slab left of the band, over the
+        lower tiles as the kernels compute them; or (lower=False, as PR 13
+        timed it) a bf16 square and the fp32 band slabs on both sides."""
+        pt = p[:m_t * nb]
+        pb = pt.to(torch.bfloat16)
+
+        def run():
+            if not lower:
+                torch.matmul(pb, pb.T)
+            for i in range(m_t):
+                rows, c0 = slice(i * nb, (i + 1) * nb), max(0, i - t + 1) * nb
+                c1 = (i + 1 if lower else min(m_t, i + t)) * nb
+                torch.matmul(pt[rows], pt[c0:c1].T)
+                if lower and c0:
+                    torch.matmul(pb[rows], pb[:c0].T)
+        return time_ms(run)
+
+    # the kernel and the yardstick at steps of the main path (m_t tile
+    # rows; --quick has fewer than 32), the plain version at step 0 only
+    steps = {}
+    for m_t in dict.fromkeys((n_t, min(32, n_t), min(8, n_t))):
+        pt = p[:m_t * nb]
+        band_ms, off_ms = syrk_bounds(m_t, nb, t)
+        band_f, off_f = syrk_flops(m_t, nb, t)
+        # fp32 and bf16 run on separate units at once: the larger bounds
+        ops_s = max(band_f / FP32_FLOPS, off_f / BF16_FLOPS)
+        bytes_s = (pt.numel() + (m_t * nb) ** 2) * 4 / HBM_BYTES_PER_S
+        steps[m_t] = dict(ms=time_ms(lambda: ops.mp_syrk(pt, **kw)),
+                          library_ms=library(m_t, lower=True),
+                          library_full_ms=library(m_t, lower=False),
+                          bound_ms=1e3 * max(ops_s, bytes_s),
+                          bound_by="operations" if ops_s >= bytes_s else "bytes",
+                          band_bound_ms=band_ms, offband_bound_ms=off_ms)
+        emit(phase="kernels", kernel="mp_syrk", m_t=m_t, m=m_t * nb, k=nb,
+             tile=nb, round_k=nb, band=t, **steps[m_t])
+    plain_ms = time_ms(lambda: ref.mp_syrk(p, **kw))
+    # device time of each of the call's kernels at step 0
+    _, busy, rows = device_profile(lambda: ops.mp_syrk(p, **kw))
+    device = {name: sum(ms_ for k_, _, ms_ in rows if name in k_)
+              for name in SYRK_KERNELS}
+    s0 = steps[n_t]
     emit(phase="kernels", kernel="mp_syrk", m=m_main, k=nb, tile=nb,
-         round_k=nb, band=t, inband_rel=rel, offband_err_over_tol=ratio, ms=ms,
-         plain_ms=plain_ms, library_bf16_square_ms=lib_bf16_ms,
-         library_fp32_band_ms=lib_fp32_ms, bound_ms=bound_ms,
-         inband_bound_ms=1e3 * in_flops / FP32_FLOPS,
-         offband_bound_ms=1e3 * off_flops / BF16_FLOPS)
+         round_k=nb, band=t, inband_rel=rel, offband_err_over_tol=ratio,
+         symmetric=True, ms=s0["ms"], plain_ms=plain_ms,
+         library_ms=s0["library_ms"], library_full_ms=s0["library_full_ms"],
+         bound_ms=s0["bound_ms"], device_ms=device, device_busy_ms=busy,
+         band_bound_ms=s0["band_bound_ms"],
+         offband_bound_ms=s0["offband_bound_ms"])
     results["mp_syrk"] = dict(
         name="mp_syrk", route="cuda", source="src/repro_torch/csrc/mp_syrk.cu",
         replaces="src/repro/kernels/mp_gemm/mp_gemm.py:52",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="operations" if ops_s >= bytes_s else "bytes",
-        library_ms=lib_bf16_ms + lib_fp32_ms)
+        max_abs_err=worst, ms=s0["ms"], plain_ms=plain_ms,
+        bound_ms=s0["bound_ms"], bound_by=s0["bound_by"],
+        library_ms=s0["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -489,19 +564,21 @@ def profile_evaluation(ds, cfg, policy, theta):
         ds.locs, ds.z, theta, nb=cfg["nb"], policy=policy, nu_static=cfg["nu"],
         off_update=cfg["off_update"])))
     # the evaluation's SYRK work: lower-triangle tile products in and off
-    # the band, summed over the p - 1 steps, and their bounds at the fp32
-    # and bf16 peaks
+    # the band, summed over the p - 1 steps, each kernel's device time and
+    # its bound: the larger of operations at the peak of their type and the
+    # bytes of its part of the fp32 square (lower and mirror), per step
     nb = cfg["nb"]
     p, t = cfg["n"] // nb, min(cfg["t"], cfg["n"] // nb)
     products = [syrk_products(m_t, t) for m_t in range(1, p)]
-    in_band = sum(i for i, _ in products)
-    off_band = sum(o for _, o in products)
-    flops = 2 * nb ** 3
+    bounds = [syrk_bounds(m_t, nb, t) for m_t in range(1, p)]
     emit(phase="profile", wall_ms=wall_ms, device_busy_ms=busy,
          idle_share=1 - busy / wall_ms,
-         syrk_products_in_band=in_band, syrk_products_off_band=off_band,
-         syrk_in_band_bound_ms=1e3 * in_band * flops / FP32_FLOPS,
-         syrk_off_band_bound_ms=1e3 * off_band * flops / BF16_FLOPS,
+         syrk_products_in_band=sum(i for i, _ in products),
+         syrk_products_off_band=sum(o for _, o in products),
+         syrk_in_band_bound_ms=sum(b for b, _ in bounds),
+         syrk_off_band_bound_ms=sum(o for _, o in bounds),
+         syrk_device_ms={name: sum(ms for k, _, ms in rows if name in k)
+                         for name in SYRK_KERNELS},
          top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:14]])
 
 

@@ -10,211 +10,539 @@
 // `round_k` columns of K, and add the rounded partial sums into the fp32
 // output.  The TPU kernel tied the classification unit and the rounding unit
 // to its own block sizes (bm, bk); here `tile` and `round_k` are arguments and
-// the kernel's blocks (BM x BM outputs by BK = 32 columns) must divide them.
+// the kernels' blocks (BM x BM outputs, K in steps of 16 or 64) divide them.
 //
-// What bounds it on the H100: operations.  On the panel path the in-band
-// part is fp32 work on the CUDA cores (67 TFLOP/s) and the off-band part is
-// bf16 tensor-core work (989 TFLOP/s), so the band bounds the step although
-// it holds the smaller share of the products.
+// What bounds it on the H100: on the panel path the in-band part is fp32
+// work on the CUDA cores (67 TFLOP/s) and bounds the call by its operations;
+// the off-band part is bf16 tensor-core work (989 TFLOP/s) whose least time
+// is set by the bytes of its fp32 output (lower block and mirror), not by its
+// products.  As written, the off-band kernel is held by L2 traffic: each
+// 128 x 128 block reads 512 KiB of operands for 128 KiB of output.
 //
-// What the design does about it: two kernels per call, each over only the
-// blocks of its class.
-//   * band: a classic SIMT SGEMM, BM x BM outputs per block of 256 threads,
-//     each thread (BM/16)^2 outputs in registers, K staged through shared
-//     memory transposed so that each k step reads float4s; the grid covers
-//     only the block columns within the band of each block row.
-//   * off-band: bf16 WMMA (mma.sync) 16x16x16 fragments with fp32
-//     accumulators, operands converted to bf16 while they are staged in
-//     shared memory; a second set of fragments holds the sum of the
-//     bf16-rounded partials.  Blocks inside the band exit at once.
-// Both write the full square, as the TPU kernel does.
+// What the design does about it:
+//   * U is symmetric, so each kernel computes only the lower blocks (bi >= bj)
+//     of its class and writes each block twice, to (bi, bj) and transposed to
+//     (bj, bi), the transpose through shared memory so that it too is
+//     written in whole rows.  The
+//     result is still the full square the TPU kernel returns, and it is
+//     exactly symmetric.  Each kernel's 1-D grid covers exactly its own lower
+//     blocks, tile row by tile row (its size comes from kernels/mp_gemm/
+//     mp_gemm.py: plan); a block finds its (bi, bj) from its linear index
+//     (band_block, off_block).
+//   * band: fp32 SIMT, 256 threads per BM x BM block, (BM / 16)^2 outputs per
+//     thread in registers.  K goes in steps of 16 through two shared-memory
+//     buffers, transposed so that each k step reads float4s; the next step's
+//     operands are loaded into registers while the current one's FMAs run.
+//     Each element is one FMA chain over k in order, so a diagonal block is
+//     symmetric bit for bit.
+//   * off-band: P is written once as bf16 into a scratch (to_bf16_kernel).
+//     One producer warp fills a ring of shared-memory stages with TMA loads
+//     of BM x 64 boxes of both operands (rows of P, K-major, 128-byte
+//     swizzle); BM / 64 consumer warpgroups run wgmma m64nBMk16 with fp32
+//     accumulators in registers; mbarriers hand the stages back and forth.
+//     The bf16 rounding is applied to the accumulator at every round_k
+//     boundary; with round_k == kdim (the panel path) there is one rounding
+//     and no second accumulator.
+// The tensor map comes from cuTensorMapEncodeTiled in libcuda (linked with
+// -lcuda).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+// The block grid of one call: BM x BM blocks, r = tile / BM of them along
+// each side of a tile, n_tiles = m / tile tiles, band = band_blocks.
+struct Grid {
+  int r;
+  int n_tiles;
+  int band;
+};
 
-constexpr int kThreads = 256;
-constexpr int BK = 32;
-
-__device__ __forceinline__ bool in_band(int row0, int col0, int tile, int band_blocks) {
-  const int d = row0 / tile - col0 / tile;
-  return (d < 0 ? -d : d) < band_blocks;
+// Lower band blocks in tile rows < T.  Tile row ti holds the lower half of
+// its diagonal tile (r (r + 1) / 2 blocks, the diagonal included) and
+// min(ti, band - 1) whole tiles to its left.
+__device__ inline long long band_row_start(const Grid& g, long long T) {
+  const long long b1 = g.band - 1;
+  const long long whole = T <= b1 + 1 ? T * (T - 1) / 2 : b1 * (b1 + 1) / 2 + (T - b1 - 1) * b1;
+  return T * g.r * (g.r + 1) / 2 + whole * g.r * g.r;
 }
 
-// ---- in-band blocks: fp32 SIMT -------------------------------------------
+// Off-band blocks in tile rows < T: tile row ti holds max(0, ti - band + 1)
+// whole tiles.
+__device__ inline long long off_row_start(const Grid& g, long long T) {
+  const long long x = T > g.band ? T - g.band : 0;
+  return x * (x + 1) / 2 * g.r * g.r;
+}
+
+// The largest tile row T with start(T) <= idx (rows without blocks are skipped).
+template <bool BAND>
+__device__ __forceinline__ int tile_row_of(const Grid& g, long long idx) {
+  int lo = 0, hi = g.n_tiles - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    const long long s = BAND ? band_row_start(g, mid) : off_row_start(g, mid);
+    if (s <= idx) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// (bi, bj) of band block idx: within its tile row, block row a holds the
+// wr = min(ti, band - 1) r whole-tile blocks and a + 1 blocks of the diagonal
+// tile, in column order.
+__device__ __forceinline__ int2 band_block(const Grid& g, long long idx) {
+  const int ti = tile_row_of<true>(g, idx);
+  int q = static_cast<int>(idx - band_row_start(g, ti));
+  const int wr = min(ti, g.band - 1) * g.r;
+  int a = 0;
+  while (a + 1 < g.r && q >= wr + a + 1) {
+    q -= wr + a + 1;
+    ++a;
+  }
+  return make_int2(ti * g.r + a, ti * g.r - wr + q);
+}
+
+// (bi, bj) of off-band block idx: within its tile row, column-major, so that
+// the r blocks in a row of the grid share one B operand in L2.
+__device__ __forceinline__ int2 off_block(const Grid& g, long long idx) {
+  const int ti = tile_row_of<false>(g, idx);
+  const int q = static_cast<int>(idx - off_row_start(g, ti));
+  return make_int2(ti * g.r + q % g.r, q / g.r);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ---- in-band blocks: fp32 SIMT ------------------------------------------
+constexpr int kBandThreads = 256;
+constexpr int BK = 16;  // K step of the band kernel
+
 template <int BM>
-__global__ void __launch_bounds__(kThreads)
-syrk_band_kernel(const float* __restrict__ p, float* __restrict__ out, int m, int kdim,
-                 int tile, int band_blocks) {
+__global__ void __launch_bounds__(kBandThreads, 2)
+syrk_band_fp32_lower_kernel(const float* __restrict__ p, float* __restrict__ out, int m,
+                            int kdim, Grid g) {
   constexpr int TM = BM / 16;  // outputs per thread along each axis
   constexpr int G = TM / 4;    // groups of 4 rows (cols) per thread, 64 apart
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BM + 4];
+  constexpr int LD = BM + 4;
+  constexpr int LOADS = BM * BK / 4 / kBandThreads;  // float4s per operand per thread
+  constexpr int SLD = BM + 1;  // the mirror's staging rows: conflict-free column reads
+  static_assert(LOADS >= 1 && 64 * SLD <= 2 * 2 * BK * LD, "band kernel shapes");
+  __shared__ __align__(16) float sm[2][2][BK][LD];  // [buffer][A, B][k][row]
 
-  const int row0 = blockIdx.y * BM;
-  // block columns of this block row's band: [first tile, last tile] of the band
-  const int row_tile = row0 / tile;
-  const int n_tiles = m / tile;
-  const int first = max(0, row_tile - band_blocks + 1) * tile;
-  const int last = min(n_tiles, row_tile + band_blocks) * tile;
-  const int col0 = first + blockIdx.x * BM;
-  if (col0 >= last) return;
-
+  const int2 blk = band_block(g, blockIdx.x);
+  const int row0 = blk.x * BM, col0 = blk.y * BM;
+  const float* pa = p + static_cast<long long>(row0) * kdim;
+  const float* pb = p + static_cast<long long>(col0) * kdim;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  float acc[TM][TM] = {};
 
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-    // stage P[row0 : row0 + BM, k0 : k0 + BK] and P[col0 : ...] transposed
-    for (int idx = tid; idx < BM * (BK / 4); idx += kThreads) {
+  float4 ra[LOADS], rb[LOADS];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      const int idx = tid + l * kBandThreads;
       const int r = idx / (BK / 4), c4 = (idx % (BK / 4)) * 4;
-      const float4 va = *reinterpret_cast<const float4*>(
-          p + static_cast<long long>(row0 + r) * kdim + k0 + c4);
-      const float4 vb = *reinterpret_cast<const float4*>(
-          p + static_cast<long long>(col0 + r) * kdim + k0 + c4);
-      As[c4 + 0][r] = va.x; As[c4 + 1][r] = va.y; As[c4 + 2][r] = va.z; As[c4 + 3][r] = va.w;
-      Bs[c4 + 0][r] = vb.x; Bs[c4 + 1][r] = vb.y; Bs[c4 + 2][r] = vb.z; Bs[c4 + 3][r] = vb.w;
+      ra[l] = *reinterpret_cast<const float4*>(pa + static_cast<long long>(r) * kdim + k0 + c4);
+      rb[l] = *reinterpret_cast<const float4*>(pb + static_cast<long long>(r) * kdim + k0 + c4);
     }
-    __syncthreads();
-#pragma unroll 4
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      const int idx = tid + l * kBandThreads;
+      const int r = idx / (BK / 4), c4 = (idx % (BK / 4)) * 4;
+      sm[buf][0][c4 + 0][r] = ra[l].x; sm[buf][0][c4 + 1][r] = ra[l].y;
+      sm[buf][0][c4 + 2][r] = ra[l].z; sm[buf][0][c4 + 3][r] = ra[l].w;
+      sm[buf][1][c4 + 0][r] = rb[l].x; sm[buf][1][c4 + 1][r] = rb[l].y;
+      sm[buf][1][c4 + 2][r] = rb[l].z; sm[buf][1][c4 + 3][r] = rb[l].w;
+    }
+  };
+
+  float acc[TM][TM] = {};
+  load(0);
+  stage(0);
+  __syncthreads();
+  const int nkt = kdim / BK;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nkt) load((kt + 1) * BK);  // in flight during the FMAs below
+#pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float a[TM], b[TM];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 va = *reinterpret_cast<const float4*>(&As[kk][g * 64 + ty * 4]);
-        const float4 vb = *reinterpret_cast<const float4*>(&Bs[kk][g * 64 + tx * 4]);
-        a[g * 4 + 0] = va.x; a[g * 4 + 1] = va.y; a[g * 4 + 2] = va.z; a[g * 4 + 3] = va.w;
-        b[g * 4 + 0] = vb.x; b[g * 4 + 1] = vb.y; b[g * 4 + 2] = vb.z; b[g * 4 + 3] = vb.w;
+      for (int gg = 0; gg < G; ++gg) {
+        const float4 va = *reinterpret_cast<const float4*>(&sm[cur][0][kk][gg * 64 + ty * 4]);
+        const float4 vb = *reinterpret_cast<const float4*>(&sm[cur][1][kk][gg * 64 + tx * 4]);
+        a[gg * 4 + 0] = va.x; a[gg * 4 + 1] = va.y; a[gg * 4 + 2] = va.z; a[gg * 4 + 3] = va.w;
+        b[gg * 4 + 0] = vb.x; b[gg * 4 + 1] = vb.y; b[gg * 4 + 2] = vb.z; b[gg * 4 + 3] = vb.w;
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
+    // the other buffer was last read before the previous barrier
+    if (kt + 1 < nkt) stage(cur ^ 1);
     __syncthreads();
   }
+
+  // the lower block (bi, bj), straight from the registers
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int r = row0 + (i / 4) * 64 + ty * 4 + i % 4;
+    const long long r = row0 + (i / 4) * 64 + ty * 4 + i % 4;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int c = col0 + g * 64 + tx * 4;
-      *reinterpret_cast<float4*>(out + static_cast<long long>(r) * m + c) =
-          make_float4(acc[i][g * 4 + 0], acc[i][g * 4 + 1], acc[i][g * 4 + 2],
-                      acc[i][g * 4 + 3]);
+    for (int gg = 0; gg < G; ++gg) {
+      const int c = col0 + gg * 64 + tx * 4;
+      *reinterpret_cast<float4*>(out + r * m + c) =
+          make_float4(acc[i][gg * 4 + 0], acc[i][gg * 4 + 1], acc[i][gg * 4 + 2],
+                      acc[i][gg * 4 + 3]);
+    }
+  }
+  if (row0 == col0) return;  // a diagonal block is whole and symmetric
+
+  // its mirror (bj, bi), 64 rows of the block at a time through shared
+  // memory: row c of the mirror is column c of the block
+  float* S = &sm[0][0][0][0];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    __syncthreads();
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int j = 0; j < TM; ++j)
+        S[(ty * 4 + ii) * SLD + (j / 4) * 64 + tx * 4 + j % 4] = acc[gi * 4 + ii][j];
+    __syncthreads();
+    for (int idx = tid; idx < 64 * BM; idx += kBandThreads) {
+      const int c = idx / 64, lr = idx % 64;
+      out[static_cast<long long>(col0 + c) * m + row0 + gi * 64 + lr] = S[lr * SLD + c];
     }
   }
 }
 
-// ---- off-band blocks: bf16 tensor cores, fp32 accumulate -----------------
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-syrk_offband_kernel(const float* __restrict__ p, float* __restrict__ out, int m, int kdim,
-                    int tile, int round_k, int band_blocks) {
-  constexpr int LDS = BK + 8;      // bf16 row stride in shared memory (80 B)
-  constexpr int WARPS_M = 4, WARPS_N = 2;
-  constexpr int FM = BM / (16 * WARPS_M);  // fragments per warp along rows
-  constexpr int FN = BM / (16 * WARPS_N);  // and along columns
-  __shared__ __align__(32) __nv_bfloat16 As[BM][LDS];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BM][LDS];
+// ---- off-band blocks: bf16 wgmma fed by TMA ------------------------------
+constexpr int KC = 64;  // K columns per stage: one 128-byte swizzle row of bf16
 
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BM;
-  if (in_band(row0, col0, tile, band_blocks)) return;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN], total[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      wmma::fill_fragment(total[i][j], 0.f);
-    }
-
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-    for (int idx = tid; idx < BM * (BK / 4); idx += kThreads) {
-      const int r = idx / (BK / 4), c4 = (idx % (BK / 4)) * 4;
-      const float4 va = *reinterpret_cast<const float4*>(
-          p + static_cast<long long>(row0 + r) * kdim + k0 + c4);
-      const float4 vb = *reinterpret_cast<const float4*>(
-          p + static_cast<long long>(col0 + r) * kdim + k0 + c4);
-      As[r][c4 + 0] = __float2bfloat16_rn(va.x); As[r][c4 + 1] = __float2bfloat16_rn(va.y);
-      As[r][c4 + 2] = __float2bfloat16_rn(va.z); As[r][c4 + 3] = __float2bfloat16_rn(va.w);
-      Bs[r][c4 + 0] = __float2bfloat16_rn(vb.x); Bs[r][c4 + 1] = __float2bfloat16_rn(vb.y);
-      Bs[r][c4 + 2] = __float2bfloat16_rn(vb.z); Bs[r][c4 + 3] = __float2bfloat16_rn(vb.w);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-      // B = P^T: element (k, c) is P[c][k], i.e. the staged rows read column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(wm * FM + i) * 16][kk], LDS);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[(wn * FN + j) * 16][kk], LDS);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-    if ((k0 + BK) % round_k == 0) {  // the lo store of a round_k partial sum
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-#pragma unroll
-          for (int e = 0; e < acc[i][j].num_elements; ++e)
-            total[i][j].x[e] += __bfloat162float(__float2bfloat16_rn(acc[i][j].x[e]));
-          wmma::fill_fragment(acc[i][j], 0.f);
-        }
-    }
+__global__ void to_bf16_kernel(const float4* __restrict__ src, uint2* __restrict__ dst,
+                               long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float4 v = src[i];
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    dst[i] = make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
   }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile written by TMA with the
+// 128-byte swizzle: rows of 128 bytes, 8-row groups 1,024 bytes apart (SBO),
+// the tile 1,024-byte aligned.  Advancing K by 16 bf16 adds 32 bytes (2 in
+// the 16-byte units of the address field).
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= uint64_t(1) << 16;            // leading byte offset (unused with this swizzle)
+  d |= uint64_t(1024 >> 4) << 32;    // stride byte offset
+  d |= uint64_t(1) << 62;            // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const long long r = row0 + (wm * FM + i) * 16;
-      const int c = col0 + (wn * FN + j) * 16;
-      wmma::store_matrix_sync(out + r * m + c, total[i][j], m, wmma::mem_row_major);
-    }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, fp32 registers) = A (64 x 16) B^T (N x 16), both K-major bf16 in
+// shared memory; scale_d = 0 ignores D's old value.
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 128) wgmma_m64n128(d, da, db, scale_d);
+  else wgmma_m64n64(d, da, db, scale_d);
 }
 
 template <int BM>
-cudaError_t launch(const float* p, float* out, int m, int kdim, int tile, int round_k,
-                   int band_blocks, int lo_bf16, cudaStream_t stream) {
+struct OffCfg {
+  static constexpr int NWG = BM / 64;             // consumer warpgroups, 64 rows each
+  static constexpr int THREADS = NWG * 128 + 32;  // and one producer warp
+  static constexpr int STAGES = BM == 128 ? 3 : 4;
+  static constexpr int TILE_BYTES = BM * KC * 2;  // one operand's BM x 64 bf16 box
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = 1024 + RING_BYTES + 2 * STAGES * 8;  // + alignment, barriers
+  static_assert(BM * (BM + 1) * 4 <= RING_BYTES, "the epilogue's staging reuses the ring");
+};
+
+template <int BM, bool ONE_ROUND>
+__global__ void __launch_bounds__(OffCfg<BM>::THREADS, ONE_ROUND ? 2 : 1)
+syrk_offband_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap pmap,
+                               float* __restrict__ out, int m, int kdim, int round_k, Grid g) {
+  using C = OffCfg<BM>;
+  constexpr int R = BM / 2;  // accumulator registers per thread (64 x BM per warpgroup)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::RING_BYTES);
+  uint64_t* empty = full + C::STAGES;
+
+  const int2 blk = off_block(g, blockIdx.x);
+  const int bi = blk.x, bj = blk.y;
+  const int nk = kdim / KC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NWG * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::NWG * 4) {  // the producer warp: one thread issues the loads
+    if (lane == 0) {
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc % C::STAGES;
+        if (kc >= C::STAGES) mbar_wait(&empty[s], (kc / C::STAGES - 1) & 1);
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        tma_load_2d(st, &pmap, &full[s], kc * KC, bi * BM);
+        tma_load_2d(st + C::TILE_BYTES, &pmap, &full[s], kc * KC, bj * BM);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows wg * 64 .. wg * 64 + 63 of the block
+  const int wg = warp / 4;
+  float acc[R];
+  float total[ONE_ROUND ? 1 : R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  if constexpr (!ONE_ROUND) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) total[i] = 0.f;
+  }
+  const int per_round = round_k / KC;
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc % C::STAGES;
+    mbar_wait(&full[s], (kc / C::STAGES) & 1);
+    const uint8_t* st = ring + s * C::STAGE_BYTES;
+    const uint64_t da = smem_desc(st + wg * 64 * 128);
+    const uint64_t db = smem_desc(st + C::TILE_BYTES);
+    const bool fresh = kc % per_round == 0;  // the first K step of a rounded partial
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk)
+      wgmma_bf16<BM>(acc, da + 2 * kk, db + 2 * kk, (fresh && kk == 0) ? 0 : 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done: free its stage
+    fence_regs(acc);
+    if (kc > 0 && lane == 0) mbar_arrive(&empty[(kc - 1) % C::STAGES]);
+    if constexpr (!ONE_ROUND) {
+      if ((kc + 1) % per_round == 0) {  // the lo store of a round_k partial sum
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < R; ++i) total[i] += round_bf16(acc[i]);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: stage the block in the ring (every wgmma of both warpgroups
+  // has read its operands once all consumers pass the barrier), then write
+  // it and its transpose row by row
+  constexpr int LD = BM + 1;
+  constexpr int NC = C::NWG * 128;
+  float* S = reinterpret_cast<float*>(ring);
+  asm volatile("bar.sync 1, %0;" ::"n"(NC) : "memory");
+  const int w = warp % 4;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = wg * 64 + w * 16 + lane / 4 + 8 * h;
+        const int col = 8 * j + 2 * (lane % 4) + e;
+        float v;
+        if constexpr (ONE_ROUND) v = round_bf16(acc[4 * j + 2 * h + e]);
+        else v = total[4 * j + 2 * h + e];
+        S[row * LD + col] = v;
+      }
+  asm volatile("bar.sync 1, %0;" ::"n"(NC) : "memory");
+  float* lower = out + static_cast<long long>(bi) * BM * m + static_cast<long long>(bj) * BM;
+  float* mirror = out + static_cast<long long>(bj) * BM * m + static_cast<long long>(bi) * BM;
+  for (int idx = threadIdx.x; idx < BM * BM; idx += NC) {
+    const int r = idx / BM, c = idx % BM;
+    lower[static_cast<long long>(r) * m + c] = S[r * LD + c];
+    mirror[static_cast<long long>(r) * m + c] = S[c * LD + r];
+  }
+}
+
+Grid make_grid(int m, int tile, int band_blocks, int lo_bf16, int bm) {
   const int n_tiles = m / tile;
-  if (!lo_bf16) band_blocks = n_tiles;  // lo == hi: every block takes the fp32 path
-  const int band_cols = min(2 * band_blocks - 1, n_tiles) * tile / BM;
-  syrk_band_kernel<BM><<<dim3(band_cols, m / BM), kThreads, 0, stream>>>(
-      p, out, m, kdim, tile, band_blocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || band_blocks >= n_tiles) return err;
-  syrk_offband_kernel<BM><<<dim3(m / BM, m / BM), kThreads, 0, stream>>>(
-      p, out, m, kdim, tile, round_k, band_blocks);
+  return Grid{tile / bm, n_tiles, lo_bf16 ? (band_blocks < n_tiles ? band_blocks : n_tiles)
+                                          : n_tiles};
+}
+
+template <int BM, bool ONE_ROUND>
+cudaError_t launch_offband(const CUtensorMap& map, float* out, int m, int kdim, int round_k,
+                           Grid g, long long n_off, cudaStream_t stream) {
+  using C = OffCfg<BM>;
+  auto kernel = syrk_offband_bf16_wgmma_kernel<BM, ONE_ROUND>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(n_off), C::THREADS, C::SMEM, stream>>>(map, out, m, kdim,
+                                                                        round_k, g);
   return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch(const float* p, __nv_bfloat16* scratch, float* out, int m, int kdim,
+                   int round_k, Grid g, long long n_band, long long n_off, cudaStream_t stream) {
+  if (n_band > 0) {
+    syrk_band_fp32_lower_kernel<BM>
+        <<<static_cast<unsigned>(n_band), kBandThreads, 0, stream>>>(p, out, m, kdim, g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (n_off == 0) return cudaSuccess;
+  const long long n4 = static_cast<long long>(m) * kdim / 4;
+  const long long blocks = (n4 + 255) / 256 < 132 * 16 ? (n4 + 255) / 256 : 132 * 16;
+  to_bf16_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(p), reinterpret_cast<uint2*>(scratch), n4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kdim), static_cast<cuuint64_t>(m)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kdim) * 2};
+  const cuuint32_t box[2] = {KC, BM};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (cuTensorMapEncodeTiled(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, scratch, dims, strides,
+                             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  if (round_k == kdim) return launch_offband<BM, true>(map, out, m, kdim, round_k, g, n_off, stream);
+  return launch_offband<BM, false>(map, out, m, kdim, round_k, g, n_off, stream);
 }
 
 }  // namespace
 
-// p: (m, kdim) fp32 contiguous; out: (m, m) fp32 contiguous.
-// Requires tile % 64 == 0, m % tile == 0, round_k % 32 == 0, kdim % round_k == 0.
-extern "C" int mp_syrk_launch(const void* p, void* out, int m, int kdim, int tile,
-                              int round_k, int band_blocks, int lo_bf16, void* stream) {
-  if (tile % 64 || m % tile || round_k % BK || kdim % round_k || band_blocks < 1)
+// p: (m, kdim) fp32 contiguous; scratch: (m, kdim) bf16, written here (may be
+// null when the call has no off-band block); out: (m, m) fp32 contiguous.
+// Requires tile % 64 == 0, m % tile == 0, round_k % 64 == 0,
+// kdim % round_k == 0 and bm in {64, 128} dividing tile.  n_band and n_off are
+// the two grids, the plan's lower-block counts (kernels/mp_gemm/mp_gemm.py:
+// plan), taken as given.
+extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, int kdim,
+                              int tile, int round_k, int band_blocks, int lo_bf16, int bm,
+                              long long n_band, long long n_off, void* stream) {
+  if (tile <= 0 || tile % 64 || m % tile || round_k <= 0 || round_k % KC || kdim % round_k ||
+      band_blocks < 1 || (bm != 64 && bm != 128) || tile % bm)
     return cudaErrorInvalidValue;
+  const Grid g = make_grid(m, tile, band_blocks, lo_bf16, bm);
+  if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
   const float* pp = static_cast<const float*>(p);
+  auto* sc = static_cast<__nv_bfloat16*>(scratch);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile % 128 == 0) return launch<128>(pp, o, m, kdim, tile, round_k, band_blocks, lo_bf16, s);
-  return launch<64>(pp, o, m, kdim, tile, round_k, band_blocks, lo_bf16, s);
+  if (bm == 128) return launch<128>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
+  return launch<64>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
 }

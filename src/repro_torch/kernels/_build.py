@@ -3,6 +3,7 @@
 Every `csrc/*.cu` source is compiled by its own `nvcc` process (all started
 together) for `sm_90a` into an object file, and the objects are linked into
 one shared library with a plain C interface, loaded with `ctypes`.  The
+library links libcuda (`-lcuda`) for `cuTensorMapEncodeTiled`.  The
 library goes to `build/repro_torch_kernels/<hash>/` at the repository root,
 keyed by a hash of the sources and flags, so a changed source is rebuilt
 and an unchanged one is loaded as it is.
@@ -32,6 +33,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 SIGNATURES = {
@@ -41,8 +43,9 @@ SIGNATURES = {
                           _I, _F, _F, _I, _I, _P],
     # a, out, info, batch, nb, max_blocks, stream
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
-    # p, out, m, kdim, tile, round_k, band_blocks, lo_bf16, stream
-    "mp_syrk_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # p, scratch, out, m, kdim, tile, round_k, band_blocks, lo_bf16, bm,
+    # n_band, n_off, stream
+    "mp_syrk_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
     # q, k, v, scales, seg_len, acc, m, l, ws_acc, ws_m, ws_l, batch, g, d,
     # s, blk, chunk, sm_scale, q_bf16, kv_dtype, stream
     "mp_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -101,7 +104,8 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError(f"nvcc failed on {failed}")
         tmp_lib = Path(tmp) / LIB_NAME
         subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
-                        *(str(obj) for _, obj, _ in procs), "-lcudart"],
+                        *(str(obj) for _, obj, _ in procs), "-lcudart",
+                        "-lcuda"],
                        check=True)
         os.replace(tmp_lib, lib)  # atomic: a reader never sees half a file
     return lib

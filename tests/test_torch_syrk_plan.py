@@ -1,0 +1,143 @@
+"""The CUDA SYRK's host side on the CPU: its tile plan (csrc/mp_syrk.cu
+launches each kernel over exactly the lower blocks of its class and writes
+each with its mirror), the symmetry of the JAX kernel's U that makes the
+mirror faithful, and the wrapper's refusals before any build."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mp_gemm.ops import mp_syrk as j_syrk
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.mp_gemm import mp_gemm as syrk_kernel
+from test_torch_kernels import _syrk_offband_bound
+
+torch.set_num_threads(1)
+
+
+# The specification of the device's block mapping (csrc/mp_syrk.cu:
+# tile_row_of, band_block, off_block), written out in Python: grid index ->
+# (bi, bj), from the plan's tile-row offsets.  The kernels on the card follow
+# it; here it is held to covering the square once with the plan's counts.
+def _tile_row(start, idx, n_tiles):
+    lo, hi = 0, n_tiles - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if start(mid) <= idx:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _band_block(pl, idx):
+    """Tile row ti holds, per block row a, min(ti, band - 1) r whole-tile
+    blocks and a + 1 blocks of its diagonal tile, in column order."""
+    r, band = pl["r"], pl["band_blocks"]
+    start = lambda t: syrk_kernel._band_row_start(r, band, t)  # noqa: E731
+    ti = _tile_row(start, idx, pl["n_tiles"])
+    q = idx - start(ti)
+    wr = min(ti, band - 1) * r
+    a = 0
+    while a + 1 < r and q >= wr + a + 1:
+        q -= wr + a + 1
+        a += 1
+    return ti * r + a, ti * r - wr + q
+
+
+def _off_block(pl, idx):
+    """Tile row ti holds its off-band tiles' blocks column-major."""
+    r, band = pl["r"], pl["band_blocks"]
+    start = lambda t: syrk_kernel._off_row_start(r, band, t)  # noqa: E731
+    ti = _tile_row(start, idx, pl["n_tiles"])
+    q = idx - start(ti)
+    return ti * r + q % r, q // r
+
+
+def _syrk_products(n_t, t):
+    """(in-band, off-band) lower tile products, diagonal included, as
+    chip_smoke.py reckons them."""
+    in_band = sum(min(i + 1, t) for i in range(n_t))
+    return in_band, n_t * (n_t + 1) // 2 - in_band
+
+
+@pytest.mark.parametrize("lo", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("band", [1, 2, 8, 70])
+@pytest.mark.parametrize("n_tiles", [1, 2, 5, 63])
+def test_plan_covers_the_square_once(n_tiles, band, bm, lo):
+    tile = 256 if n_tiles < 63 else 128   # r = 4 or 2 blocks per tile side
+    m = n_tiles * tile
+    pl = syrk_kernel.plan(m, tile, band, bm, lo)
+    nb = m // bm
+    seen = np.zeros((nb, nb), np.int64)
+    band_eff = n_tiles if lo == torch.float32 else min(band, n_tiles)
+    for kind, count, find in (("band", pl["band"], _band_block),
+                              ("off", pl["off"], _off_block)):
+        for idx in range(count):
+            bi, bj = find(pl, idx)
+            assert 0 <= bj <= bi < nb
+            in_band = abs(bi // pl["r"] - bj // pl["r"]) < band_eff
+            assert in_band == (kind == "band"), (kind, idx, bi, bj)
+            seen[bi, bj] += 1
+            if bi != bj:
+                seen[bj, bi] += 1       # the mirror
+    assert (seen == 1).all()
+    # counts against the tile products: an off-band tile is r^2 blocks; a
+    # diagonal tile is its r (r + 1) / 2 lower blocks, the rest mirrored
+    r = tile // bm
+    in_p, off_p = _syrk_products(n_tiles, band_eff)
+    assert pl["off"] == off_p * r * r
+    assert pl["band"] == in_p * r * r - n_tiles * r * (r - 1) // 2
+
+
+@pytest.mark.parametrize("m_t", [63, 32, 8, 1])
+def test_plan_at_the_main_path_steps(m_t):
+    """The panel path's calls: P = (m_t 1024, 1024), tile 1024, band 8."""
+    pl = syrk_kernel.plan(m_t * 1024, 1024, 8, 128)
+    in_p, off_p = _syrk_products(m_t, 8)
+    if m_t == 63:
+        assert (in_p, off_p) == (476, 1540)
+    assert pl["off"] == off_p * 64 and pl["band"] == in_p * 64 - m_t * 28
+    assert _band_block(pl, 0) == (0, 0)
+    assert _band_block(pl, pl["band"] - 1) == (m_t * 8 - 1, m_t * 8 - 1)
+    if pl["off"]:
+        assert _off_block(pl, pl["off"] - 1) == (m_t * 8 - 1, (m_t - 8) * 8 - 1)
+
+
+# the shapes of test_torch_kernels.py::test_mp_syrk_ref_matches_jax
+@pytest.mark.parametrize("m,k,bm,bk,band", [
+    (256, 128, 64, 64, 1), (256, 128, 64, 64, 2), (128, 256, 64, 128, 1),
+    (256, 64, 128, 64, 4),
+])
+def test_jax_kernel_u_is_symmetric(m, k, bm, bk, band):
+    """Mirroring the lower blocks keeps the TPU kernel's result: its own U
+    equals U^T, in the band within rel 1e-5 and off the band within the
+    off-band bound the parity tests use."""
+    p = np.array(jax.random.normal(jax.random.PRNGKey(4), (m, k), jnp.float32))
+    u = np.asarray(j_syrk(p, band_blocks=band, bm=bm, bk=bk), np.float64)
+    tiles = np.arange(m) // bm
+    in_band = np.abs(tiles[:, None] - tiles[None, :]) < band
+    d = np.abs(u - u.T)
+    assert d[in_band].max() <= 1e-5 * np.abs(u[in_band]).max()
+    bound = _syrk_offband_bound(p, bk)
+    assert np.all(d[~in_band] <= bound[~in_band])
+
+
+@pytest.mark.parametrize("m,kdim,tile,round_k", [
+    (256, 128, 64, 32),     # round_k not a multiple of 64
+    (256, 128, 64, 96),     # ... nor dividing kdim
+    (256, 128, 32, 64),     # tile not a multiple of 64
+    (256, 128, 96, 64),     # ... nor dividing m
+    (256, 128, 64, 0),
+])
+def test_wrapper_refuses_shapes_before_any_build(m, kdim, tile, round_k):
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="round_k % 64 == 0"):
+        syrk_kernel.launch(torch.ones(m, kdim), tile=tile, round_k=round_k,
+                           band_blocks=1, hi=torch.float32, lo=torch.bfloat16,
+                           accum=torch.float32)
+    assert launch_counts()["mp_syrk"] == 0
+
