@@ -37,6 +37,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      (near 1,024 positions bf16, the rest int8 blocks of 128) against its
      plain version and exact attention, with launch counts, times and the
      device time of the segment launches under the profiler;
+  8. fidelity: the Algorithm 1 tile engine, likelihood, kriging and batch
+     engine at n_obs = 40,960 observed of 45,056 points (every 11th held
+     out: 4,096 prediction sites), nb = 1,024 (p = 40): one evaluation per
+     policy through the kernels and through the plain versions on a
+     medium (theta0 = (1, 0.1, 0.5)) and a weak (1, 0.03, 0.5) field
+     (launch counts, log-likelihoods, seconds, peak memory, device busy
+     and idle shares); on the weak field, fit_mle_grid + batched
+     Nelder-Mead through BatchEngine for DP(100%), DP(10%) and DST,
+     kriging with variance and 10-fold PMSE at each theta-hat, and
+     BatchEngine.loglik on 8 candidates against loglik_sequential; the
+     tile path at n = 2,048 on the card and on the CPU; a general-nu
+     haversine covariance against fp64; each kernel at the tile path's
+     shapes;
 then the card's name and power limit, one JSON line of every kernel's
 numbers, and last the result line.
 """
@@ -73,6 +86,20 @@ ATTN_SHAPES = ((2, 4, 64, 128, 256, 128), (1, 8, 128, 256, 128, 64),
 ATTN_SCALES = (0.5, 1.0, 2.0)
 ATTN_MAX_ABS = 1e-3
 MLE = dict(n=8_192, nb=512, t=4, max_iters=15)
+# phase 8: every hold-th of n_all points held out, the first n_obs of the
+# rest observed (n_obs = p nb); the fields of 8.1; the estimation's engine
+# chunk, grid and Nelder-Mead iterations; k-fold; phase 8.4's candidates.
+# --quick leaves out the medium field: at nb = 128 its bf16 likelihood is
+# finite but so sensitive that reordering a sum moves it by 2e-3
+FIDELITY = dict(n_all=45_056, hold=11, n_obs=40_960, nb=1_024,
+                fields=("medium", "weak"), chunk=3, grid=3, refine=2,
+                nm_iters=20, kfold=10, batch=8)
+FIDELITY_QUICK = dict(n_all=5_632, hold=11, n_obs=5_120, nb=128,
+                      fields=("weak",), chunk=3, grid=3, refine=2,
+                      nm_iters=3, kfold=10, batch=8)
+# phase 8.6: max relative error of the fp32 general-nu covariance against
+# fp64, the bound tests/test_torch_covariance.py holds it to on the CPU
+GENERAL_NU_MAX_REL = 1e-4
 WEAK = (1.0, 0.03, 0.5)
 MEDIUM = (1.0, 0.10, 0.5)
 
@@ -372,6 +399,46 @@ def syrk_bounds(n_t, nb, t):
     return 1e3 * band, 1e3 * off
 
 
+def syrk_library_ms(p, m_t, nb, t, lower=True):
+    """The yardstick (torch.matmul, P cast to bf16 beforehand): per tile row
+    its fp32 band slab and its bf16 slab left of the band, over the lower
+    tiles as the kernels compute them; or (lower=False) a bf16 square and
+    the fp32 band slabs on both sides."""
+    import torch
+    pt = p[:m_t * nb]
+    pb = pt.to(torch.bfloat16)
+
+    def run():
+        if not lower:
+            torch.matmul(pb, pb.T)
+        for i in range(m_t):
+            rows, c0 = slice(i * nb, (i + 1) * nb), max(0, i - t + 1) * nb
+            c1 = (i + 1 if lower else min(m_t, i + t)) * nb
+            torch.matmul(pt[rows], pt[c0:c1].T)
+            if lower and c0:
+                torch.matmul(pb[rows], pb[:c0].T)
+    return time_ms(run)
+
+
+def syrk_step_numbers(p, m_t, nb, t):
+    """Kernel time, yardsticks and bound of the SYRK of the first m_t tile
+    rows of P (tile = round_k = nb, band t)."""
+    from repro_torch.kernels.mp_gemm import ops
+    pt = p[:m_t * nb]
+    kw = dict(tile=nb, round_k=nb, band_blocks=t)
+    band_ms, off_ms = syrk_bounds(m_t, nb, t)
+    band_f, off_f = syrk_flops(m_t, nb, t)
+    # fp32 and bf16 run on separate units at once: the larger bounds
+    ops_s = max(band_f / FP32_FLOPS, off_f / BF16_FLOPS)
+    bytes_s = (pt.numel() + (m_t * nb) ** 2) * 4 / HBM_BYTES_PER_S
+    return dict(ms=time_ms(lambda: ops.mp_syrk(pt, **kw)),
+                library_ms=syrk_library_ms(p, m_t, nb, t, lower=True),
+                library_full_ms=syrk_library_ms(p, m_t, nb, t, lower=False),
+                bound_ms=1e3 * max(ops_s, bytes_s),
+                bound_by="operations" if ops_s >= bytes_s else "bytes",
+                band_bound_ms=band_ms, offband_bound_ms=off_ms)
+
+
 def check_syrk(gen, m_main, nb, t, results):
     import torch
     from repro_torch.kernels.mp_gemm import ops, ref
@@ -416,41 +483,11 @@ def check_syrk(gen, m_main, nb, t, results):
     del out
     n_t = m_main // nb
 
-    def library(m_t, lower):
-        """The yardstick (torch.matmul, P cast to bf16 beforehand): per tile
-        row its fp32 band slab and its bf16 slab left of the band, over the
-        lower tiles as the kernels compute them; or (lower=False, as PR 13
-        timed it) a bf16 square and the fp32 band slabs on both sides."""
-        pt = p[:m_t * nb]
-        pb = pt.to(torch.bfloat16)
-
-        def run():
-            if not lower:
-                torch.matmul(pb, pb.T)
-            for i in range(m_t):
-                rows, c0 = slice(i * nb, (i + 1) * nb), max(0, i - t + 1) * nb
-                c1 = (i + 1 if lower else min(m_t, i + t)) * nb
-                torch.matmul(pt[rows], pt[c0:c1].T)
-                if lower and c0:
-                    torch.matmul(pb[rows], pb[:c0].T)
-        return time_ms(run)
-
     # the kernel and the yardstick at steps of the main path (m_t tile
     # rows; --quick has fewer than 32), the plain version at step 0 only
     steps = {}
     for m_t in dict.fromkeys((n_t, min(32, n_t), min(8, n_t))):
-        pt = p[:m_t * nb]
-        band_ms, off_ms = syrk_bounds(m_t, nb, t)
-        band_f, off_f = syrk_flops(m_t, nb, t)
-        # fp32 and bf16 run on separate units at once: the larger bounds
-        ops_s = max(band_f / FP32_FLOPS, off_f / BF16_FLOPS)
-        bytes_s = (pt.numel() + (m_t * nb) ** 2) * 4 / HBM_BYTES_PER_S
-        steps[m_t] = dict(ms=time_ms(lambda: ops.mp_syrk(pt, **kw)),
-                          library_ms=library(m_t, lower=True),
-                          library_full_ms=library(m_t, lower=False),
-                          bound_ms=1e3 * max(ops_s, bytes_s),
-                          bound_by="operations" if ops_s >= bytes_s else "bytes",
-                          band_bound_ms=band_ms, offband_bound_ms=off_ms)
+        steps[m_t] = syrk_step_numbers(p, m_t, nb, t)
         emit(phase="kernels", kernel="mp_syrk", m_t=m_t, m=m_t * nb, k=nb,
              tile=nb, round_k=nb, band=t, **steps[m_t])
     plain_ms = time_ms(lambda: ref.mp_syrk(p, **kw))
@@ -1012,6 +1049,395 @@ def serving(scfg, results):
              max_abs_err=max(r["max_abs_err"], vs_plain))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fidelity path (Algorithm 1 tile engine, likelihood, kriging)
+# ---------------------------------------------------------------------------
+
+def fidelity_policies(p):
+    """(label, policy, use_tiles) of phase 8's one-evaluation comparison."""
+    import torch
+    from repro_torch.core import PrecisionPolicy as P
+    full = P.full(torch.float32)
+    return [("DP(100%) reference_cholesky", full, None),
+            ("DP(100%) tiles", full, True),
+            ("DP(10%)", P.from_dp_percent(p, 0.10), None),
+            ("DP(40%)", P.from_dp_percent(p, 0.40), None),
+            ("three_tier(2,20)", P.three_tier(2, 20), None),
+            ("DST DP(70%)", P.dst(P.from_dp_percent(p, 0.70).diag_thick), None)]
+
+
+def _tiled(policy, use_tiles):
+    return policy.mode != "dst" and (
+        use_tiles if use_tiles is not None else policy.mode != "full")
+
+
+def _evaluate(fn, theta):
+    """One evaluation from a synced start: (loglik, seconds, peak GiB,
+    launch counts)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ll = float(fn(theta))  # waits for the device
+    return (ll, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30, launch_counts())
+
+
+def fidelity_evaluations(locs, z, theta, fcfg, total, profile=True):
+    """8.1: one evaluation per policy at theta through the kernels and
+    through the plain versions on the card: launch counts (added to
+    `total`), log-likelihoods, seconds, peak memory, and (with `profile`)
+    the kernel path's device time under the profiler."""
+    from repro_torch.core import make_loglik
+    nb, p = fcfg["nb"], locs.shape[0] // fcfg["nb"]
+    theta = list(theta)
+    for label, pol, use_tiles in fidelity_policies(p):
+        tiled = _tiled(pol, use_tiles)
+        expected = {"matern_cov": 1, "blocked_potrf": p if tiled else 0,
+                    "mp_syrk": p - 1 if tiled else 0, "mp_attention": 0}
+        out = {}
+        for impl in ("kernel", "plain"):
+            fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
+                             use_tiles=use_tiles, impl=impl)
+            out[impl] = _evaluate(fn, theta)
+        (a, sa, pa, ca), (b, sb, pb, cb) = out["kernel"], out["plain"]
+        require(ca == expected, f"{label}: launches {ca}, expected {expected}")
+        require(sum(cb.values()) == 0, f"{label}: plain path launched {cb}")
+        for k in total:
+            total[k] += ca[k]
+        both_nan = math.isnan(a) and math.isnan(b)
+        close = (math.isfinite(a) and math.isfinite(b)
+                 and abs(a - b) <= 1e-3 * abs(b))
+        require(both_nan or close, f"{label}: kernel {a} vs plain {b}")
+        prof = {}
+        if profile:
+            fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
+                             use_tiles=use_tiles)
+            wall_ms, busy, rows = device_profile(lambda: float(fn(theta)))
+            prof = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                        idle_share=1 - busy / wall_ms,
+                        top=[{"name": k[:90], "count": c, "ms": ms}
+                             for k, c, ms in rows[:8]])
+        emit(phase="fidelity", step="evaluation", policy=label,
+             mode=pol.mode, diag_thick=min(pol.diag_thick, p), tiles=tiled,
+             n=locs.shape[0], nb=nb, theta=theta, loglik_kernel=a,
+             loglik_plain=b, rel_diff=abs(a - b) / abs(b) if close else None,
+             seconds_kernel=sa, seconds_plain=sb, peak_gib_kernel=pa,
+             peak_gib_plain=pb, launches_kernel=ca, **prof)
+
+
+def fidelity_refusals(locs, z, fcfg):
+    """What the kernels do not take raises on the card, with no fallback:
+    the paper_cpu pair's fp64 band, and nb not a multiple of 64."""
+    from repro_torch.core import PrecisionPolicy, make_loglik
+    nb, theta = fcfg["nb"], list(MEDIUM)
+    small = locs[:4 * nb], z[:4 * nb]
+    for pol, nb_bad, err in ((PrecisionPolicy.paper_cpu(2), nb,
+                              NotImplementedError),
+                             (PrecisionPolicy.tpu(2), 96, ValueError)):
+        try:
+            make_loglik(small[0][:4 * nb_bad], small[1][:4 * nb_bad], pol,
+                        nb=nb_bad, nu_static=0.5)(theta)
+        except err as e:
+            emit(phase="fidelity", step="refused", mode=pol.mode,
+                 hi=str(pol.hi), nb=nb_bad, error=type(e).__name__,
+                 message=str(e)[:120])
+        else:
+            raise AssertionError(f"{pol.mode} hi={pol.hi} nb={nb_bad}: "
+                                 "no error on the card")
+
+
+def fidelity_estimation(locs, z, fcfg):
+    """8.2: fit_mle_grid then batched Nelder-Mead through BatchEngine, for
+    DP(100%), DP(10%) and DST; theta-hat, evaluations and seconds.  The
+    dense policies go one candidate at a time: cuSOLVER on a batch of
+    three 40,960^2 matrices took 2.6x as long per candidate as on one
+    (one H100; PERF.md)."""
+    import torch
+    from repro_torch.core import BatchEngine, BatchPlan, fit_mle, fit_mle_grid
+    nb, p = fcfg["nb"], locs.shape[0] // fcfg["nb"]
+    pols = {label: pol for label, pol, tiles in fidelity_policies(p)
+            if tiles is None and label != "DP(40%)"
+            and not label.startswith("three")}
+    fits = {}
+    for label, pol in pols.items():
+        chunk = fcfg["chunk"] if _tiled(pol, None) else 1
+        engine = BatchEngine(locs, z, BatchPlan(policy=pol, nb=nb, nu_static=0.5,
+                                                chunk_size=chunk))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        coarse = fit_mle_grid(engine.loglik, [(0.2, 5.0), (0.02, 0.6)],
+                              num=fcfg["grid"], refine=fcfg["refine"])
+        res = fit_mle(None, coarse.theta, max_iters=fcfg["nm_iters"],
+                      batched_loglik_fn=engine.loglik)
+        secs = time.perf_counter() - t0
+        evals = coarse.n_evals + res.n_evals
+        require(math.isfinite(res.loglik) and res.loglik >= coarse.loglik,
+                f"{label}: the polish lost ground ({res.loglik} < {coarse.loglik})")
+        fits[label] = res
+        emit(phase="fidelity", step="estimation", policy=label,
+             chunk_size=chunk, grid=fcfg["grid"],
+             refine=fcfg["refine"], nm_iters=res.n_iters,
+             theta_grid=coarse.theta.tolist(), theta_hat=res.theta.tolist(),
+             loglik=res.loglik, evaluations=evals, seconds=secs,
+             seconds_per_evaluation=secs / evals,
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    dp, mp = fits["DP(100%) reference_cholesky"].theta, fits["DP(10%)"].theta
+    gap = (abs(mp - dp) / abs(dp)).tolist()
+    require(max(gap) <= 0.25, f"theta-hat MP {mp} vs DP {dp}: rel {gap} > 0.25")
+    emit(phase="fidelity", step="estimation", theta_rel_gap_mp_vs_dp=gap,
+         tol=0.25)
+    return {label: (pols[label], fits[label].theta) for label in fits}
+
+
+def fidelity_prediction(locs, z, locs_new, z_new, fits, fcfg):
+    """8.3: kriging at the held-out sites with each policy's theta-hat:
+    PMSE, the variance's range and k-fold PMSE."""
+    from repro_torch.core import kfold_pmse, krige, pmse
+    nb = fcfg["nb"]
+    scores = {}
+    for label, (pol, th) in fits.items():
+        theta = [float(th[0]), float(th[1]), 0.5]
+        t0 = time.perf_counter()
+        mu, var = krige(locs, z, locs_new, theta, pol, nb=nb, nu_static=0.5,
+                        return_var=True)
+        score = float(pmse(mu, z_new))
+        krige_s = time.perf_counter() - t0
+        vmin, vmax = float(var.min()), float(var.max())
+        require(-1e-4 <= vmin and vmax <= theta[0] + 1e-4 and math.isfinite(score),
+                f"{label}: variance in [{vmin}, {vmax}], theta1 {theta[0]}")
+        t0 = time.perf_counter()
+        kscore, folds = kfold_pmse(locs, z, theta, pol, k=fcfg["kfold"], nb=nb,
+                                   nu_static=0.5)
+        scores[label] = (score, kscore)
+        emit(phase="fidelity", step="prediction", policy=label, theta=theta,
+             sites=locs_new.shape[0], pmse=score, var_min=vmin, var_max=vmax,
+             krige_seconds=krige_s, kfold=fcfg["kfold"], kfold_pmse=kscore,
+             kfold_folds=folds, kfold_seconds=time.perf_counter() - t0)
+    dp, mp = scores["DP(100%) reference_cholesky"], scores["DP(10%)"]
+    rel = [abs(m - d) / d for m, d in zip(mp, dp)]
+    require(max(rel) <= 0.2, f"PMSE MP {mp} vs DP {dp}: rel {rel} > 0.2")
+    emit(phase="fidelity", step="prediction", pmse_rel_mp_vs_dp=rel[0],
+         kfold_pmse_rel_mp_vs_dp=rel[1], tol=0.2,
+         dst_pmse=scores["DST DP(70%)"][0],
+         dst_kfold_pmse=scores["DST DP(70%)"][1])
+
+
+def fidelity_batch(locs, z, fcfg, theta_hat):
+    """8.4: BatchEngine.loglik on 8 candidates against loglik_sequential."""
+    import numpy as np
+    import torch
+    from repro_torch.core import BatchEngine, BatchPlan, PrecisionPolicy
+    p = locs.shape[0] // fcfg["nb"]
+    engine = BatchEngine(locs, z, BatchPlan(
+        policy=PrecisionPolicy.from_dp_percent(p, 0.10), nb=fcfg["nb"],
+        nu_static=0.5, chunk_size=fcfg["chunk"]))
+    scale = np.exp(np.linspace(-0.2, 0.2, fcfg["batch"]))
+    thetas = np.stack([theta_hat[0] * scale, theta_hat[1] * scale[::-1]], -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = engine.loglik(thetas).cpu().numpy().astype(np.float64)
+    batched_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = engine.loglik_sequential(thetas)
+    seq_s = time.perf_counter() - t0
+    rel = np.abs(batched - seq) / np.abs(seq)
+    same_nan = np.isnan(batched) == np.isnan(seq)
+    require(bool(same_nan.all()) and bool(np.all(rel[~np.isnan(seq)] <= 1e-5)),
+            f"batched {batched} vs sequential {seq}")
+    emit(phase="fidelity", step="batch_vs_sequential", candidates=len(thetas),
+         chunk_size=fcfg["chunk"], max_rel_diff=float(np.nanmax(rel)),
+         tol=1e-5, seconds_batched=batched_s, seconds_sequential=seq_s,
+         logliks=batched.tolist())
+
+
+def fidelity_small_vs_cpu():
+    """8.5: the tile path at n = 2,048, nb = 256, tpu(2) on the card and on
+    the CPU (plain versions there)."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, make_loglik
+    from repro_torch.covariance import make_dataset
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ds = make_dataset(gen, 2048, MEDIUM, nu_static=0.5)
+    lls = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_loglik(ds.locs.to(dev), ds.z.to(dev), PrecisionPolicy.tpu(2),
+                         nb=256, nu_static=0.5)
+        lls[dev] = float(fn(list(MEDIUM)))
+    rel = abs(lls["cuda"] - lls["cpu"]) / abs(lls["cpu"])
+    require(math.isfinite(lls["cuda"]) and rel <= 1e-3,
+            f"tile path card {lls['cuda']} vs CPU {lls['cpu']}")
+    emit(phase="fidelity", step="small_vs_cpu", n=2048, nb=256, mode="mixed",
+         t=2, loglik_card=lls["cuda"], loglik_cpu=lls["cpu"], rel_diff=rel,
+         tol=1e-3)
+
+
+def fidelity_general_nu(n=4096, rows=256):
+    """8.6: a general-nu (1.27, wind region R2) haversine covariance on the
+    card against the CPU in fp64, on `rows` rows of it."""
+    import torch
+    from repro_torch.covariance import WIND_REGIONS, matern_covariance
+    from repro_torch.covariance.generator import WIND_BOXES, random_locations
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lon0, lon1, lat0, lat1 = WIND_BOXES["R2"]
+    unit = random_locations(gen, n)
+    locs = torch.stack([lon0 + unit[:, 0] * (lon1 - lon0),
+                        lat0 + unit[:, 1] * (lat1 - lat0)], -1)
+    theta = torch.tensor(WIND_REGIONS["R2"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cov = matern_covariance(locs, locs, theta.cuda(), metric="haversine")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    l64 = locs.cpu().double()
+    want = matern_covariance(l64[:rows], l64, theta.double(), metric="haversine")
+    got = cov[:rows].cpu().double()
+    rel = float(((got - want).abs() / want.abs()).max())
+    require(bool(torch.isfinite(cov).all()) and rel <= GENERAL_NU_MAX_REL,
+            f"general nu on the card: max rel {rel} > {GENERAL_NU_MAX_REL}")
+    emit(phase="fidelity", step="general_nu", nu=WIND_REGIONS["R2"][2],
+         metric="haversine", n=n, rows_checked=rows, max_rel=rel,
+         tol=GENERAL_NU_MAX_REL, seconds_card=card_s)
+
+
+def fidelity_kernels(locs, locs_new, fcfg, results):
+    """8.7: each kernel at the tile path's shapes against its plain version,
+    timed beside its yardstick and bound: mp_syrk at step 0 (band of
+    DP(10%)), blocked_potrf on a chunk's diagonal tiles, matern_cov for
+    Sigma and Sigma_no."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels.blocked_potrf import ops as potrf_ops
+    from repro_torch.kernels.blocked_potrf import ref as potrf_ref
+    from repro_torch.kernels.matern_cov import ops as mc_ops
+    from repro_torch.kernels.matern_cov import ref as mc_ref
+    from repro_torch.kernels.mp_gemm import ops as syrk_ops
+    from repro_torch.kernels.mp_gemm import ref as syrk_ref
+    nb = fcfg["nb"]
+    n = locs.shape[0]
+    p = n // nb
+    t = PrecisionPolicy.from_dp_percent(p, 0.10).diag_thick
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    # mp_syrk at step 0: P = ((p - 1) nb, nb)
+    pm = torch.randn(((p - 1) * nb, nb), generator=gen, device="cuda")
+    kw = dict(tile=nb, round_k=nb, band_blocks=t)
+    out = syrk_ops.mp_syrk(pm, **kw)
+    want = syrk_ref.mp_syrk(pm, **kw)
+    rel, ratio, mx = _syrk_errors(out, want, pm, tile=nb, round_k=nb, band=t)
+    require(rel <= 1e-5 and ratio <= 1.0, f"mp_syrk tile step 0: {rel} {ratio}")
+    del out, want
+    syrk = syrk_step_numbers(pm, p - 1, nb, t)
+    syrk.update(plain_ms=time_ms(lambda: syrk_ref.mp_syrk(pm, **kw)),
+                inband_rel=rel, offband_err_over_tol=ratio, max_abs_err=mx)
+    emit(phase="fidelity", step="kernel", kernel="mp_syrk",
+         m=(p - 1) * nb, k=nb, band=t, **syrk)
+    del pm
+    # blocked_potrf on a chunk's diagonal tiles
+    a = spd_batch(gen, fcfg["chunk"], nb)
+    l, info = potrf_ops.potrf(a)
+    lw, _ = potrf_ref.potrf(a)
+    prel = scale_rel(l, lw)
+    require(int(info.abs().sum()) == 0 and prel <= 1e-3, f"potrf batch: {prel}")
+    flops = fcfg["chunk"] * nb ** 3 / 3
+    bytes_moved = fcfg["chunk"] * 2 * 4 * nb ** 2
+    emit(phase="fidelity", step="kernel", kernel="blocked_potrf",
+         batch=fcfg["chunk"], nb=nb, max_rel=prel,
+         ms=time_ms(lambda: potrf_ops.potrf(a)),
+         plain_ms=time_ms(lambda: potrf_ref.potrf(a)),
+         library_ms=time_ms(lambda: torch.linalg.cholesky(a)),
+         bound_ms=1e3 * max(flops / FP32_FLOPS, bytes_moved / HBM_BYTES_PER_S))
+    del a, l, lw
+    # matern_cov: Sigma (n x n) and Sigma_no (m x n), one tile each;
+    # checked on row slabs (the plain version's temporaries are 4x the tile)
+    theta = list(MEDIUM)
+    for what, la in (("Sigma", locs), ("Sigma_no", locs_new)):
+        out = mc_ops.matern_cov(la, locs, theta, nu=0.5)
+        rel = 0.0
+        for r0 in (0, max(0, la.shape[0] - 2048)):
+            w = mc_ref.matern_cov(la[r0:r0 + 2048], locs, theta, nu=0.5)
+            rel = max(rel, float(((out[r0:r0 + 2048] - w).abs()
+                                  / w.abs().clamp_min(1e-30)).max()))
+        require(rel <= 1e-5, f"matern_cov {what}: rel {rel}")
+        del out, w
+        elems = la.shape[0] * n
+        bytes_moved = (la.shape[0] + n) * 8 + 4 * elems
+        emit(phase="fidelity", step="kernel", kernel="matern_cov", what=what,
+             shape=[la.shape[0], n], max_rel=rel,
+             ms=time_ms(lambda: mc_ops.matern_cov(la, locs, theta, nu=0.5)),
+             plain_ms=time_ms(lambda: mc_ref.matern_cov(la, locs, theta, nu=0.5),
+                              reps=2),
+             bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S,
+                                9 * elems / FP32_FLOPS))
+        torch.cuda.empty_cache()
+
+
+def _fidelity_data(gen, theta0, fcfg):
+    """make_dataset at n_all points; every hold-th held out, the first n_obs
+    of the rest observed: (locs, z, locs_new, z_new), contiguous."""
+    import torch
+    from repro_torch.covariance import make_dataset
+    ds = make_dataset(gen, fcfg["n_all"], theta0, nu_static=0.5)
+    idx = torch.arange(fcfg["n_all"], device="cuda")
+    held = idx % fcfg["hold"] == fcfg["hold"] - 1
+    new, obs = idx[held], idx[~held][:fcfg["n_obs"]]
+    require(obs.numel() == fcfg["n_obs"], f"{obs.numel()} observations")
+    return tuple(x.contiguous() for x in (ds.locs[obs], ds.z[obs],
+                                          ds.locs[new], ds.z[new]))
+
+
+def fidelity(fcfg, results):
+    """Phase 8: the fidelity path at n_obs locations in nb-tiles (see the
+    module docstring), sub-steps timed into one phase line.
+
+    8.1 evaluates every policy on the medium-correlation field at its
+    theta0, as the paper's estimation study sets it.  There the bf16
+    off-band makes the covariance indefinite (NaN in both paths on one
+    H100; PERF.md), so the estimation, the prediction and the batch check run
+    on the weak-correlation field, where every pair's likelihood is
+    defined; 8.1 runs there too.
+    """
+    import torch
+    t_all = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fields = {"medium": MEDIUM, "weak": WEAK}
+    data = {name: _fidelity_data(gen, fields[name], fcfg)
+            for name in fcfg["fields"]}
+    torch.cuda.empty_cache()
+    emit(phase="fidelity", step="data", n_all=fcfg["n_all"], n_obs=fcfg["n_obs"],
+         sites=int(data["weak"][2].shape[0]), nb=fcfg["nb"],
+         p=fcfg["n_obs"] // fcfg["nb"],
+         theta0={name: fields[name] for name in fcfg["fields"]},
+         seconds=time.perf_counter() - t_all)
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    total = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0}
+    locs, z, locs_new, z_new = data["weak"]
+    for name in fcfg["fields"]:  # the profile on the weak field only
+        step(f"8.1 evaluations, {name}", fidelity_evaluations,
+             *data[name][:2], fields[name], fcfg, total, name == "weak")
+    for k, v in total.items():
+        results[k]["launches_fidelity"] = v
+    step("8.1 refusals", fidelity_refusals, locs, z, fcfg)
+    fits = step("8.2 estimation", fidelity_estimation, locs, z, fcfg)
+    step("8.3 prediction", fidelity_prediction, locs, z, locs_new, z_new, fits,
+         fcfg)
+    step("8.4 batch", fidelity_batch, locs, z, fcfg, fits["DP(10%)"][1])
+    step("8.5 small vs CPU", fidelity_small_vs_cpu)
+    step("8.6 general nu", fidelity_general_nu)
+    step("8.7 kernels", fidelity_kernels, locs, locs_new, fcfg, results)
+    emit(phase="fidelity", step="seconds", **secs)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1063,6 +1489,7 @@ def main(argv=None):
         fn(*fn_args)
         seconds[name] = time.perf_counter() - t0
 
+
     p = cfg["n"] // cfg["nb"]
     locs_t = ds.locs.reshape(p, cfg["nb"], 2)
     timed("3 matern_cov", check_matern, locs_t, ds.theta0.tolist(), cfg["t"],
@@ -1081,13 +1508,17 @@ def main(argv=None):
     if not args.quick:
         timed("6 MLE", mle)
     timed("7 serving", serving, SERVE_QUICK if args.quick else SERVE, results)
+    torch.cuda.empty_cache()
+    timed("8 fidelity", fidelity, FIDELITY_QUICK if args.quick else FIDELITY,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results.values()]}), flush=True)
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("launches_fidelity",) if k in r}
+        for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

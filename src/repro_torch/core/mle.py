@@ -7,7 +7,9 @@ strongly-correlated data" observation can be reproduced.
 
 `neldermead` and `fit_mle` also accept a batched function that evaluates
 the initial simplex, the speculative reflection/expansion/contraction
-triple and shrink steps in single calls.
+triple and shrink steps in single calls; `fit_mle_grid` is the batched
+iterative grid search.  A batched function may return a tensor on any
+device.
 """
 
 from __future__ import annotations
@@ -16,6 +18,15 @@ from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
+import torch
+
+
+def _host(values) -> np.ndarray:
+    """Values of a batched evaluation (a tensor on any device, or array
+    like) as a float64 numpy array."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().to("cpu", torch.float64)
+    return np.asarray(values, dtype=np.float64)
 
 
 @dataclass
@@ -123,8 +134,7 @@ def fit_mle(loglik_fn: Callable | None, theta0, *, xtol: float = 1e-3,
     neg_batch = None
     if batched_loglik_fn is not None:
         def neg_batch(xs):
-            v = np.asarray(batched_loglik_fn(np.exp(np.asarray(xs))),
-                           dtype=np.float64)
+            v = _host(batched_loglik_fn(np.exp(np.asarray(xs))))
             return np.where(np.isfinite(v), -v, 1e10)
 
     if loglik_fn is None:
@@ -144,3 +154,51 @@ def fit_mle(loglik_fn: Callable | None, theta0, *, xtol: float = 1e-3,
     return MLEResult(theta=np.exp(x), loglik=-f, n_evals=n_evals,
                      n_iters=n_iters, converged=conv,
                      history=[(np.exp(h[0]), -h[1]) for h in hist])
+
+
+def fit_mle_grid(batched_loglik_fn: Callable, bounds, *, num: int = 12,
+                 refine: int = 3, shrink: float = 0.4) -> MLEResult:
+    """Batched iterative grid search: maximize loglik over positive theta.
+
+    Every refinement level evaluates the FULL `num**d` candidate grid in one
+    batched call (`batched_loglik_fn`: (B, d) -> (B,)), then recenters a
+    log-space grid of `shrink` x the previous span on the incumbent: `refine`
+    host round-trips in all (one per level) instead of one per candidate.
+
+    bounds: sequence of (lo, hi) per parameter, in theta space (positive);
+    the grid is laid out in log space like the NM driver.
+    """
+    bounds = np.asarray(bounds, dtype=np.float64)
+    if bounds.ndim != 2 or bounds.shape[1] != 2 or np.any(bounds <= 0.0):
+        raise ValueError("bounds must be (d, 2) with positive entries")
+    d = bounds.shape[0]
+    lo0, hi0 = np.log(bounds[:, 0]), np.log(bounds[:, 1])
+    lo, hi = lo0.copy(), hi0.copy()
+    best_x, best_f = None, -np.inf
+    n_evals = 0
+    history = []
+    for _ in range(refine):
+        axes = [np.linspace(lo[i], hi[i], num) for i in range(d)]
+        mesh = np.stack(np.meshgrid(*axes, indexing="ij"),
+                        axis=-1).reshape(-1, d)
+        # the reference hands the engine float32 candidates
+        ll = _host(batched_loglik_fn(np.exp(mesh).astype(np.float32)))
+        ll = np.where(np.isfinite(ll), ll, -np.inf)
+        n_evals += mesh.shape[0]
+        k = int(np.argmax(ll))
+        if ll[k] > best_f:
+            best_f, best_x = float(ll[k]), mesh[k].copy()
+        if best_x is None:
+            raise ValueError(
+                "fit_mle_grid: every candidate log-likelihood in the "
+                f"first {mesh.shape[0]}-point grid level was non-finite; "
+                "widen or shift `bounds` (the covariance is likely not "
+                "SPD there)")
+        history.append((np.exp(best_x), best_f))
+        # recenter on the incumbent, clamped so refined grids (and hence
+        # the returned theta) never leave the caller's bounds box
+        span = (hi - lo) * shrink
+        lo = np.clip(best_x - span / 2.0, lo0, hi0)
+        hi = np.clip(best_x + span / 2.0, lo0, hi0)
+    return MLEResult(theta=np.exp(best_x), loglik=best_f, n_evals=n_evals,
+                     n_iters=refine, converged=True, history=history)

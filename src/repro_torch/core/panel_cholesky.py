@@ -65,10 +65,9 @@ def build_banded_covariance(locs, theta, *, nb: int, policy: PrecisionPolicy,
     """Matern covariance directly into (band, off) split storage.
 
     band[i, d] = Sigma tile (i, i-d) in hi; off[i, j] = tile (i, j) in lo
-    (only i - j >= t is filled; the rest is zero).
+    (only i - j >= t is filled; the rest is zero).  nu_static=None takes
+    the smoothness from theta[2] (see `kernels.matern_cov.ops`).
     """
-    if nu_static is None:
-        raise NotImplementedError("general-nu kv: ROADMAP A2")
     matern, _, _ = _impl(impl)
     n = locs.shape[0]
     if n % nb:
@@ -77,15 +76,16 @@ def build_banded_covariance(locs, theta, *, nb: int, policy: PrecisionPolicy,
     t = min(policy.diag_thick, p)
     hi, lo = policy.hi, (policy.lo if policy.mode != "full" else policy.hi)
     theta = _host_theta(theta)
+    nu = nu_static if nu_static is not None else theta[2]
     locs_t = locs.reshape(p, nb, locs.shape[-1])
 
     band = torch.zeros((p, t, nb, nb), dtype=hi, device=locs.device)
     for d in range(t):  # band sub-diagonals, written in place
         matern.matern_cov_tiles(locs_t[d:], locs_t[:p - d], theta,
-                                nu=nu_static, out_dtype=hi, metric=metric,
+                                nu=nu, out_dtype=hi, metric=metric,
                                 out=band[d:, d])
     band[:, 0].diagonal(dim1=-2, dim2=-1).add_(jitter)
-    off = matern.matern_cov_lower(locs_t, theta, nu=nu_static, min_lag=t,
+    off = matern.matern_cov_lower(locs_t, theta, nu=nu, min_lag=t,
                                   out_dtype=lo, metric=metric)
     return band, off
 

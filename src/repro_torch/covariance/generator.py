@@ -93,3 +93,44 @@ CORRELATION_LEVELS = {
     "medium": (1.0, 0.10, 0.5),
     "strong": (1.0, 0.30, 0.5),
 }
+
+
+# Table-I Matern parameters per wind-speed region (theta1, theta2, theta3).
+# R1's row is unreadable in the paper scan; its values are interpolated from
+# R2-R4.  theta2 is on the haversine-degrees scale.
+WIND_REGIONS = {
+    "R1": (11.1, 24.0, 1.30),
+    "R2": (12.533, 27.603, 1.270),
+    "R3": (10.813, 19.196, 1.417),
+    "R4": (12.441, 19.733, 1.119),
+}
+
+# (lon_lo, lon_hi, lat_lo, lat_hi) quadrants of [30, 60] x [10, 35]
+WIND_BOXES = {
+    "R1": (30.0, 45.0, 22.5, 35.0),
+    "R2": (45.0, 60.0, 22.5, 35.0),
+    "R3": (30.0, 45.0, 10.0, 22.5),
+    "R4": (45.0, 60.0, 10.0, 22.5),
+}
+
+
+def wind_like_dataset(gen: torch.Generator, region: str, n: int, *,
+                      ordering: str = "morton") -> Dataset:
+    """WRF-like wind-speed field for one Arabian-Peninsula subregion.
+
+    Locations are drawn on a lon/lat box roughly matching one quadrant of
+    the paper's Fig. 3 domain; distances are haversine (degrees), and the
+    smoothness is the region's general nu.
+    """
+    theta0 = torch.tensor(WIND_REGIONS[region], dtype=torch.float32,
+                          device=gen.device)
+    lon_lo, lon_hi, lat_lo, lat_hi = WIND_BOXES[region]
+    unit = random_locations(gen, n)
+    locs = torch.stack([lon_lo + unit[:, 0] * (lon_hi - lon_lo),
+                        lat_lo + unit[:, 1] * (lat_hi - lat_lo)], dim=-1)
+    z = simulate_field(gen, locs, theta0, metric="haversine", jitter=1e-6)
+    # order on the unit-normalized coords
+    lmin, lmax = locs.min(0).values, locs.max(0).values
+    perm = ORDERINGS[ordering]((locs - lmin) / (lmax - lmin))
+    locs, z = apply_ordering(locs, z, perm)
+    return Dataset(locs=locs, z=z, theta0=theta0, metric="haversine")

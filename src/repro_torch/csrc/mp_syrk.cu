@@ -26,9 +26,9 @@
 //     written in whole rows.  The
 //     result is still the full square the TPU kernel returns, and it is
 //     exactly symmetric.  Each kernel's 1-D grid covers exactly its own lower
-//     blocks, tile row by tile row (its size comes from kernels/mp_gemm/
-//     mp_gemm.py: plan); a block finds its (bi, bj) from its linear index
-//     (band_block, off_block).
+//     blocks, tile row by tile row (mp_syrk_launch sizes it from the
+//     tile-row offsets below); a block finds its (bi, bj) from its linear
+//     index (band_block, off_block).
 //   * band: fp32 SIMT, 256 threads per BM x BM block, (BM / 16)^2 outputs per
 //     thread in registers.  K goes in steps of 16 through two shared-memory
 //     buffers, transposed so that each k step reads float4s; the next step's
@@ -63,7 +63,7 @@ struct Grid {
 // Lower band blocks in tile rows < T.  Tile row ti holds the lower half of
 // its diagonal tile (r (r + 1) / 2 blocks, the diagonal included) and
 // min(ti, band - 1) whole tiles to its left.
-__device__ inline long long band_row_start(const Grid& g, long long T) {
+__host__ __device__ inline long long band_row_start(const Grid& g, long long T) {
   const long long b1 = g.band - 1;
   const long long whole = T <= b1 + 1 ? T * (T - 1) / 2 : b1 * (b1 + 1) / 2 + (T - b1 - 1) * b1;
   return T * g.r * (g.r + 1) / 2 + whole * g.r * g.r;
@@ -71,7 +71,7 @@ __device__ inline long long band_row_start(const Grid& g, long long T) {
 
 // Off-band blocks in tile rows < T: tile row ti holds max(0, ti - band + 1)
 // whole tiles.
-__device__ inline long long off_row_start(const Grid& g, long long T) {
+__host__ __device__ inline long long off_row_start(const Grid& g, long long T) {
   const long long x = T > g.band ? T - g.band : 0;
   return x * (x + 1) / 2 * g.r * g.r;
 }
@@ -528,16 +528,18 @@ cudaError_t launch(const float* p, __nv_bfloat16* scratch, float* out, int m, in
 // p: (m, kdim) fp32 contiguous; scratch: (m, kdim) bf16, written here (may be
 // null when the call has no off-band block); out: (m, m) fp32 contiguous.
 // Requires tile % 64 == 0, m % tile == 0, round_k % 64 == 0,
-// kdim % round_k == 0 and bm in {64, 128} dividing tile.  n_band and n_off are
-// the two grids, the plan's lower-block counts (kernels/mp_gemm/mp_gemm.py:
-// plan), taken as given.
+// kdim % round_k == 0 and bm in {64, 128} dividing tile.  Each kernel's grid
+// is its number of lower blocks, from the same tile-row offsets its blocks
+// use to find their (bi, bj).
 extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, int kdim,
                               int tile, int round_k, int band_blocks, int lo_bf16, int bm,
-                              long long n_band, long long n_off, void* stream) {
+                              void* stream) {
   if (tile <= 0 || tile % 64 || m % tile || round_k <= 0 || round_k % KC || kdim % round_k ||
       band_blocks < 1 || (bm != 64 && bm != 128) || tile % bm)
     return cudaErrorInvalidValue;
   const Grid g = make_grid(m, tile, band_blocks, lo_bf16, bm);
+  const long long n_band = band_row_start(g, g.n_tiles);
+  const long long n_off = off_row_start(g, g.n_tiles);
   if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
   const float* pp = static_cast<const float*>(p);
   auto* sc = static_cast<__nv_bfloat16*>(scratch);

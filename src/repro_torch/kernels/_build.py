@@ -33,7 +33,6 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 SIGNATURES = {
@@ -44,8 +43,8 @@ SIGNATURES = {
     # a, out, info, batch, nb, max_blocks, stream
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
     # p, scratch, out, m, kdim, tile, round_k, band_blocks, lo_bf16, bm,
-    # n_band, n_off, stream
-    "mp_syrk_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
+    # stream
+    "mp_syrk_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, scales, seg_len, acc, m, l, ws_acc, ws_m, ws_l, batch, g, d,
     # s, blk, chunk, sm_scale, q_bf16, kv_dtype, stream
     "mp_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

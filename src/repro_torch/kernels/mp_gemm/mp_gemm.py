@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel `repro.kernels.mp_gemm.mp_gemm`.  Takes the
 {hi=fp32, lo=bf16, accum=fp32} pair, or lo=fp32 (every block in fp32).
 Two kernels, each over only the lower blocks (bi >= bj) of its class, each
 block written with its mirror: the fp32 band kernel and, after a pass that
-writes P as bf16 into a scratch, the bf16 wgmma off-band kernel.
+writes P as bf16 into a scratch, the bf16 wgmma off-band kernel.  The C
+entry sizes both grids (csrc/mp_syrk.cu: mp_syrk_launch).
 """
 
 from __future__ import annotations
@@ -15,39 +16,6 @@ from .. import LAUNCHES
 from .._build import check, library
 
 KC = 64   # K columns of one pipeline stage of the off-band kernel
-
-
-def _band_row_start(r: int, band: int, t: int) -> int:
-    """Band blocks in tile rows < t: tile row ti holds the lower half of its
-    diagonal tile (r (r + 1) / 2 blocks) and min(ti, band - 1) whole tiles."""
-    b1 = band - 1
-    whole = t * (t - 1) // 2 if t <= b1 + 1 else b1 * (b1 + 1) // 2 + (t - b1 - 1) * b1
-    return t * r * (r + 1) // 2 + whole * r * r
-
-
-def _off_row_start(r: int, band: int, t: int) -> int:
-    """Off-band blocks in tile rows < t: tile row ti holds max(0, ti - band
-    + 1) whole tiles."""
-    x = max(0, t - band)
-    return x * (x + 1) // 2 * r * r
-
-
-def plan(m: int, tile: int, band_blocks: int, bm: int,
-         lo=torch.bfloat16) -> dict:
-    """The two kernels' 1-D grids over the lower blocks of one call.
-
-    The square is cut into bm x bm blocks, r = tile // bm along each side of
-    a tile.  `band` and `off` are the numbers of lower blocks (bi >= bj) in
-    and off the band, each its kernel's grid; with lo = fp32 every block is
-    in the band.  The device maps a grid index to its (bi, bj) from the same
-    tile-row offsets (csrc/mp_syrk.cu: band_block, off_block).
-    """
-    n_tiles = m // tile
-    band = n_tiles if lo == torch.float32 else min(band_blocks, n_tiles)
-    r = tile // bm
-    return dict(bm=bm, r=r, n_tiles=n_tiles, band_blocks=band,
-                band=_band_row_start(r, band, n_tiles),
-                off=_off_row_start(r, band, n_tiles))
 
 
 def launch(p, *, tile, round_k, band_blocks, hi, lo, accum):
@@ -70,14 +38,16 @@ def launch(p, *, tile, round_k, band_blocks, hi, lo, accum):
             "it takes hi = accum = float32 and lo in {bfloat16, float32}")
     if band_blocks < 1:
         raise ValueError(f"band_blocks must be >= 1, got {band_blocks}")
-    pl = plan(m, tile, band_blocks, 128 if tile % 128 == 0 else 64, lo)
+    # the bf16 copy of P feeds the off-band kernel, which runs when some
+    # tile lies band_blocks or more tiles off the diagonal
+    off_band = lo == torch.bfloat16 and band_blocks < m // tile
     out = torch.empty((m, m), dtype=torch.float32, device=p.device)
     scratch = (torch.empty((m, kdim), dtype=torch.bfloat16, device=p.device)
-               if pl["off"] else None)
+               if off_band else None)
     status = library().mp_syrk_launch(
         p.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        out.data_ptr(), m, kdim, tile, round_k, pl["band_blocks"],
-        int(lo == torch.bfloat16), pl["bm"], pl["band"], pl["off"],
+        out.data_ptr(), m, kdim, tile, round_k, min(band_blocks, m // tile),
+        int(lo == torch.bfloat16), 128 if tile % 128 == 0 else 64,
         torch.cuda.current_stream(p.device).cuda_stream)
     check(status, "mp_syrk")
     LAUNCHES["mp_syrk"] += 1

@@ -1,7 +1,8 @@
-"""The CUDA SYRK's host side on the CPU: its tile plan (csrc/mp_syrk.cu
-launches each kernel over exactly the lower blocks of its class and writes
-each with its mirror), the symmetry of the JAX kernel's U that makes the
-mirror faithful, and the wrapper's refusals before any build."""
+"""The CUDA SYRK's host side on the CPU: the specification of its tile plan
+(csrc/mp_syrk.cu launches each kernel over exactly the lower blocks of its
+class and writes each with its mirror), the symmetry of the JAX kernel's U
+that makes the mirror faithful, and the wrapper's refusals before any
+build."""
 
 import jax
 import jax.numpy as jnp
@@ -17,10 +18,38 @@ from test_torch_kernels import _syrk_offband_bound
 torch.set_num_threads(1)
 
 
-# The specification of the device's block mapping (csrc/mp_syrk.cu:
-# tile_row_of, band_block, off_block), written out in Python: grid index ->
-# (bi, bj), from the plan's tile-row offsets.  The kernels on the card follow
-# it; here it is held to covering the square once with the plan's counts.
+# The specification of the device's grids and block mapping, written out in
+# Python; csrc/mp_syrk.cu is the one implementation (mp_syrk_launch sizes
+# the grids from band_row_start / off_row_start, and each block finds its
+# (bi, bj) with tile_row_of, band_block and off_block).  Here the
+# specification is held to covering the square once.
+def _band_row_start(r: int, band: int, t: int) -> int:
+    """Band blocks in tile rows < t: tile row ti holds the lower half of its
+    diagonal tile (r (r + 1) / 2 blocks) and min(ti, band - 1) whole tiles."""
+    b1 = band - 1
+    whole = t * (t - 1) // 2 if t <= b1 + 1 else b1 * (b1 + 1) // 2 + (t - b1 - 1) * b1
+    return t * r * (r + 1) // 2 + whole * r * r
+
+
+def _off_row_start(r: int, band: int, t: int) -> int:
+    """Off-band blocks in tile rows < t: tile row ti holds max(0, ti - band
+    + 1) whole tiles."""
+    x = max(0, t - band)
+    return x * (x + 1) // 2 * r * r
+
+
+def _plan(m: int, tile: int, band_blocks: int, bm: int, lo=torch.bfloat16):
+    """The two kernels' 1-D grids over the lower blocks of one call: `band`
+    and `off` lower blocks (bi >= bj) of bm x bm, r = tile // bm along each
+    side of a tile; with lo = fp32 every block is in the band."""
+    n_tiles = m // tile
+    band = n_tiles if lo == torch.float32 else min(band_blocks, n_tiles)
+    r = tile // bm
+    return dict(bm=bm, r=r, n_tiles=n_tiles, band_blocks=band,
+                band=_band_row_start(r, band, n_tiles),
+                off=_off_row_start(r, band, n_tiles))
+
+
 def _tile_row(start, idx, n_tiles):
     lo, hi = 0, n_tiles - 1
     while lo < hi:
@@ -36,7 +65,7 @@ def _band_block(pl, idx):
     """Tile row ti holds, per block row a, min(ti, band - 1) r whole-tile
     blocks and a + 1 blocks of its diagonal tile, in column order."""
     r, band = pl["r"], pl["band_blocks"]
-    start = lambda t: syrk_kernel._band_row_start(r, band, t)  # noqa: E731
+    start = lambda t: _band_row_start(r, band, t)  # noqa: E731
     ti = _tile_row(start, idx, pl["n_tiles"])
     q = idx - start(ti)
     wr = min(ti, band - 1) * r
@@ -50,7 +79,7 @@ def _band_block(pl, idx):
 def _off_block(pl, idx):
     """Tile row ti holds its off-band tiles' blocks column-major."""
     r, band = pl["r"], pl["band_blocks"]
-    start = lambda t: syrk_kernel._off_row_start(r, band, t)  # noqa: E731
+    start = lambda t: _off_row_start(r, band, t)  # noqa: E731
     ti = _tile_row(start, idx, pl["n_tiles"])
     q = idx - start(ti)
     return ti * r + q % r, q // r
@@ -70,7 +99,7 @@ def _syrk_products(n_t, t):
 def test_plan_covers_the_square_once(n_tiles, band, bm, lo):
     tile = 256 if n_tiles < 63 else 128   # r = 4 or 2 blocks per tile side
     m = n_tiles * tile
-    pl = syrk_kernel.plan(m, tile, band, bm, lo)
+    pl = _plan(m, tile, band, bm, lo)
     nb = m // bm
     seen = np.zeros((nb, nb), np.int64)
     band_eff = n_tiles if lo == torch.float32 else min(band, n_tiles)
@@ -96,7 +125,7 @@ def test_plan_covers_the_square_once(n_tiles, band, bm, lo):
 @pytest.mark.parametrize("m_t", [63, 32, 8, 1])
 def test_plan_at_the_main_path_steps(m_t):
     """The panel path's calls: P = (m_t 1024, 1024), tile 1024, band 8."""
-    pl = syrk_kernel.plan(m_t * 1024, 1024, 8, 128)
+    pl = _plan(m_t * 1024, 1024, 8, 128)
     in_p, off_p = _syrk_products(m_t, 8)
     if m_t == 63:
         assert (in_p, off_p) == (476, 1540)
