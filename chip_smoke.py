@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the full run (one card)
     python3 chip_smoke.py --quick    # small shapes: build and check only
+                                     # (phase 9: evaluations and kernels)
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. environment: the card (nvidia-smi), torch, CUDA, TF32 flags (off);
@@ -17,7 +18,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      conformance sweep's shapes and with round_k < kdim, lo bf16 and fp32,
      each U equal to its transpose, and at the main path's step 0 (U = U^T
      slab by slab, bit for bit), timed at m_t in {63, 32, 8} tile rows
-     with the device time of each of its kernels at step 0;
+     with the device time of each of its kernels at step 0; the same
+     checks under the paper pair (hi, lo, accum) = (fp64, fp32, fp32) and
+     all-hi fp64, and its step 0 timed beside its yardstick and bound;
+     matern_cov's fp64 forms of phase 4's paper-pair request at every nu:
+     fp64 band storage, and the off-band computed in fp64 and rounded once
+     to fp32;
      3b. mp_attention (banded-precision flash decode) against its plain
      version on the kernel tests' shapes, logit scales, ragged lengths
      (an empty far segment among them) and fp32 / bf16 near K/V, and at
@@ -26,7 +32,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   4. main path: geostat_loglik_step at n = 65536, nb = 1024, band t = 8,
      {fp32 band, bf16 off-band}, three requests (theta), each through the
      kernels and through the plain versions; launch counts, log-likelihoods,
-     seconds per evaluation and peak memory;
+     seconds per evaluation and peak memory; then one request under the
+     paper pair paper_cpu(8) (fp64 band, fp32 off-band) on the same field
+     in fp64;
   5. small inputs held against the plain path on the CPU: the likelihood,
      and llama3.2-1b's SMOKE model (fp32 compute) through forward_lm,
      prefill, generate and decode_step;
@@ -49,9 +57,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      BatchEngine.loglik on 8 candidates against loglik_sequential; the
      tile path at n = 2,048 on the card and on the CPU; a general-nu
      haversine covariance against fp64; each kernel at the tile path's
-     shapes;
+     shapes; nb = 96 refused on the card;
+  9. the paper pair: an fp64 medium field (theta0 = (1, 0.1, 0.5)) at
+     n_obs = 40,960 of 45,056, nb = 1,024: full(fp64) dense and through the
+     tiles, paper_cpu at DP(10%) and DP(40%), each through the kernels and
+     the plain versions (launch counts, kernel vs plain, drift against
+     full(fp64), seconds, peak), a profiled DP(10%) evaluation and tpu(2)
+     on the same field; fit_mle_grid + batched Nelder-Mead (one candidate
+     per chunk) for full(fp64) and DP(10%), theta-hat within 0.25; kriging
+     with variance at 4,096 sites, PMSE within 0.2; mp_syrk (fp64, fp32)
+     at the tile path's step 0 and matern_cov in fp64 for Sigma and
+     Sigma_no against their plain versions (every row slab), timed;
 then the card's name and power limit, one JSON line of every kernel's
-numbers, and last the result line.
+numbers (the fp64 instantiations in rows of their own), and last the
+result line.
 """
 
 from __future__ import annotations
@@ -67,14 +86,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published peaks of one H100 SXM (dense)
+# published peaks of one H100 SXM (dense; NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+FP64_TC_FLOPS = 67e12   # fp64 on the tensor cores (DMMA)
+FP64_FLOPS = 34e12      # fp64 FMA outside the tensor cores
 
 # the kernels of one mp_syrk call, as the profiler names them
-SYRK_KERNELS = ("syrk_band_fp32_lower_kernel", "syrk_offband_bf16_wgmma_kernel",
-                "to_bf16_kernel")
+SYRK_KERNELS = ("syrk_band_lower_kernel", "syrk_offband_bf16_wgmma_kernel",
+                "to_bf16_kernel", "syrk_offband_fp32_lower_kernel",
+                "to_fp32_kernel")
 QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
 # phase 7: batch, prompt length, generated tokens, near window, key block
 SERVE = dict(batch=4, prompt=8_192, new=64, near=1_024, blk=128)
@@ -102,6 +124,16 @@ FIDELITY_QUICK = dict(n_all=5_632, hold=11, n_obs=5_120, nb=128,
 GENERAL_NU_MAX_REL = 1e-4
 WEAK = (1.0, 0.03, 0.5)
 MEDIUM = (1.0, 0.10, 0.5)
+# phase 9: the paper pair on an fp64 medium field, split as phase 8's; the
+# estimation's grid and Nelder-Mead iterations (phase 8.2's); --quick runs
+# the evaluations and the kernels only
+PAPER = dict(n_all=45_056, hold=11, n_obs=40_960, nb=1_024, grid=3, refine=2,
+             nm_iters=20, estimate=True)
+PAPER_QUICK = dict(n_all=5_632, hold=11, n_obs=5_120, nb=128, grid=3,
+                   refine=2, nm_iters=3, estimate=False)
+# the paper pair's registered loglik_drift (src/repro/verify/bounds.py),
+# measured at n of a few hundred; phase 9 reports against it
+PAPER_LOGLIK_DRIFT = 1e-6
 
 
 def emit(**obj):
@@ -137,6 +169,13 @@ def bf16_ulp(x):
     import torch
     _, e = torch.frexp(x.abs().float())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def fp32_ulp(x):
+    """One fp32 ulp at |x| (24 significant bits), in fp64."""
+    import torch
+    _, e = torch.frexp(x.abs().double())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 24)
 
 
 def scale_rel(out, ref):
@@ -239,6 +278,70 @@ def check_matern(locs_t, theta, t, nu_main, results):
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS
         else "operations", library_ms=None)
+
+
+def check_matern_fp64(locs_t, theta, t, results):
+    """matern_cov's two fp64 forms on phase 4's paper_cpu(t) request, at
+    every nu, on the main path's locations in fp64: the band storage written
+    as fp64 (<= 1e-12 theta1 from the plain version), and the off-band
+    lower form computed in fp64 and rounded once to fp32.  That fp32 output
+    must equal the plain version's fp64 value rounded once, bit for bit,
+    wherever the kernel's own fp64 value (the zip form on the same tile
+    pairs) equals the plain one, and be within one fp32 ulp elsewhere; a
+    kernel that computed in fp32 would differ on a large share of them.
+    Compared one tile row at a time."""
+    import torch
+    from repro_torch.kernels.matern_cov import ops, ref
+    f32, f64 = torch.float32, torch.float64
+    locs_t = locs_t.double()
+    p, nb, _ = locs_t.shape
+    tol = 1e-12 * theta[0]
+    worst = 0.0
+    for nu in (0.5, 1.5, 2.5):
+        out = torch.zeros((p, t, nb, nb), dtype=f64, device=locs_t.device)
+        want = torch.zeros_like(out)
+        for d in range(t):
+            args = (locs_t[d:], locs_t[:p - d], theta)
+            ops.matern_cov_tiles(*args, nu=nu, out_dtype=f64, out=out[d:, d])
+            ref.matern_cov_tiles(*args, nu=nu, out_dtype=f64, out=want[d:, d])
+        band_err = float((out - want).abs().max())
+        del out, want
+        require(band_err <= tol, f"matern fp64 band storage nu={nu}: {band_err}")
+        low = ops.matern_cov_lower(locs_t, theta, nu=nu, min_lag=t,
+                                   out_dtype=f32)
+        require(low.dtype == f32, f"matern fp64 -> fp32 lower: {low.dtype}")
+        off_err, ulps, differ, split = 0.0, 0.0, 0, 0
+        for i in range(p):
+            j = max(0, i - t + 1)  # tiles (i, jj) with i - jj >= t
+            require(not bool(low[i, j:].any()),
+                    f"matern fp64 -> fp32 lower nu={nu}: tile row {i} not zero")
+            if j == 0:
+                continue
+            cols = locs_t[:j].reshape(-1, 2)
+            w64 = ref.matern_cov(locs_t[i], cols, theta, nu=nu, out_dtype=f64)
+            k64 = ops.matern_cov(locs_t[i], cols, theta, nu=nu, out_dtype=f64)
+            o = low[i, :j].transpose(0, 1).reshape(nb, -1)
+            w = w64.to(f32)
+            ne = o != w
+            differ += int(ne.sum())
+            split += int((ne & (k64 == w64)).sum())
+            d = (o.double() - w.double()).abs()
+            off_err = max(off_err, float(d.max()))
+            ulps = max(ulps, float((d / fp32_ulp(torch.maximum(
+                o.double().abs(), w.double().abs()))).max()))
+        del low, w64, k64, o, w, ne, d
+        torch.cuda.empty_cache()
+        require(split == 0 and ulps <= 1.0,
+                f"matern fp64 -> fp32 lower nu={nu}: {split} elements differ "
+                f"where the fp64 values agree, {ulps} ulp")
+        worst = max(worst, band_err, off_err)
+        emit(phase="kernels", kernel="matern_cov", dtype=str(f64),
+             launch="band storage fp64, off-band fp64 -> fp32", nu=nu,
+             shape=[p, t, nb, nb], band_max_abs_err=band_err, tol=tol,
+             offband_min_lag=t, offband_elements_differ=differ,
+             offband_differ_where_fp64_agrees=split, offband_max_fp32_ulps=ulps,
+             offband_max_abs_err=off_err)
+    results.setdefault("matern_cov_fp64", {})["max_abs_err"] = worst
 
 
 def spd_batch(gen, b, nb, *, indefinite=False):
@@ -511,6 +614,126 @@ def check_syrk(gen, m_main, nb, t, results):
         library_ms=s0["library_ms"])
 
 
+def _syrk64_errors(out, want, *, tile, band):
+    """The fp64 pair's U against its plain version, row slab by row slab:
+    (in-band max |err| / max |U|, off-band max |err| / max |U|, max abs
+    err, every off-band value an fp32 number)."""
+    import torch
+    m = out.shape[0]
+    tiles = torch.arange(m, device=out.device) // tile
+    scale = band_err = off_err = 0.0
+    fp32_values = True
+    for r0 in range(0, m, tile):
+        rows = slice(r0, r0 + tile)
+        o, w = out[rows], want[rows]
+        d = (o - w).abs()
+        in_band = (tiles[rows, None] - tiles[None, :]).abs() < band
+        scale = max(scale, float(w.abs().max()))
+        band_err = max(band_err, float(d[in_band].max()))
+        if not bool(in_band.all()):
+            off_err = max(off_err, float(d[~in_band].max()))
+            ov = o[~in_band]
+            fp32_values &= bool((ov == ov.float().double()).all())
+    scale = max(scale, 1e-300)
+    return band_err / scale, off_err / scale, max(band_err, off_err), fp32_values
+
+
+def syrk64_numbers(p, nb, t):
+    """Kernel time, yardstick and bound of the fp64 pair's SYRK of P =
+    (n_t nb, nb), tile = round_k = nb, band t.  The yardstick is
+    torch.matmul over the same lower tiles, fp64 for each tile row's band
+    slab and IEEE fp32 for its slab left of the band.  The bound: the fp64
+    band's operations at the fp64 tensor-core peak and the fp32 off-band's
+    at the fp32 peak (separate units: the larger), or the bytes of P and
+    the fp64 U, whichever is larger."""
+    import torch
+    from repro_torch.kernels.mp_gemm import ops
+    n_t = p.shape[0] // nb
+    kw = dict(tile=nb, round_k=nb, band_blocks=t, hi=torch.float64,
+              lo=torch.float32, accum=torch.float32)
+    band_f, off_f = syrk_flops(n_t, nb, t)
+    ops_s = max(band_f / FP64_TC_FLOPS, off_f / FP32_FLOPS)
+    bytes_s = (p.numel() + p.shape[0] ** 2) * 8 / HBM_BYTES_PER_S
+    p32 = p.float()
+
+    def library():
+        for i in range(n_t):
+            rows, c0 = slice(i * nb, (i + 1) * nb), max(0, i - t + 1) * nb
+            torch.matmul(p[rows], p[c0:(i + 1) * nb].T)
+            if c0:
+                torch.matmul(p32[rows], p32[:c0].T)
+    return dict(ms=time_ms(lambda: ops.mp_syrk(p, **kw)),
+                library_ms=time_ms(library), bound_ms=1e3 * max(ops_s, bytes_s),
+                bound_by="operations" if ops_s >= bytes_s else "bytes",
+                band_bound_ms=1e3 * band_f / FP64_TC_FLOPS,
+                offband_bound_ms=1e3 * off_f / FP32_FLOPS,
+                band_gflop=band_f / 1e9, offband_gflop=off_f / 1e9)
+
+
+def check_syrk_fp64(gen, m_main, nb, t, results):
+    """mp_syrk under the paper pair (fp64, fp32, fp32) and all-hi fp64:
+    the conformance shapes and round_k < kdim, then the panel path's step 0
+    (band t); in-band elements within 1e-11 of max |U|, off-band within
+    1e-5 and fp32 numbers, U = U^T bit for bit."""
+    import torch
+    from repro_torch.kernels.mp_gemm import ops, ref
+    f32, f64 = torch.float32, torch.float64
+    worst = 0.0
+    for m, k, bm, bk, bands in ((128, 64, 64, 64, (1, 2, 4)),
+                                (256, 128, 64, 64, (1, 2, 4)),
+                                (256, 64, 128, 64, (1, 2, 4)),
+                                (2048, 512, 512, 128, (1, 2))):
+        p = torch.randn((m, k), generator=gen, device="cuda", dtype=f64)
+        for lo in (f32, f64):
+            for band in bands if lo == f32 else bands[:1]:
+                kw = dict(tile=bm, round_k=bk, band_blocks=band, hi=f64, lo=lo,
+                          accum=lo)
+                out, want = ops.mp_syrk(p, **kw), ref.mp_syrk(p, **kw)
+                brel, orel, mx, fp32_off = _syrk64_errors(
+                    out, want, tile=bm, band=band if lo == f32 else m // bm)
+                sym = bool(torch.equal(out, out.T))
+                require(out.dtype == f64 and brel <= 1e-11 and orel <= 1e-5
+                        and sym and fp32_off,
+                        f"mp_syrk fp64 m={m} k={k} round_k={bk} band={band} "
+                        f"lo={lo}: band {brel} off {orel} symmetric {sym} "
+                        f"fp32 off-band {fp32_off}")
+                worst = max(worst, mx)
+                emit(phase="kernels", kernel="mp_syrk", hi=str(f64), lo=str(lo),
+                     m=m, k=k, tile=bm, round_k=bk, band=band, inband_rel=brel,
+                     offband_rel=orel, symmetric=sym)
+    # step 0 of the panel path: P is (m_main, nb) fp64, tile = round_k = nb
+    p = torch.randn((m_main, nb), generator=gen, device="cuda", dtype=f64)
+    kw = dict(tile=nb, round_k=nb, band_blocks=t, hi=f64, lo=f32, accum=f32)
+    out = ops.mp_syrk(p, **kw)
+    want = ref.mp_syrk(p, **kw)
+    brel, orel, mx, fp32_off = _syrk64_errors(out, want, tile=nb, band=t)
+    require(brel <= 1e-11 and orel <= 1e-5 and fp32_off,
+            f"mp_syrk fp64 step-0 shape: band {brel} off {orel} fp32 {fp32_off}")
+    worst = max(worst, mx)
+    del want
+    for r0 in range(0, m_main, nb):
+        require(torch.equal(out[r0:r0 + nb], out[:, r0:r0 + nb].T),
+                f"mp_syrk fp64 step-0 shape: U != U^T in rows {r0}..{r0 + nb}")
+    del out
+    torch.cuda.empty_cache()
+    nums = syrk64_numbers(p, nb, t)
+    plain_ms = time_ms(lambda: ref.mp_syrk(p, **kw), reps=3)
+    _, busy, rows = device_profile(lambda: ops.mp_syrk(p, **kw))
+    device = {name: sum(ms_ for k_, _, ms_ in rows if name in k_)
+              for name in SYRK_KERNELS}
+    emit(phase="kernels", kernel="mp_syrk", hi=str(f64), lo=str(f32),
+         m=m_main, k=nb, tile=nb, round_k=nb, band=t, inband_rel=brel,
+         offband_rel=orel, symmetric=True, plain_ms=plain_ms,
+         device_ms=device, device_busy_ms=busy, **nums)
+    results.setdefault("mp_syrk_fp64", {}).update(
+        name="mp_syrk (fp64, fp32)", route="cuda",
+        source="src/repro_torch/csrc/mp_syrk.cu",
+        replaces="src/repro/kernels/mp_gemm/mp_gemm.py:52",
+        max_abs_err=worst, ms=nums["ms"], plain_ms=plain_ms,
+        bound_ms=nums["bound_ms"], bound_by=nums["bound_by"],
+        library_ms=nums["library_ms"])
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the main path, a small CPU-held input, the MLE
 # ---------------------------------------------------------------------------
@@ -565,6 +788,38 @@ def main_path(ds, cfg, results):
     for k in total:
         results[k]["launches"] = total[k]
     profile_evaluation(ds, cfg, policy, th0)
+
+
+def main_path_paper(ds, cfg, results):
+    """Phase 4's paper-pair request: one geostat_loglik_step under
+    paper_cpu(t) (fp64 band, fp32 off-band) on the main path's field in
+    fp64, through the kernels and through the plain versions.  The fp64
+    diagonal tiles go to cuSOLVER by dtype: no blocked_potrf launch."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, geostat_loglik_step
+    n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
+    p = n // nb
+    policy = PrecisionPolicy.paper_cpu(t)
+    locs, z = ds.locs.double(), ds.z.double()
+    theta = [float(v) for v in ds.theta0.tolist()]
+    expected = {"blocked_potrf": 0, "mp_syrk": p - 1, "matern_cov": t + 1,
+                "mp_attention": 0}
+    out = {}
+    for impl in ("kernel", "plain"):
+        out[impl] = _evaluate(lambda th: geostat_loglik_step(
+            locs, z, th, nb=nb, policy=policy, nu_static=cfg["nu"],
+            off_update=cfg["off_update"], impl=impl), theta)
+    (a, sa, pa, ca), (b, sb, pb, cb) = out["kernel"], out["plain"]
+    require(ca == expected, f"paper_cpu({t}): launches {ca}, expected {expected}")
+    require(sum(cb.values()) == 0, f"paper_cpu({t}) plain path launched {cb}")
+    require(math.isfinite(a) and math.isfinite(b) and abs(a - b) <= 1e-5 * abs(b),
+            f"paper_cpu({t}): kernel {a} vs plain {b}")
+    emit(phase="main", policy=f"paper_cpu({t})", n=n, nb=nb, t=t, theta=theta,
+         loglik_kernel=a, loglik_plain=b, rel_diff=abs(a - b) / abs(b), tol=1e-5,
+         seconds_kernel=sa, seconds_plain=sb, peak_gib_kernel=pa,
+         peak_gib_plain=pb, launches_kernel=ca, launches_plain=cb)
+    results.setdefault("mp_syrk_fp64", {})["launches"] = ca["mp_syrk"]
+    results.setdefault("matern_cov_fp64", {})["launches"] = ca["matern_cov"]
 
 
 def device_profile(fn):
@@ -1130,23 +1385,17 @@ def fidelity_evaluations(locs, z, theta, fcfg, total, profile=True):
 
 def fidelity_refusals(locs, z, fcfg):
     """What the kernels do not take raises on the card, with no fallback:
-    the paper_cpu pair's fp64 band, and nb not a multiple of 64."""
+    nb not a multiple of 64 (the paper pair's fp64 band runs: phase 9)."""
     from repro_torch.core import PrecisionPolicy, make_loglik
-    nb, theta = fcfg["nb"], list(MEDIUM)
-    small = locs[:4 * nb], z[:4 * nb]
-    for pol, nb_bad, err in ((PrecisionPolicy.paper_cpu(2), nb,
-                              NotImplementedError),
-                             (PrecisionPolicy.tpu(2), 96, ValueError)):
-        try:
-            make_loglik(small[0][:4 * nb_bad], small[1][:4 * nb_bad], pol,
-                        nb=nb_bad, nu_static=0.5)(theta)
-        except err as e:
-            emit(phase="fidelity", step="refused", mode=pol.mode,
-                 hi=str(pol.hi), nb=nb_bad, error=type(e).__name__,
-                 message=str(e)[:120])
-        else:
-            raise AssertionError(f"{pol.mode} hi={pol.hi} nb={nb_bad}: "
-                                 "no error on the card")
+    pol, nb_bad = PrecisionPolicy.tpu(2), 96
+    try:
+        make_loglik(locs[:4 * nb_bad], z[:4 * nb_bad], pol, nb=nb_bad,
+                    nu_static=0.5)(list(MEDIUM))
+    except ValueError as e:
+        emit(phase="fidelity", step="refused", mode=pol.mode, hi=str(pol.hi),
+             nb=nb_bad, error=type(e).__name__, message=str(e)[:120])
+    else:
+        raise AssertionError(f"{pol.mode} nb={nb_bad}: no error on the card")
 
 
 def fidelity_estimation(locs, z, fcfg):
@@ -1438,6 +1687,272 @@ def fidelity(fcfg, results):
     emit(phase="fidelity", step="seconds", **secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper pair {fp64 band, fp32 off-band} on the fidelity path
+# ---------------------------------------------------------------------------
+
+def paper_policies(p):
+    """(label, policy, use_tiles) of phase 9: full(fp64) dense and through
+    the tiles, and the paper pair at DP(10%) and DP(40%)."""
+    import torch
+    from repro_torch.core import PrecisionPolicy as P
+    full = P.full(torch.float64)
+    return [("full(fp64) reference_cholesky", full, None),
+            ("full(fp64) tiles", full, True),
+            ("paper_cpu DP(10%)", P.from_dp_percent(p, 0.10, "paper_cpu"), None),
+            ("paper_cpu DP(40%)", P.from_dp_percent(p, 0.40, "paper_cpu"), None)]
+
+
+def _paper_data(gen, fcfg):
+    """An fp64 field at the medium theta0: fp64 locations, the draw through
+    an fp64 Cholesky, Morton order; split as `_fidelity_data`."""
+    import torch
+    from repro_torch.covariance import (ORDERINGS, apply_ordering,
+                                        random_locations, simulate_field)
+    locs = random_locations(gen, fcfg["n_all"], dtype=torch.float64)
+    z = simulate_field(gen, locs, MEDIUM, nu_static=0.5)
+    locs, z = apply_ordering(locs, z, ORDERINGS["morton"](locs))
+    idx = torch.arange(fcfg["n_all"], device="cuda")
+    held = idx % fcfg["hold"] == fcfg["hold"] - 1
+    new, obs = idx[held], idx[~held][:fcfg["n_obs"]]
+    require(obs.numel() == fcfg["n_obs"], f"{obs.numel()} observations")
+    return tuple(x.contiguous() for x in (locs[obs], z[obs], locs[new], z[new]))
+
+
+def paper_evaluations(locs, z, fcfg, total):
+    """9.1: one evaluation per policy at the medium theta0 through the
+    kernels and through the plain versions (exact launch counts, kernel
+    against plain within 1e-5 |ll|, each paper pair against dense fp64
+    within 1e-4 |ll|), the paper pair's drift beside its registered bound,
+    one profiled DP(10%) evaluation, and tpu(2) on the same field."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, make_loglik
+    nb, p = fcfg["nb"], locs.shape[0] // fcfg["nb"]
+    theta = list(MEDIUM)
+    dense = None
+    for label, pol, use_tiles in paper_policies(p):
+        tiled = _tiled(pol, use_tiles)
+        expected = {"matern_cov": 1, "blocked_potrf": 0,
+                    "mp_syrk": p - 1 if tiled else 0, "mp_attention": 0}
+        out = {}
+        for impl in ("kernel", "plain"):
+            fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
+                             use_tiles=use_tiles, impl=impl)
+            out[impl] = _evaluate(fn, theta)
+        (a, sa, pa, ca), (b, sb, pb, cb) = out["kernel"], out["plain"]
+        require(ca == expected, f"{label}: launches {ca}, expected {expected}")
+        require(sum(cb.values()) == 0, f"{label}: plain path launched {cb}")
+        require(math.isfinite(a) and math.isfinite(b)
+                and abs(a - b) <= 1e-5 * abs(b), f"{label}: kernel {a} vs plain {b}")
+        extra = {}
+        if dense is None:
+            dense = a
+        else:  # fp64 through the tiles: within the fp64 pair's own bound
+            drift = abs(a - dense) / abs(dense)
+            tol = 1e-4 if pol.mode == "mixed" else PAPER_LOGLIK_DRIFT
+            require(drift <= tol, f"{label}: {a} vs full(fp64) {dense}")
+            extra = dict(drift_vs_full_fp64=drift, drift_tol=tol,
+                         registered_loglik_drift=PAPER_LOGLIK_DRIFT,
+                         within_registered=drift <= PAPER_LOGLIK_DRIFT)
+        if pol.mode == "mixed":
+            for k in total:
+                total[k] += ca[k]
+        emit(phase="paper", step="evaluation", policy=label, mode=pol.mode,
+             diag_thick=min(pol.diag_thick, p), tiles=tiled, n=locs.shape[0],
+             nb=nb, theta=theta, loglik_kernel=a, loglik_plain=b,
+             rel_diff=abs(a - b) / abs(b), tol=1e-5, seconds_kernel=sa,
+             seconds_plain=sb, peak_gib_kernel=pa, peak_gib_plain=pb,
+             launches_kernel=ca, **extra)
+    pol = PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu")
+    fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5)
+    wall_ms, busy, rows = device_profile(lambda: float(fn(theta)))
+    emit(phase="paper", step="profile", policy="paper_cpu DP(10%)",
+         wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+         top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:10]])
+    # the {fp32, bf16} pair on the same field (its locations and data in
+    # fp32): NaN at this theta0, where the paper pair is finite
+    pol = PrecisionPolicy.tpu(2)
+    ll, secs, peak, counts = _evaluate(make_loglik(
+        locs.float(), z.float(), pol, nb=nb, nu_static=0.5), theta)
+    require(counts["mp_syrk"] == p - 1 and counts["blocked_potrf"] == p,
+            f"tpu(2): launches {counts}")
+    emit(phase="paper", step="evaluation", policy="tpu(2) DP(10%)",
+         mode=pol.mode, diag_thick=2, tiles=True, theta=theta,
+         loglik_kernel=ll, finite=math.isfinite(ll), seconds_kernel=secs,
+         peak_gib_kernel=peak, launches_kernel=counts)
+
+
+def paper_estimation(locs, z, fcfg):
+    """9.2: fit_mle_grid then batched Nelder-Mead through BatchEngine (one
+    candidate per chunk: three fp64 Sigma with their U pass 80 GB) for
+    full(fp64) dense and the paper pair at DP(10%), from phase 8.2's grid;
+    theta-hat within rel 0.25 per component."""
+    import torch
+    from repro_torch.core import BatchEngine, BatchPlan, fit_mle, fit_mle_grid
+    nb, p = fcfg["nb"], locs.shape[0] // fcfg["nb"]
+    pols = {label: pol for label, pol, tiles in paper_policies(p)
+            if tiles is None and "40%" not in label}
+    fits = {}
+    for label, pol in pols.items():
+        engine = BatchEngine(locs, z, BatchPlan(policy=pol, nb=nb, nu_static=0.5,
+                                                chunk_size=1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        coarse = fit_mle_grid(engine.loglik, [(0.2, 5.0), (0.02, 0.6)],
+                              num=fcfg["grid"], refine=fcfg["refine"])
+        res = fit_mle(None, coarse.theta, max_iters=fcfg["nm_iters"],
+                      batched_loglik_fn=engine.loglik)
+        secs = time.perf_counter() - t0
+        evals = coarse.n_evals + res.n_evals
+        require(math.isfinite(res.loglik) and res.loglik >= coarse.loglik,
+                f"{label}: the polish lost ground ({res.loglik} < {coarse.loglik})")
+        fits[label] = (pol, res.theta)
+        emit(phase="paper", step="estimation", policy=label, chunk_size=1,
+             grid=fcfg["grid"], refine=fcfg["refine"], nm_iters=res.n_iters,
+             theta_grid=coarse.theta.tolist(), theta_hat=res.theta.tolist(),
+             theta1_over_theta2=float(res.theta[0] / res.theta[1]),
+             loglik=res.loglik, evaluations=evals, seconds=secs,
+             seconds_per_evaluation=secs / evals,
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    dp = fits["full(fp64) reference_cholesky"][1]
+    mp = fits["paper_cpu DP(10%)"][1]
+    gap = (abs(mp - dp) / abs(dp)).tolist()
+    ratio_gap = abs(mp[0] / mp[1] - dp[0] / dp[1]) / (dp[0] / dp[1])
+    require(max(gap) <= 0.25, f"theta-hat paper {mp} vs fp64 {dp}: rel {gap} > 0.25")
+    emit(phase="paper", step="estimation", theta_rel_gap_vs_fp64=gap, tol=0.25,
+         theta1_over_theta2_rel_gap=float(ratio_gap))
+    return fits
+
+
+def paper_prediction(locs, z, locs_new, z_new, fits, fcfg):
+    """9.3: kriging with variance at the held-out sites at each theta-hat;
+    the paper pair's PMSE within rel 0.2 of full(fp64)'s."""
+    from repro_torch.core import krige, pmse
+    scores = {}
+    for label, (pol, th) in fits.items():
+        theta = [float(th[0]), float(th[1]), 0.5]
+        t0 = time.perf_counter()
+        mu, var = krige(locs, z, locs_new, theta, pol, nb=fcfg["nb"],
+                        nu_static=0.5, return_var=True)
+        scores[label] = score = float(pmse(mu, z_new))
+        vmin, vmax = float(var.min()), float(var.max())
+        require(-1e-6 <= vmin and vmax <= theta[0] + 1e-6 and math.isfinite(score),
+                f"{label}: variance in [{vmin}, {vmax}], theta1 {theta[0]}")
+        emit(phase="paper", step="prediction", policy=label, theta=theta,
+             sites=locs_new.shape[0], pmse=score, var_min=vmin, var_max=vmax,
+             dtype=str(mu.dtype), seconds=time.perf_counter() - t0)
+    dp, mp = scores["full(fp64) reference_cholesky"], scores["paper_cpu DP(10%)"]
+    rel = abs(mp - dp) / dp
+    require(rel <= 0.2, f"PMSE paper {mp} vs fp64 {dp}: rel {rel} > 0.2")
+    emit(phase="paper", step="prediction", pmse_rel_vs_fp64=rel, tol=0.2)
+
+
+def paper_kernels(locs, locs_new, fcfg, results):
+    """9.4: the fp64 kernels at the tile path's shapes: mp_syrk (fp64, fp32)
+    at step 0 (band of DP(10%)) and matern_cov in fp64 for Sigma and
+    Sigma_no, each against its plain version (compared on row slabs) with
+    its time, yardstick and bound."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels.matern_cov import ops as mc_ops
+    from repro_torch.kernels.matern_cov import ref as mc_ref
+    from repro_torch.kernels.mp_gemm import ops as syrk_ops
+    from repro_torch.kernels.mp_gemm import ref as syrk_ref
+    f32, f64 = torch.float32, torch.float64
+    nb = fcfg["nb"]
+    n = locs.shape[0]
+    p = n // nb
+    t = PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu").diag_thick
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    pm = torch.randn(((p - 1) * nb, nb), generator=gen, device="cuda", dtype=f64)
+    kw = dict(tile=nb, round_k=nb, band_blocks=t, hi=f64, lo=f32, accum=f32)
+    out = syrk_ops.mp_syrk(pm, **kw)
+    want = syrk_ref.mp_syrk(pm, **kw)
+    brel, orel, mx, fp32_off = _syrk64_errors(out, want, tile=nb, band=t)
+    sym = bool(torch.equal(out, out.T))
+    require(brel <= 1e-11 and orel <= 1e-5 and fp32_off and sym,
+            f"mp_syrk fp64 tile step 0: {brel} {orel} {fp32_off} {sym}")
+    del out, want
+    torch.cuda.empty_cache()
+    nums = syrk64_numbers(pm, nb, t)
+    emit(phase="paper", step="kernel", kernel="mp_syrk", hi=str(f64),
+         lo=str(f32), m=(p - 1) * nb, k=nb, band=t, inband_rel=brel,
+         offband_rel=orel, max_abs_err=mx, symmetric=sym,
+         plain_ms=time_ms(lambda: syrk_ref.mp_syrk(pm, **kw), reps=3), **nums)
+    del pm
+    theta = list(MEDIUM)
+    row = None
+    for what, la in (("Sigma", locs), ("Sigma_no", locs_new)):
+        out = mc_ops.matern_cov(la, locs, theta, nu=0.5, out_dtype=f64)
+        require(out.dtype == f64, f"matern_cov {what}: {out.dtype}")
+        err = 0.0
+        for r0 in range(0, la.shape[0], 2048):
+            w = mc_ref.matern_cov(la[r0:r0 + 2048], locs, theta, nu=0.5,
+                                  out_dtype=f64)
+            err = max(err, float((out[r0:r0 + 2048] - w).abs().max()))
+        require(err <= 1e-12 * theta[0], f"matern_cov fp64 {what}: {err}")
+        del out, w
+        elems = la.shape[0] * n
+        bytes_moved = (la.shape[0] + n) * 16 + 8 * elems
+        by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, 9 * elems / FP64_FLOPS
+        line = dict(shape=[la.shape[0], n], max_abs_err=err,
+                    tol=1e-12 * theta[0],
+                    ms=time_ms(lambda: mc_ops.matern_cov(la, locs, theta, nu=0.5,
+                                                         out_dtype=f64)),
+                    plain_ms=time_ms(lambda: mc_ref.matern_cov(
+                        la, locs, theta, nu=0.5, out_dtype=f64), reps=2),
+                    bound_ms=1e3 * max(by_bytes, by_ops),
+                    bound_by="bytes" if by_bytes >= by_ops else "operations")
+        row = row or line  # the row of the kernels line: Sigma
+        emit(phase="paper", step="kernel", kernel="matern_cov", what=what,
+             dtype=str(f64), **line)
+        torch.cuda.empty_cache()
+    res = results.setdefault("matern_cov_fp64", {})
+    res.update(
+        name="matern_cov (fp64)", route="cuda",
+        source="src/repro_torch/csrc/matern_cov.cu",
+        replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
+        max_abs_err=max(row["max_abs_err"], res.get("max_abs_err", 0.0)),
+        ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None)
+
+
+def paper(fcfg, results):
+    """Phase 9: the paper pair on an fp64 medium field at n_obs locations
+    in nb-tiles (see the module docstring), sub-steps timed into one line."""
+    import torch
+    t_all = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    locs, z, locs_new, z_new = _paper_data(gen, fcfg)
+    torch.cuda.empty_cache()
+    emit(phase="paper", step="data", n_all=fcfg["n_all"], n_obs=fcfg["n_obs"],
+         sites=int(locs_new.shape[0]), nb=fcfg["nb"],
+         p=fcfg["n_obs"] // fcfg["nb"], theta0=MEDIUM, dtype=str(locs.dtype),
+         seconds=time.perf_counter() - t_all)
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    total = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0}
+    step("9.1 evaluations", paper_evaluations, locs, z, fcfg, total)
+    require(total["mp_syrk"] > 0 and total["matern_cov"] > 0,
+            f"the paper pair launched {total}")
+    results.setdefault("mp_syrk_fp64", {})["launches_paper"] = total["mp_syrk"]
+    results.setdefault("matern_cov_fp64", {})["launches_paper"] = total["matern_cov"]
+    if fcfg["estimate"]:
+        fits = step("9.2 estimation", paper_estimation, locs, z, fcfg)
+        step("9.3 prediction", paper_prediction, locs, z, locs_new, z_new,
+             fits, fcfg)
+    step("9.4 kernels", paper_kernels, locs, locs_new, fcfg, results)
+    emit(phase="paper", step="seconds", **secs)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1494,13 +2009,21 @@ def main(argv=None):
     locs_t = ds.locs.reshape(p, cfg["nb"], 2)
     timed("3 matern_cov", check_matern, locs_t, ds.theta0.tolist(), cfg["t"],
           cfg["nu"], results)
+    timed("3 matern_cov fp64", check_matern_fp64, locs_t,
+          [float(v) for v in ds.theta0.tolist()], cfg["t"], results)
+    torch.cuda.empty_cache()
     timed("3 blocked_potrf", check_potrf, gen, cfg["nb"], results)
     timed("3 mp_syrk", check_syrk, gen, cfg["n"] - cfg["nb"], cfg["nb"],
           cfg["t"], results)
+    timed("3 mp_syrk fp64", check_syrk_fp64, gen, cfg["n"] - cfg["nb"],
+          cfg["nb"], cfg["t"], results)
+    torch.cuda.empty_cache()
     timed("3b mp_attention", check_attention, gen, results)
     torch.cuda.empty_cache()
 
     timed("4 main path", main_path, ds, cfg, results)
+    torch.cuda.empty_cache()
+    timed("4 paper pair", main_path_paper, ds, cfg, results)
     del ds, locs_t
     torch.cuda.empty_cache()
     timed("5 likelihood vs CPU", small_vs_cpu)
@@ -1511,13 +2034,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("8 fidelity", fidelity, FIDELITY_QUICK if args.quick else FIDELITY,
           results)
+    torch.cuda.empty_cache()
+    timed("9 paper pair", paper, PAPER_QUICK if args.quick else PAPER, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("launches_fidelity",) if k in r}
+        {k: r[k] for k in keys + ("launches_fidelity", "launches_paper")
+         if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from .kriging import krige_from_factor, krige_pmse, pmse
-from .likelihood import loglik_from_factor, make_factor_fn, make_loglik, \
-    matern_block
+from .likelihood import _theta, loglik_from_factor, make_factor_fn, \
+    make_loglik, matern_block
 from .mle import _host
 from .panel_cholesky import geostat_loglik_step
 from .precision import PrecisionPolicy
@@ -45,6 +45,13 @@ class BatchPlan:
     One policy per batch: all candidates share the precision policy,
     matching the paper's setup where the precision variant is fixed for a
     whole optimization run.
+
+    `chunk_size` bounds the device memory of the tile path: a chunk holds
+    its candidates' Sigma, the factor's storage, one candidate's SYRK
+    square U and the factors L, in the policy's dtypes.  On one 80 GB card
+    the fp64 policies (full(fp64), the paper_cpu pair) at n = 40,960 take
+    chunk_size=1: Sigma alone is 13.4 GB in fp64, so three candidates'
+    Sigma with their U and L pass 80 GB.
     """
     policy: PrecisionPolicy
     nb: int = 128                     # tile size
@@ -217,8 +224,8 @@ class BatchEngine:
             l = factor(theta)
             ll = loglik_from_factor(l, self.z)
             sigma_no = matern_block(self.locs_new, self.locs, theta,
-                                    nu_static=p.nu_static,
-                                    metric=p.metric).to(pol.hi)
+                                    nu_static=p.nu_static, metric=p.metric,
+                                    dtype=pol.hi)
             mu = krige_from_factor(l, self.z, sigma_no)
             return ll, pmse(mu, self.y_true)
 
@@ -233,15 +240,17 @@ class BatchEngine:
         return single
 
     def _prepare(self, thetas) -> torch.Tensor:
-        """Normalize candidates to a (B, 3) float32 stack on the CPU (the
-        kernels take theta as launch arguments).  When the plan pins the
-        smoothness (`nu_static`, non-profiled), (B, 2) candidates over
-        (variance, range) get the pinned nu column appended here."""
-        thetas = torch.as_tensor(thetas, dtype=torch.float32, device="cpu")
+        """Normalize candidates to a (B, 3) stack on the CPU (the kernels
+        take theta as launch arguments), in the precision of the locations
+        (`likelihood._theta`).  When the plan pins the smoothness
+        (`nu_static`, non-profiled), (B, 2) candidates over (variance,
+        range) get the pinned nu column appended here."""
+        thetas = _theta(thetas, self.locs, "cpu")
         thetas = torch.atleast_2d(thetas)
         if (thetas.shape[-1] == 2 and self.plan.nu_static is not None
                 and not self.plan.profiled):
-            nu = torch.full(thetas.shape[:-1] + (1,), self.plan.nu_static)
+            nu = torch.full(thetas.shape[:-1] + (1,), self.plan.nu_static,
+                            dtype=thetas.dtype)
             thetas = torch.cat([thetas, nu], dim=-1)
         return thetas
 

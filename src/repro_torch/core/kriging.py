@@ -52,7 +52,7 @@ def krige(locs_obs, z_obs, locs_new, theta, policy: PrecisionPolicy, *,
     likelihood's observation model.  `use_tiles` overrides the tiled/dense
     factor choice exactly like `make_loglik`'s flag (None = auto).
     """
-    theta = _theta(theta, "cpu")
+    theta = _theta(theta, locs_obs, "cpu")
     if policy.mode == "dst":
         # DST has no kriging variant; predict densely in hi precision (the
         # same convention the batch engine documents)
@@ -63,7 +63,7 @@ def krige(locs_obs, z_obs, locs_new, theta, policy: PrecisionPolicy, *,
     l = factor(theta)
     # Sigma_no: one (m, n) block per candidate
     sigma_no = matern_block(locs_new, locs_obs, theta, nu_static=nu_static,
-                            metric=metric).to(policy.hi)
+                            metric=metric, dtype=policy.hi)
     if not return_var:
         return krige_from_factor(l, z_obs, sigma_no)
     sigma_nn_diag = theta[..., 0:1].to(l.device, policy.hi) * torch.ones(

@@ -78,14 +78,20 @@ def dst_loglik(blocks, z):
     return total
 
 
-def _theta(theta, device):
-    """theta as a float32 tensor on `device`, like the reference's arrays."""
-    return torch.as_tensor(theta, dtype=torch.float32, device=device)
+def _theta(theta, locs, device=None):
+    """theta as a tensor in the precision of `locs` (fp64 for fp64
+    locations, else fp32, like the reference's arrays with and without
+    x64), on `device` (that of `locs` if None)."""
+    return torch.as_tensor(theta, device=locs.device if device is None
+                           else device,
+                           dtype=torch.promote_types(locs.dtype, torch.float32))
 
 
 def matern_block(locs_a, locs_b, theta, *, nu_static=None,
-                 metric="euclidean", impl: str = "kernel"):
-    """Sigma_ab for each candidate theta: (..., n_a, n_b) fp32.
+                 metric="euclidean", dtype=None, impl: str = "kernel"):
+    """Sigma_ab for each candidate theta: (..., n_a, n_b), computed in the
+    precision of the locations (see `_theta`) and stored in `dtype` (that
+    precision if None).
 
     A half-integer nu_static goes through the `matern_cov` kernel's public
     function with impl="kernel", one launch per candidate (the kernel on a
@@ -94,28 +100,31 @@ def matern_block(locs_a, locs_b, theta, *, nu_static=None,
     through the plain general-nu path (covariance/matern.py).
     """
     if nu_static is None:
-        return matern_covariance(locs_a, locs_b, _theta(theta, locs_a.device),
-                                 metric=metric)
-    theta = _theta(theta, "cpu")  # the kernel takes it as launch arguments
+        cov = matern_covariance(locs_a, locs_b, _theta(theta, locs_a),
+                                metric=metric)
+        return cov if dtype is None else cov.to(dtype)
+    # the kernel takes theta as launch arguments
+    theta = _theta(theta, locs_a, "cpu")
     if nu_static not in HALF_INTEGER_NUS:
         raise ValueError(f"nu_static must be one of {HALF_INTEGER_NUS}")
     batch = theta.shape[:-1]
     flat = theta.reshape(-1, theta.shape[-1]).tolist()
     out = torch.empty((len(flat), locs_a.shape[0], locs_b.shape[0]),
-                      dtype=torch.float32, device=locs_a.device)
+                      dtype=theta.dtype, device=locs_a.device)
     locs_a, locs_b = locs_a.contiguous(), locs_b.contiguous()
     matern = _impl(impl)[0]
     for b, th in enumerate(flat):
         matern.matern_cov_tiles(locs_a[None], locs_b[None], th,
-                                    nu=nu_static, metric=metric,
-                                    out=out[b:b + 1])
-    return out.reshape(batch + out.shape[1:])
+                                nu=nu_static, out_dtype=out.dtype,
+                                metric=metric, out=out[b:b + 1])
+    out = out.reshape(batch + out.shape[1:])
+    return out if dtype is None else out.to(dtype)
 
 
 def build_covariance(locs, theta, *, nu_static=None, metric="euclidean",
                      nugget=0.0, jitter=0.0, dtype=None, impl: str = "kernel"):
-    """Sigma(theta) over `locs` (see `matern_block`), nugget and jitter on
-    its diagonal, in `dtype` (fp32 if None)."""
+    """Sigma(theta) over `locs` (see `matern_block`) in `dtype`, nugget and
+    jitter added to its diagonal in the precision of the locations."""
     cov = matern_block(locs, locs, theta, nu_static=nu_static, metric=metric,
                        impl=impl)
     for v in (nugget, jitter):
@@ -173,7 +182,7 @@ def make_loglik(locs, z, policy: PrecisionPolicy, *, nb: int = 128,
         nugget=nugget, jitter=jitter, use_tiles=use_tiles, impl=impl)
 
     def loglik(theta):
-        theta = _theta(theta, "cpu")
+        theta = _theta(theta, locs, "cpu")
         cov_theta = torch.cat([torch.ones_like(theta[..., :1]),
                                theta[..., :2]], dim=-1) if profiled else theta
         if policy.mode == "dst":

@@ -9,6 +9,7 @@ factorization runs as p panel steps over
 
 Per step k:
   1. potrf(band[k,0]) in hi                               (dpotrf)
+     (the blocked_potrf kernel for an fp32 band, cuSOLVER's for fp64)
   2. hi TRSM on the <= t-1 band panel tiles               (dtrsm)
      lo TRSM on the off panel tiles                       (strsm)
   3. U = C C^T of the gathered panel column C, in hi inside the band and
@@ -48,6 +49,25 @@ def _impl(impl):
     if impl not in _IMPLS:
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     return _IMPLS[impl]
+
+
+def _cholesky(a, dtype):
+    """(l, info): the lower Cholesky factor of `a` in `dtype`, all NaN where
+    the matrix is not positive definite (the reference's convention, set in
+    place), and info != 0 there, as the POTRF kernel's."""
+    l, info = torch.linalg.cholesky_ex(a.to(dtype))
+    return l.masked_fill_((info != 0)[..., None, None], torch.nan), info
+
+
+def _potrf(impl, hi):
+    """The diagonal-tile factorization of a band in `hi`, chosen by dtype up
+    front: an fp32 band goes to the `blocked_potrf` kernel (its plain
+    version with impl="plain"), which is fp32-only as the TPU kernel is;
+    any other band to `torch.linalg.cholesky_ex` in `hi`, as the reference
+    engines factor it with `jnp.linalg.cholesky`."""
+    if hi == torch.float32:
+        return _impl(impl)[1]
+    return lambda a: _cholesky(a, hi)
 
 
 def _host_theta(theta):
@@ -131,9 +151,10 @@ def panel_cholesky_banded(band, off, policy: PrecisionPolicy, *,
     if off_update not in ("square", "chunked"):
         raise ValueError(off_update)
     require_ieee_fp32()
-    _, potrf, syrk = _impl(impl)
+    _, _, syrk = _impl(impl)
     p, t, nb, _ = band.shape
     hi = policy.hi
+    potrf = _potrf(impl, hi)
     lo = off.dtype
     failed = torch.zeros((), dtype=torch.bool, device=band.device)
 
@@ -173,6 +194,8 @@ def panel_cholesky_banded(band, off, policy: PrecisionPolicy, *,
             for i in range(t, m_t):
                 off[k + 1 + i, k + 1:k + 2 + i - t] -= (
                     u4[i, :, :i - t + 1].transpose(0, 1).to(lo))
+            # free this step's U before the next step allocates its own
+            del u, u4
         else:
             for d in range(min(t, m_t)):
                 band[k + 1 + d:, d] -= torch.einsum(

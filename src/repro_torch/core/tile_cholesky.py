@@ -39,25 +39,21 @@ Where the reference loops over tiles, this engine works a step at a time:
 `impl` picks who computes POTRF and the SYRK, as in `core/panel_cholesky`:
 "kernel" calls the kernels' `ops` functions (the CUDA kernels on a CUDA
 tensor, their plain versions on a CPU tensor), "plain" their plain
-versions on any device.  A factor tile that is not positive definite comes
-back all NaN from either POTRF, and the NaN reaches the log-likelihood.
-The CUDA kernels take an fp32 band and nb a multiple of 64; other inputs
-raise on a CUDA tensor with impl="kernel".
+versions on any device.  POTRF is chosen by the band's dtype up front
+(`panel_cholesky._potrf`): an fp32 band goes to `blocked_potrf`, an fp64
+band to `torch.linalg.cholesky_ex`.  The SYRK kernel takes the pairs
+(hi, lo) = (fp32, bf16), (fp32, fp32), (fp64, fp32) and (fp64, fp64), and
+nb a multiple of 64; other inputs raise on a CUDA tensor with
+impl="kernel".  A factor tile that is not positive definite comes back all
+NaN from either POTRF, and the NaN reaches the log-likelihood.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .panel_cholesky import _impl
+from .panel_cholesky import _cholesky, _impl, _potrf
 from .precision import PrecisionPolicy, require_ieee_fp32
-
-
-def _cholesky(a, dtype):
-    """Lower Cholesky factor in `dtype`, all NaN where the matrix is not
-    positive definite (the reference's convention), set in place."""
-    l, info = torch.linalg.cholesky_ex(a.to(dtype))
-    return l.masked_fill_((info != 0)[..., None, None], torch.nan)
 
 
 def _trsm_right_lt(l_kk, a_ik, exec_dtype, out_dtype):
@@ -128,15 +124,11 @@ def _column_runs(policy: PrecisionPolicy, k: int, p: int):
     return [r for r in runs if r[0] < r[1]]
 
 
-def _check_card(a, nb, policy, impl):
-    """The kernels take an fp32 band and nb % 64 == 0; say so before any
-    work instead of deep inside a step."""
+def _check_card(a, nb, impl):
+    """mp_syrk takes nb % 64 == 0; say so before any work instead of deep
+    inside a step."""
     if not (a.is_cuda and impl == "kernel"):
         return
-    if policy.hi != torch.float32:
-        raise NotImplementedError(
-            f"tile_cholesky on the card: the kernels take an fp32 band, not "
-            f"{policy.hi} (the paper_cpu pair runs on the CPU; ROADMAP)")
     if nb % 64:
         raise ValueError(f"tile_cholesky on the card: nb={nb} must be a "
                          "multiple of 64 (mp_syrk's tile)")
@@ -158,10 +150,11 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
     if schedule is not None:
         raise NotImplementedError("tile_cholesky(schedule=...): the task "
                                   "runtime is not ported (ROADMAP A9)")
-    _, potrf, syrk = _impl(impl)
-    _check_card(a, nb, policy, impl)
+    _, _, syrk = _impl(impl)
+    _check_card(a, nb, impl)
     require_ieee_fp32()
     hi, lo = policy.hi, policy.lo
+    potrf = _potrf(impl, hi)
     n = a.shape[-1]
     assert n % nb == 0, f"n={n} must be a multiple of nb={nb}"
     p = n // nb
@@ -183,10 +176,7 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
 
     for k in range(p):
         diag = tile(k, k)
-        if hi == torch.float32:                     # line 8: dpotrf
-            l_kk = potrf(diag.contiguous())[0]
-        else:
-            l_kk = _cholesky(diag, hi)
+        l_kk = potrf(diag.contiguous())[0]          # line 8: dpotrf
         diag.copy_(l_kk)
         if k == p - 1:
             break
@@ -251,7 +241,7 @@ def dst_cholesky(a, nb: int, diag_thick: int, hi=torch.float32):
     blocks = []
     for start in range(0, n, super_nb):
         sl = slice(start, min(start + super_nb, n))
-        blocks.append((sl, _cholesky(a[..., sl, sl], hi)))
+        blocks.append((sl, _cholesky(a[..., sl, sl], hi)[0]))
     return blocks
 
 
@@ -267,5 +257,5 @@ def dst_assemble(blocks, n: int, dtype=torch.float32):
 def reference_cholesky(a, hi=torch.float32):
     """Plain dense Cholesky in hi precision (DP(100%) reference); all NaN
     where `a` is not positive definite, as the reference's."""
-    return _cholesky(a, hi)
+    return _cholesky(a, hi)[0]
 

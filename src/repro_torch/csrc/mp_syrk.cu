@@ -4,20 +4,32 @@
 //   src/repro/kernels/mp_gemm/mp_gemm.py: _mp_syrk_kernel / mp_syrk_pallas.
 //
 // Precision routing (the paper's Algorithm 1): an output element (r, c) is
-// in the band when |r / tile - c / tile| < band_blocks.  In-band elements
-// are IEEE fp32 dot products (FMA, no TF32).  Off-band elements take bf16
-// operands, sum their products in fp32, round that sum to bf16 at every
-// `round_k` columns of K, and add the rounded partial sums into the fp32
-// output.  The TPU kernel tied the classification unit and the rounding unit
-// to its own block sizes (bm, bk); here `tile` and `round_k` are arguments and
-// the kernels' blocks (BM x BM outputs, K in steps of 16 or 64) divide them.
+// in the band when |r / tile - c / tile| < band_blocks.  Four (hi, lo,
+// accum) pairs:
+//   0  (fp32, bf16, fp32): in-band elements are IEEE fp32 dot products (FMA,
+//      no TF32); off-band elements take bf16 operands, sum their products in
+//      fp32, round that sum to bf16 at every `round_k` columns of K, and add
+//      the rounded partial sums into the fp32 output;
+//   1  (fp32, fp32, fp32): every element in the band;
+//   2  (fp64, fp32, fp32), the paper's DP/SP pair: in-band elements are fp64
+//      dot products; off-band elements take P rounded to fp32 and sum their
+//      products in one fp32 chain over K (rounding a partial sum to lo =
+//      fp32 changes nothing, so round_k plays no part), stored into the
+//      fp64 output;
+//   3  (fp64, fp64, fp64): every element in the band.
+// The TPU kernel tied the classification unit and the rounding unit to its
+// own block sizes (bm, bk); here `tile` and `round_k` are arguments and the
+// kernels' blocks (BM x BM outputs, K in steps of 16 or 64) divide them.
 //
 // What bounds it on the H100: on the panel path the in-band part is fp32
 // work on the CUDA cores (67 TFLOP/s) and bounds the call by its operations;
 // the off-band part is bf16 tensor-core work (989 TFLOP/s) whose least time
 // is set by the bytes of its fp32 output (lower block and mirror), not by its
 // products.  As written, the off-band kernel is held by L2 traffic: each
-// 128 x 128 block reads 512 KiB of operands for 128 KiB of output.
+// 128 x 128 block reads 512 KiB of operands for 128 KiB of output.  Under the
+// fp64 pair both parts are bound by operations: fp64 in the band (67 TFLOP/s
+// on the tensor cores, half that in SIMT FMA, which this kernel uses) and
+// IEEE fp32 off it (67 TFLOP/s on the CUDA cores, the same peak).
 //
 // What the design does about it:
 //   * U is symmetric, so each kernel computes only the lower blocks (bi >= bj)
@@ -29,13 +41,20 @@
 //     blocks, tile row by tile row (mp_syrk_launch sizes it from the
 //     tile-row offsets below); a block finds its (bi, bj) from its linear
 //     index (band_block, off_block).
-//   * band: fp32 SIMT, 256 threads per BM x BM block, (BM / 16)^2 outputs per
-//     thread in registers.  K goes in steps of 16 through two shared-memory
-//     buffers, transposed so that each k step reads float4s; the next step's
-//     operands are loaded into registers while the current one's FMAs run.
-//     Each element is one FMA chain over k in order, so a diagonal block is
-//     symmetric bit for bit.
-//   * off-band: P is written once as bf16 into a scratch (to_bf16_kernel).
+//   * band: SIMT in the band's precision (fp32, or fp64 with BM = 64 so that
+//     the 16 fp64 accumulators of a thread fit its registers), 256 threads per
+//     BM x BM block, (BM / 16)^2 outputs per thread in registers.  K goes in
+//     steps of 16 through two shared-memory buffers, transposed so that each
+//     k step reads four consecutive values; the next step's operands are
+//     loaded into registers while the current one's FMAs run.  Each element
+//     is one FMA chain over k in order, so a diagonal block is symmetric bit
+//     for bit.
+//   * off-band under the fp64 pair: P is written once as fp32 into a scratch
+//     (to_fp32_kernel), and the same SIMT block kernel, instantiated for fp32
+//     operands over the off-band blocks, sums in one fp32 chain per element
+//     and stores the result as fp64.
+//   * off-band under the bf16 pair: P is written once as bf16 into a
+//     scratch (to_bf16_kernel).
 //     One producer warp fills a ring of shared-memory stages with TMA loads
 //     of BM x 64 boxes of both operands (rows of P, K-major, 128-byte
 //     swizzle); BM / 64 consumer warpgroups run wgmma m64nBMk16 with fp32
@@ -115,43 +134,55 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// ---- in-band blocks: fp32 SIMT ------------------------------------------
-constexpr int kBandThreads = 256;
-constexpr int BK = 16;  // K step of the band kernel
+// ---- SIMT blocks: the band in fp32 or fp64, the fp64 pair's fp32 off-band ----
+constexpr int kSimtThreads = 256;
+constexpr int BK = 16;  // K step of the SIMT kernels
 
-template <int BM>
-__global__ void __launch_bounds__(kBandThreads, 2)
-syrk_band_fp32_lower_kernel(const float* __restrict__ p, float* __restrict__ out, int m,
-                            int kdim, Grid g) {
+// four consecutive values, loaded and stored 16 bytes at a time
+template <typename T>
+struct alignas(16) Vec4 {
+  T x, y, z, w;
+};
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+// One BM x BM lower block (bi >= bj) of U in T arithmetic, written as Out
+// with its mirror.  OFF picks the block list (off_block or band_block).
+template <typename T, typename Out, int BM, bool OFF>
+__device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __restrict__ out,
+                                                int m, int kdim, const Grid& g) {
   constexpr int TM = BM / 16;  // outputs per thread along each axis
   constexpr int G = TM / 4;    // groups of 4 rows (cols) per thread, 64 apart
   constexpr int LD = BM + 4;
-  constexpr int LOADS = BM * BK / 4 / kBandThreads;  // float4s per operand per thread
+  constexpr int LOADS = BM * BK / 4 / kSimtThreads;  // Vec4s per operand per thread
   constexpr int SLD = BM + 1;  // the mirror's staging rows: conflict-free column reads
-  static_assert(LOADS >= 1 && 64 * SLD <= 2 * 2 * BK * LD, "band kernel shapes");
-  __shared__ __align__(16) float sm[2][2][BK][LD];  // [buffer][A, B][k][row]
+  static_assert(LOADS >= 1 && 64 * SLD <= 2 * 2 * BK * LD, "SIMT kernel shapes");
+  __shared__ __align__(16) T sm[2][2][BK][LD];  // [buffer][A, B][k][row]
+  using V = Vec4<T>;
+  using VO = Vec4<Out>;
 
-  const int2 blk = band_block(g, blockIdx.x);
+  const int2 blk = OFF ? off_block(g, blockIdx.x) : band_block(g, blockIdx.x);
   const int row0 = blk.x * BM, col0 = blk.y * BM;
-  const float* pa = p + static_cast<long long>(row0) * kdim;
-  const float* pb = p + static_cast<long long>(col0) * kdim;
+  const T* pa = p + static_cast<long long>(row0) * kdim;
+  const T* pb = p + static_cast<long long>(col0) * kdim;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
 
-  float4 ra[LOADS], rb[LOADS];
+  V ra[LOADS], rb[LOADS];
   auto load = [&](int k0) {
 #pragma unroll
     for (int l = 0; l < LOADS; ++l) {
-      const int idx = tid + l * kBandThreads;
+      const int idx = tid + l * kSimtThreads;
       const int r = idx / (BK / 4), c4 = (idx % (BK / 4)) * 4;
-      ra[l] = *reinterpret_cast<const float4*>(pa + static_cast<long long>(r) * kdim + k0 + c4);
-      rb[l] = *reinterpret_cast<const float4*>(pb + static_cast<long long>(r) * kdim + k0 + c4);
+      ra[l] = *reinterpret_cast<const V*>(pa + static_cast<long long>(r) * kdim + k0 + c4);
+      rb[l] = *reinterpret_cast<const V*>(pb + static_cast<long long>(r) * kdim + k0 + c4);
     }
   };
   auto stage = [&](int buf) {
 #pragma unroll
     for (int l = 0; l < LOADS; ++l) {
-      const int idx = tid + l * kBandThreads;
+      const int idx = tid + l * kSimtThreads;
       const int r = idx / (BK / 4), c4 = (idx % (BK / 4)) * 4;
       sm[buf][0][c4 + 0][r] = ra[l].x; sm[buf][0][c4 + 1][r] = ra[l].y;
       sm[buf][0][c4 + 2][r] = ra[l].z; sm[buf][0][c4 + 3][r] = ra[l].w;
@@ -160,7 +191,7 @@ syrk_band_fp32_lower_kernel(const float* __restrict__ p, float* __restrict__ out
     }
   };
 
-  float acc[TM][TM] = {};
+  T acc[TM][TM] = {};
   load(0);
   stage(0);
   __syncthreads();
@@ -170,18 +201,18 @@ syrk_band_fp32_lower_kernel(const float* __restrict__ p, float* __restrict__ out
     if (kt + 1 < nkt) load((kt + 1) * BK);  // in flight during the FMAs below
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TM];
+      T a[TM], b[TM];
 #pragma unroll
       for (int gg = 0; gg < G; ++gg) {
-        const float4 va = *reinterpret_cast<const float4*>(&sm[cur][0][kk][gg * 64 + ty * 4]);
-        const float4 vb = *reinterpret_cast<const float4*>(&sm[cur][1][kk][gg * 64 + tx * 4]);
+        const V va = *reinterpret_cast<const V*>(&sm[cur][0][kk][gg * 64 + ty * 4]);
+        const V vb = *reinterpret_cast<const V*>(&sm[cur][1][kk][gg * 64 + tx * 4]);
         a[gg * 4 + 0] = va.x; a[gg * 4 + 1] = va.y; a[gg * 4 + 2] = va.z; a[gg * 4 + 3] = va.w;
         b[gg * 4 + 0] = vb.x; b[gg * 4 + 1] = vb.y; b[gg * 4 + 2] = vb.z; b[gg * 4 + 3] = vb.w;
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TM; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
     }
     // the other buffer was last read before the previous barrier
     if (kt + 1 < nkt) stage(cur ^ 1);
@@ -195,16 +226,16 @@ syrk_band_fp32_lower_kernel(const float* __restrict__ p, float* __restrict__ out
 #pragma unroll
     for (int gg = 0; gg < G; ++gg) {
       const int c = col0 + gg * 64 + tx * 4;
-      *reinterpret_cast<float4*>(out + r * m + c) =
-          make_float4(acc[i][gg * 4 + 0], acc[i][gg * 4 + 1], acc[i][gg * 4 + 2],
-                      acc[i][gg * 4 + 3]);
+      *reinterpret_cast<VO*>(out + r * m + c) =
+          VO{static_cast<Out>(acc[i][gg * 4 + 0]), static_cast<Out>(acc[i][gg * 4 + 1]),
+             static_cast<Out>(acc[i][gg * 4 + 2]), static_cast<Out>(acc[i][gg * 4 + 3])};
     }
   }
   if (row0 == col0) return;  // a diagonal block is whole and symmetric
 
   // its mirror (bj, bi), 64 rows of the block at a time through shared
   // memory: row c of the mirror is column c of the block
-  float* S = &sm[0][0][0][0];
+  T* S = &sm[0][0][0][0];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     __syncthreads();
@@ -214,10 +245,35 @@ syrk_band_fp32_lower_kernel(const float* __restrict__ p, float* __restrict__ out
       for (int j = 0; j < TM; ++j)
         S[(ty * 4 + ii) * SLD + (j / 4) * 64 + tx * 4 + j % 4] = acc[gi * 4 + ii][j];
     __syncthreads();
-    for (int idx = tid; idx < 64 * BM; idx += kBandThreads) {
+    for (int idx = tid; idx < 64 * BM; idx += kSimtThreads) {
       const int c = idx / 64, lr = idx % 64;
-      out[static_cast<long long>(col0 + c) * m + row0 + gi * 64 + lr] = S[lr * SLD + c];
+      out[static_cast<long long>(col0 + c) * m + row0 + gi * 64 + lr] =
+          static_cast<Out>(S[lr * SLD + c]);
     }
+  }
+}
+
+// the in-band lower blocks in the band's precision T
+template <typename T, int BM>
+__global__ void __launch_bounds__(kSimtThreads, 2)
+syrk_band_lower_kernel(const T* __restrict__ p, T* __restrict__ out, int m, int kdim, Grid g) {
+  syrk_simt_block<T, T, BM, false>(p, out, m, kdim, g);
+}
+
+// the fp64 pair's off-band lower blocks: fp32 operands and sums, fp64 out
+template <int BM>
+__global__ void __launch_bounds__(kSimtThreads, 2)
+syrk_offband_fp32_lower_kernel(const float* __restrict__ p, double* __restrict__ out, int m,
+                               int kdim, Grid g) {
+  syrk_simt_block<float, double, BM, true>(p, out, m, kdim, g);
+}
+
+__global__ void to_fp32_kernel(const double2* __restrict__ src, float2* __restrict__ dst,
+                               long long n2) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n2;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const double2 v = src[i];
+    dst[i] = make_float2(__double2float_rn(v.x), __double2float_rn(v.y));
   }
 }
 
@@ -473,15 +529,36 @@ syrk_offband_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap pmap,
   }
 }
 
-Grid make_grid(int m, int tile, int band_blocks, int lo_bf16, int bm) {
+// the (hi, lo, accum) pairs of mp_syrk_launch
+enum Pair { kF32Bf16 = 0, kF32F32 = 1, kF64F32 = 2, kF64F64 = 3 };
+
+// The grid of the kernel with BM x BM blocks: with an all-hi pair every tile
+// is in the band.
+Grid make_grid(int m, int tile, int band_blocks, int pair, int bm) {
   const int n_tiles = m / tile;
-  return Grid{tile / bm, n_tiles, lo_bf16 ? (band_blocks < n_tiles ? band_blocks : n_tiles)
-                                          : n_tiles};
+  const bool split = pair == kF32Bf16 || pair == kF64F32;
+  return Grid{tile / bm, n_tiles,
+              split ? (band_blocks < n_tiles ? band_blocks : n_tiles) : n_tiles};
+}
+
+// a grid-stride pass over n elements: at most 16 blocks per SM
+unsigned pass_blocks(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
+}
+
+template <typename T, int BM>
+cudaError_t launch_band(const T* p, T* out, int m, int kdim, Grid g, long long n_band,
+                        cudaStream_t stream) {
+  if (n_band == 0) return cudaSuccess;
+  syrk_band_lower_kernel<T, BM>
+      <<<static_cast<unsigned>(n_band), kSimtThreads, 0, stream>>>(p, out, m, kdim, g);
+  return cudaGetLastError();
 }
 
 template <int BM, bool ONE_ROUND>
-cudaError_t launch_offband(const CUtensorMap& map, float* out, int m, int kdim, int round_k,
-                           Grid g, long long n_off, cudaStream_t stream) {
+cudaError_t launch_offband_bf16(const CUtensorMap& map, float* out, int m, int kdim,
+                                int round_k, Grid g, long long n_off, cudaStream_t stream) {
   using C = OffCfg<BM>;
   auto kernel = syrk_offband_bf16_wgmma_kernel<BM, ONE_ROUND>;
   cudaError_t err =
@@ -492,21 +569,18 @@ cudaError_t launch_offband(const CUtensorMap& map, float* out, int m, int kdim, 
   return cudaGetLastError();
 }
 
+// the fp32-hi pairs: the fp32 band kernel, then (bf16 pair) P as bf16 and
+// the wgmma kernel
 template <int BM>
-cudaError_t launch(const float* p, __nv_bfloat16* scratch, float* out, int m, int kdim,
-                   int round_k, Grid g, long long n_band, long long n_off, cudaStream_t stream) {
-  if (n_band > 0) {
-    syrk_band_fp32_lower_kernel<BM>
-        <<<static_cast<unsigned>(n_band), kBandThreads, 0, stream>>>(p, out, m, kdim, g);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (n_off == 0) return cudaSuccess;
+cudaError_t launch_fp32_hi(const float* p, __nv_bfloat16* scratch, float* out, int m, int kdim,
+                           int round_k, Grid g, long long n_band, long long n_off,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_band<float, BM>(p, out, m, kdim, g, n_band, stream);
+  if (err != cudaSuccess || n_off == 0) return err;
   const long long n4 = static_cast<long long>(m) * kdim / 4;
-  const long long blocks = (n4 + 255) / 256 < 132 * 16 ? (n4 + 255) / 256 : 132 * 16;
-  to_bf16_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+  to_bf16_kernel<<<pass_blocks(n4), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(p), reinterpret_cast<uint2*>(scratch), n4);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   CUtensorMap map;
@@ -519,32 +593,64 @@ cudaError_t launch(const float* p, __nv_bfloat16* scratch, float* out, int m, in
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  if (round_k == kdim) return launch_offband<BM, true>(map, out, m, kdim, round_k, g, n_off, stream);
-  return launch_offband<BM, false>(map, out, m, kdim, round_k, g, n_off, stream);
+  if (round_k == kdim)
+    return launch_offband_bf16<BM, true>(map, out, m, kdim, round_k, g, n_off, stream);
+  return launch_offband_bf16<BM, false>(map, out, m, kdim, round_k, g, n_off, stream);
+}
+
+// the fp64 pair's off-band: P as fp32, then the fp32 SIMT kernel
+template <int BM>
+cudaError_t launch_offband_fp32(const double* p, float* scratch, double* out, int m, int kdim,
+                                Grid g, long long n_off, cudaStream_t stream) {
+  const long long n2 = static_cast<long long>(m) * kdim / 2;
+  to_fp32_kernel<<<pass_blocks(n2), 256, 0, stream>>>(
+      reinterpret_cast<const double2*>(p), reinterpret_cast<float2*>(scratch), n2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  syrk_offband_fp32_lower_kernel<BM>
+      <<<static_cast<unsigned>(n_off), kSimtThreads, 0, stream>>>(scratch, out, m, kdim, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// p: (m, kdim) fp32 contiguous; scratch: (m, kdim) bf16, written here (may be
-// null when the call has no off-band block); out: (m, m) fp32 contiguous.
-// Requires tile % 64 == 0, m % tile == 0, round_k % 64 == 0,
-// kdim % round_k == 0 and bm in {64, 128} dividing tile.  Each kernel's grid
-// is its number of lower blocks, from the same tile-row offsets its blocks
-// use to find their (bi, bj).
+// p: (m, kdim) contiguous in hi (fp32 for pairs 0 and 1, fp64 for 2 and 3);
+// scratch: (m, kdim) in lo (bf16 for pair 0, fp32 for pair 2), written here
+// (may be null when the call has no off-band block); out: (m, m) contiguous
+// in hi.  Requires tile % 64 == 0, m % tile == 0, round_k % 64 == 0,
+// kdim % round_k == 0 and bm in {64, 128} dividing tile; bm is the block of
+// the fp32 kernels (pairs 0 and 1, and pair 2's off-band), while the fp64
+// band kernel's block is 64.  Each
+// kernel's grid is its number of lower blocks, from the same tile-row offsets
+// its blocks use to find their (bi, bj).
 extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, int kdim,
-                              int tile, int round_k, int band_blocks, int lo_bf16, int bm,
+                              int tile, int round_k, int band_blocks, int pair, int bm,
                               void* stream) {
   if (tile <= 0 || tile % 64 || m % tile || round_k <= 0 || round_k % KC || kdim % round_k ||
-      band_blocks < 1 || (bm != 64 && bm != 128) || tile % bm)
+      band_blocks < 1 || (bm != 64 && bm != 128) || tile % bm || pair < 0 || pair > 3)
     return cudaErrorInvalidValue;
-  const Grid g = make_grid(m, tile, band_blocks, lo_bf16, bm);
-  const long long n_band = band_row_start(g, g.n_tiles);
-  const long long n_off = off_row_start(g, g.n_tiles);
-  if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
-  const float* pp = static_cast<const float*>(p);
-  auto* sc = static_cast<__nv_bfloat16*>(scratch);
-  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128) return launch<128>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
-  return launch<64>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
+  if (pair == kF32Bf16 || pair == kF32F32) {
+    const Grid g = make_grid(m, tile, band_blocks, pair, bm);
+    const long long n_band = band_row_start(g, g.n_tiles);
+    const long long n_off = off_row_start(g, g.n_tiles);
+    if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
+    const float* pp = static_cast<const float*>(p);
+    auto* sc = static_cast<__nv_bfloat16*>(scratch);
+    float* o = static_cast<float*>(out);
+    if (bm == 128) return launch_fp32_hi<128>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
+    return launch_fp32_hi<64>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
+  }
+  const Grid gb = make_grid(m, tile, band_blocks, pair, 64);
+  const Grid go = make_grid(m, tile, band_blocks, pair, bm);
+  const long long n_band = band_row_start(gb, gb.n_tiles);
+  const long long n_off = pair == kF64F32 ? off_row_start(go, go.n_tiles) : 0;
+  if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
+  const double* pp = static_cast<const double*>(p);
+  double* o = static_cast<double*>(out);
+  cudaError_t err = launch_band<double, 64>(pp, o, m, kdim, gb, n_band, s);
+  if (err != cudaSuccess || n_off == 0) return err;
+  float* sc = static_cast<float*>(scratch);
+  if (bm == 128) return launch_offband_fp32<128>(pp, sc, o, m, kdim, go, n_off, s);
+  return launch_offband_fp32<64>(pp, sc, o, m, kdim, go, n_off, s);
 }

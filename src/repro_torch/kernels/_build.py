@@ -33,16 +33,17 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 SIGNATURES = {
     # locs_i, locs_j, out, n_pairs, n_cols_j, rows, cols, out_tile_stride,
-    # min_lag, th1, th2, nu_code, out_bf16, stream
+    # min_lag, th1, th2, two_nu, dtypes, stream
     "matern_cov_launch": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
-                          _I, _F, _F, _I, _I, _P],
+                          _I, _D, _D, _I, _I, _P],
     # a, out, info, batch, nb, max_blocks, stream
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
-    # p, scratch, out, m, kdim, tile, round_k, band_blocks, lo_bf16, bm,
+    # p, scratch, out, m, kdim, tile, round_k, band_blocks, pair, bm,
     # stream
     "mp_syrk_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, scales, seg_len, acc, m, l, ws_acc, ws_m, ws_l, batch, g, d,

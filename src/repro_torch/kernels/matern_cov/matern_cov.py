@@ -1,8 +1,11 @@
 """Launch wrapper of the CUDA Matern covariance kernel (csrc/matern_cov.cu).
 
 Replaces the Pallas TPU kernel `repro.kernels.matern_cov.matern_cov`.
-Euclidean distance with nu in {0.5, 1.5, 2.5}; fp32 locations; fp32 or
-bf16 output written directly by the kernel.
+Euclidean distance with nu in {0.5, 1.5, 2.5}, written directly by the
+kernel in one of two precisions: fp32 locations give fp32 or bf16 output
+computed in fp32; fp64 locations give fp64 output computed in fp64, or
+that value rounded once to fp32 (the panel path's fp32 off-band of the
+paper pair).
 """
 
 from __future__ import annotations
@@ -12,12 +15,16 @@ import torch
 from .. import LAUNCHES
 from .._build import check, library
 
-_OUT_DTYPES = (torch.float32, torch.bfloat16)
+# (locations dtype, out dtype) -> the C entry's `dtypes` code
+_DTYPES = {(torch.float32, torch.float32): 0,
+           (torch.float32, torch.bfloat16): 1,
+           (torch.float64, torch.float64): 2,
+           (torch.float64, torch.float32): 3}
 
 
 def _check_locs(locs, name):
-    if not locs.is_cuda or locs.dtype != torch.float32:
-        raise ValueError(f"{name} must be a float32 CUDA tensor")
+    if not locs.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
     if locs.ndim != 3 or locs.shape[-1] != 2 or not locs.is_contiguous():
         raise ValueError(f"{name} must be a contiguous (tiles, rows, 2) tensor")
 
@@ -40,15 +47,20 @@ def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
           (B, rows, cols) with contiguous tiles and any tile stride.
     outer (outer=True):  out[i, j] = C(locs_i[i], locs_j[j]) where
           i - j >= min_lag, else 0; `out` is contiguous (Ti, Tj, rows, cols).
-    theta: host floats (theta1, theta2, ...); theta[2] is not read.
+    theta: host floats (theta1, theta2, ...); theta[2] is not read.  The
+    kernel computes in the locations' precision, theta rounded to it.
     """
     two_nu = _two_nu(nu, metric)
+    dtypes = _DTYPES.get((locs_i.dtype, out.dtype))
+    if locs_j.dtype != locs_i.dtype or dtypes is None:
+        raise ValueError(
+            f"matern_cov kernel: locations {locs_i.dtype}/{locs_j.dtype} with "
+            f"out {out.dtype}; it takes fp32 locations with fp32 or bf16 out "
+            "and fp64 locations with fp64 or fp32 out")
     _check_locs(locs_i, "locs_i")
     _check_locs(locs_j, "locs_j")
     if out.device != locs_i.device or locs_j.device != locs_i.device:
         raise ValueError("locs_i, locs_j and out must be on one device")
-    if out.dtype not in _OUT_DTYPES:
-        raise ValueError(f"out dtype must be one of {_OUT_DTYPES}")
     ti, rows, _ = locs_i.shape
     tj, cols, _ = locs_j.shape
     if outer:
@@ -66,8 +78,7 @@ def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
     th1, th2 = float(theta[0]), float(theta[1])
     status = library().matern_cov_launch(
         locs_i.data_ptr(), locs_j.data_ptr(), out.data_ptr(), n_pairs,
-        n_cols_j, rows, cols, stride, min_lag, th1, th2, two_nu,
-        int(out.dtype == torch.bfloat16),
+        n_cols_j, rows, cols, stride, min_lag, th1, th2, two_nu, dtypes,
         torch.cuda.current_stream(out.device).cuda_stream)
     check(status, "matern_cov")
     LAUNCHES["matern_cov"] += 1

@@ -8,7 +8,8 @@ continued fraction run as the plain elementwise PyTorch of
 steps per element are no kernel's job: covariance generation is a small
 part of an evaluation).  That choice is made by nu alone and is not a
 fallback: for a half-integer nu a CUDA tensor launches the kernel, which
-raises on what it does not take (haversine distance).  A CPU tensor always
+raises on what it does not take (haversine distance, an output wider than
+the locations, such as fp64 from fp32 locations).  A CPU tensor always
 runs the plain version (ref.py).  theta: (theta1, theta2[, theta3]) as host
 numbers; nu is the smoothness, and theta3 is not read.
 """

@@ -6,10 +6,15 @@ import torch
 
 from ...covariance.matern import HALF_INTEGER_NUS, matern_covariance
 
+ROWS = 4096  # rows per step of matern_cov_tiles
+
 
 def _theta(theta, nu, like):
+    """theta in the locations' precision: fp64 for fp64 locations, else fp32
+    (what the kernel's float launch arguments hold)."""
     th = [float(v) for v in theta[:2]]
-    return torch.tensor(th + [float(nu)], dtype=torch.float32, device=like.device)
+    dtype = torch.promote_types(like.dtype, torch.float32)
+    return torch.tensor(th + [float(nu)], dtype=dtype, device=like.device)
 
 
 def _cov(locs_a, locs_b, theta, nu, metric):
@@ -20,11 +25,17 @@ def _cov(locs_a, locs_b, theta, nu, metric):
 
 def matern_cov_tiles(locs_i, locs_j, theta, *, nu, out_dtype=torch.float32,
                      metric="euclidean", out=None):
-    """(B, rows, 2) x (B, cols, 2) -> (B, rows, cols): tile b = C(locs_i[b], locs_j[b])."""
-    cov = _cov(locs_i, locs_j, theta, nu, metric).to(out_dtype)
+    """(B, rows, 2) x (B, cols, 2) -> (B, rows, cols): tile b = C(locs_i[b], locs_j[b]).
+
+    Built ROWS rows of the tiles at a time: the distance temporaries of a
+    whole 40,960^2 fp64 tile would be 5x its 13.4 GB."""
     if out is None:
-        return cov
-    return out.copy_(cov)
+        out = torch.empty(locs_i.shape[:2] + locs_j.shape[1:2], dtype=out_dtype,
+                          device=locs_i.device)
+    for r0 in range(0, locs_i.shape[1], ROWS):
+        rows = slice(r0, r0 + ROWS)
+        out[:, rows] = _cov(locs_i[:, rows], locs_j, theta, nu, metric).to(out_dtype)
+    return out
 
 
 def matern_cov_lower(locs_t, theta, *, nu, min_lag, out_dtype=torch.float32,
@@ -44,4 +55,5 @@ def matern_cov_lower(locs_t, theta, *, nu, min_lag, out_dtype=torch.float32,
 def matern_cov(locs_a, locs_b, theta, *, nu, out_dtype=torch.float32,
                metric="euclidean"):
     """(m, 2) x (n, 2) -> (m, n) covariance."""
-    return _cov(locs_a, locs_b, theta, nu, metric).to(out_dtype)
+    return matern_cov_tiles(locs_a[None], locs_b[None], theta, nu=nu,
+                            out_dtype=out_dtype, metric=metric)[0]

@@ -13,7 +13,10 @@ def mp_syrk(p, *, tile, round_k, band_blocks, hi=torch.float32,
     a `hi` dot product.  Off the band: `lo` operands, products summed in
     `accum` over each `round_k` columns of K, each partial sum rounded to
     `lo`, and the rounded partials summed in `accum`.  Computed one row of
-    tiles at a time, so the temporaries stay one (tile, m) slab.
+    tiles at a time, so the temporaries stay one (tile, m) slab.  Under the
+    paper's pair (hi, lo, accum) = (fp64, fp32, fp32) the band is fp64 and
+    the off-band fp32 sums stored as fp64: what the kernel's fp64 pair is
+    held to (the reference's `mp_syrk_ref` sums in fp32 whatever hi is).
     """
     m, kdim = p.shape
     if m % tile or kdim % round_k:

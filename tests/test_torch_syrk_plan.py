@@ -155,6 +155,61 @@ def test_jax_kernel_u_is_symmetric(m, k, bm, bk, band):
     assert np.all(d[~in_band] <= bound[~in_band])
 
 
+def _plan_pair(m, tile, band_blocks, pair):
+    """The C entry's two grids for a pair code (mp_gemm.PAIRS): the band
+    kernel's (bm = 64 for the fp64 band) and the off-band kernel's (the
+    wrapper's `block`); the all-hi pairs put every tile in the band."""
+    bm = syrk_kernel.block(tile)
+    lo = torch.float32 if pair in (1, 3) else torch.bfloat16
+    band = _plan(m, tile, band_blocks, 64 if pair >= 2 else bm, lo)
+    off = _plan(m, tile, band_blocks, bm, lo)
+    return band, off
+
+
+@pytest.mark.parametrize("tile", [256, 192])
+@pytest.mark.parametrize("pair", [2, 3])
+@pytest.mark.parametrize("band", [1, 2, 8])
+@pytest.mark.parametrize("n_tiles", [1, 2, 5, 9])
+def test_fp64_pair_plans_cover_the_square_once(n_tiles, band, pair, tile):
+    """The fp64 band kernel's 64 x 64 blocks and the fp32 off-band kernel's
+    bm x bm blocks (bm = 128 where it divides the tile, else 64) cover U
+    once, each lower block with its mirror, in 64 x 64 cells."""
+    m = n_tiles * tile
+    pb, po = _plan_pair(m, tile, band, pair)
+    assert pb["bm"] == 64
+    assert po["bm"] == (128 if tile % 128 == 0 else 64)
+    band_eff = n_tiles if pair == 3 else min(band, n_tiles)
+    cells = m // 64
+    seen = np.zeros((cells, cells), np.int64)
+    for pl, count, find in ((pb, pb["band"], _band_block),
+                            (po, po["off"] if pair == 2 else 0, _off_block)):
+        s = pl["bm"] // 64
+        for idx in range(count):
+            bi, bj = find(pl, idx)
+            assert 0 <= bj <= bi
+            in_band = abs(bi // pl["r"] - bj // pl["r"]) < band_eff
+            assert in_band == (find is _band_block)
+            for a in range(s):
+                for b in range(s):
+                    seen[bi * s + a, bj * s + b] += 1
+                    if bi != bj:
+                        seen[bj * s + b, bi * s + a] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("m_t,t", [(63, 8), (39, 2)])
+def test_fp64_pair_plan_at_step_0(m_t, t):
+    """The panel path's (63 tile rows, band 8) and the tile path's (39,
+    band 2) step 0 at tile 1024: 16 x 16 fp64 band blocks per tile, 8 x 8
+    fp32 off-band blocks of 128."""
+    pb, po = _plan_pair(m_t * 1024, 1024, t, 2)
+    in_p, off_p = _syrk_products(m_t, t)
+    assert pb["r"] == 16 and po["r"] == 8
+    assert pb["band"] == in_p * 256 - m_t * 16 * 15 // 2
+    assert po["off"] == off_p * 64
+    assert _off_block(po, po["off"] - 1) == (m_t * 8 - 1, (m_t - t) * 8 - 1)
+
+
 @pytest.mark.parametrize("m,kdim,tile,round_k", [
     (256, 128, 64, 32),     # round_k not a multiple of 64
     (256, 128, 64, 96),     # ... nor dividing kdim
