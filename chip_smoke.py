@@ -7,7 +7,10 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. environment: the card (nvidia-smi), torch, CUDA, TF32 flags (off);
-  2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
+  2. build: every CUDA kernel from csrc/, one nvcc per source in parallel,
+     with ptxas's registers and spill bytes of each mp_syrk kernel (the
+     paper pair's two must not spill) and its DMMA, DFMA and FFMA counts
+     in cuobjdump's SASS (the fp64 band: DMMA and no DFMA);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes, with errors, tolerances and CUDA-event times
      (kernel, plain version, one library call where one computes the same
@@ -20,7 +23,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      slab by slab, bit for bit), timed at m_t in {63, 32, 8} tile rows
      with the device time of each of its kernels at step 0; the same
      checks under the paper pair (hi, lo, accum) = (fp64, fp32, fp32) and
-     all-hi fp64, and its step 0 timed beside its yardstick and bound;
+     all-hi fp64, and its step 0 timed beside its yardstick and bound, and
+     each of its two kernels (fp64 DMMA band, fp32 off-band) beside its
+     half of the yardstick and its own bound;
      matern_cov's fp64 forms of phase 4's paper-pair request at every nu:
      fp64 band storage, and the off-band computed in fp64 and rounded once
      to fp32;
@@ -78,6 +83,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -93,10 +99,14 @@ BF16_FLOPS = 989e12
 FP64_TC_FLOPS = 67e12   # fp64 on the tensor cores (DMMA)
 FP64_FLOPS = 34e12      # fp64 FMA outside the tensor cores
 
-# the kernels of one mp_syrk call, as the profiler names them
+# the kernels of one mp_syrk call, as the profiler names them: the fp32
+# band and bf16 off-band of the {fp32, bf16} pair, the fp64 DMMA band and
+# fp32 off-band of the paper pair, and the two passes that write P in lo
 SYRK_KERNELS = ("syrk_band_lower_kernel", "syrk_offband_bf16_wgmma_kernel",
-                "to_bf16_kernel", "syrk_offband_fp32_lower_kernel",
-                "to_fp32_kernel")
+                "to_bf16_kernel", "syrk_band_f64_dmma_kernel",
+                "syrk_offband_fp32_pipelined_kernel", "to_fp32_kernel")
+# idle seconds at each end of a profiler trace (device_profile)
+PROFILE_PAD_S = 0.3
 QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
 # phase 7: batch, prompt length, generated tokens, near window, key block
 SERVE = dict(batch=4, prompt=8_192, new=64, near=1_024, blk=128)
@@ -194,6 +204,53 @@ def syrk_products(n_t, t):
     lower triangle with its diagonal, since U = P P^T is symmetric."""
     in_band = lower_band_tiles(n_t, t)
     return in_band, n_t * (n_t + 1) // 2 - in_band
+
+
+def _kernel_key(mangled, names):
+    """"name<template arguments>" of a mangled kernel whose name holds one of
+    `names`, else None."""
+    name = next((n for n in names if n in mangled), None)
+    if name is None:
+        return None
+    args = re.findall(r"L[ib](\d+)E", mangled.split(name, 1)[1].split("Ev", 1)[0])
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_usage(log_path, names):
+    """Registers, stack and spill bytes of every kernel instantiation whose
+    name holds one of `names`, from ptxas -v's lines in the build's log."""
+    usage, key = {}, None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            key = _kernel_key(line.split("'")[1], names)
+            if key:
+                usage[key] = {}
+        elif key and "bytes stack frame" in line:
+            stack, stores, loads = (int(x) for x in re.findall(r"(\d+) bytes", line))
+            usage[key].update(stack=stack, spill_stores=stores, spill_loads=loads)
+        elif key and "Used" in line and "registers" in line:
+            usage[key]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return usage
+
+
+def sass_counts(lib, names, ops=("DMMA", "DFMA", "FFMA")):
+    """SASS instructions of each op in `ops` in every kernel instantiation
+    whose name holds one of `names`, from cuobjdump -sass of the library."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = _kernel_key(line.split("Function :", 1)[1].strip(), names)
+            if key:
+                counts[key] = dict.fromkeys(ops, 0)
+        elif key:
+            for op in ops:
+                counts[key][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 def require(cond, what):
@@ -638,14 +695,17 @@ def _syrk64_errors(out, want, *, tile, band):
     return band_err / scale, off_err / scale, max(band_err, off_err), fp32_values
 
 
-def syrk64_numbers(p, nb, t):
+def syrk64_numbers(p, nb, t, per_kernel=True):
     """Kernel time, yardstick and bound of the fp64 pair's SYRK of P =
-    (n_t nb, nb), tile = round_k = nb, band t.  The yardstick is
-    torch.matmul over the same lower tiles, fp64 for each tile row's band
-    slab and IEEE fp32 for its slab left of the band.  The bound: the fp64
-    band's operations at the fp64 tensor-core peak and the fp32 off-band's
-    at the fp32 peak (separate units: the larger), or the bytes of P and
-    the fp64 U, whichever is larger."""
+    (n_t nb, nb), tile = round_k = nb, band t, and the same for each of its
+    two kernels.  The yardstick is torch.matmul over the same lower tiles,
+    fp64 for each tile row's band slab (its band half) and IEEE fp32 for its
+    slab left of the band (its off-band half), each half also timed alone,
+    beside the device time of its kernel under the profiler (per_kernel).
+    The bounds: the fp64 band's operations at the fp64 tensor-core peak,
+    the fp32 off-band's at the fp32 peak; the call's is the larger of the
+    two (separate units) or the bytes of P and the fp64 U, whichever is
+    larger."""
     import torch
     from repro_torch.kernels.mp_gemm import ops
     n_t = p.shape[0] // nb
@@ -656,18 +716,41 @@ def syrk64_numbers(p, nb, t):
     bytes_s = (p.numel() + p.shape[0] ** 2) * 8 / HBM_BYTES_PER_S
     p32 = p.float()
 
-    def library():
+    def band_half():
         for i in range(n_t):
             rows, c0 = slice(i * nb, (i + 1) * nb), max(0, i - t + 1) * nb
             torch.matmul(p[rows], p[c0:(i + 1) * nb].T)
+
+    def offband_half():
+        for i in range(n_t):
+            rows, c0 = slice(i * nb, (i + 1) * nb), max(0, i - t + 1) * nb
             if c0:
                 torch.matmul(p32[rows], p32[:c0].T)
-    return dict(ms=time_ms(lambda: ops.mp_syrk(p, **kw)),
-                library_ms=time_ms(library), bound_ms=1e3 * max(ops_s, bytes_s),
+
+    def library():
+        band_half()
+        offband_half()
+
+    call = lambda: ops.mp_syrk(p, **kw)  # noqa: E731
+    nums = dict(ms=time_ms(call), library_ms=time_ms(library),
+                bound_ms=1e3 * max(ops_s, bytes_s),
                 bound_by="operations" if ops_s >= bytes_s else "bytes",
+                band_library_ms=time_ms(band_half),
                 band_bound_ms=1e3 * band_f / FP64_TC_FLOPS,
+                offband_library_ms=time_ms(offband_half) if off_f else 0.0,
                 offband_bound_ms=1e3 * off_f / FP32_FLOPS,
                 band_gflop=band_f / 1e9, offband_gflop=off_f / 1e9)
+    if per_kernel:
+        _, busy, rows = device_profile(call)
+        device = {name: sum(ms_ for k_, _, ms_ in rows if name in k_)
+                  for name in SYRK_KERNELS}
+        band_ms = device["syrk_band_f64_dmma_kernel"]
+        off_ms = device["syrk_offband_fp32_pipelined_kernel"]
+        nums.update(band_kernel_ms=band_ms, offband_kernel_ms=off_ms,
+                    band_tflops=band_f / band_ms / 1e9 if band_ms else None,
+                    offband_tflops=off_f / off_ms / 1e9 if off_ms else None,
+                    device_ms=device, device_busy_ms=busy)
+    return nums
 
 
 def check_syrk_fp64(gen, m_main, nb, t, results):
@@ -718,13 +801,9 @@ def check_syrk_fp64(gen, m_main, nb, t, results):
     torch.cuda.empty_cache()
     nums = syrk64_numbers(p, nb, t)
     plain_ms = time_ms(lambda: ref.mp_syrk(p, **kw), reps=3)
-    _, busy, rows = device_profile(lambda: ops.mp_syrk(p, **kw))
-    device = {name: sum(ms_ for k_, _, ms_ in rows if name in k_)
-              for name in SYRK_KERNELS}
     emit(phase="kernels", kernel="mp_syrk", hi=str(f64), lo=str(f32),
          m=m_main, k=nb, tile=nb, round_k=nb, band=t, inband_rel=brel,
-         offband_rel=orel, symmetric=True, plain_ms=plain_ms,
-         device_ms=device, device_busy_ms=busy, **nums)
+         offband_rel=orel, symmetric=True, plain_ms=plain_ms, **nums)
     results.setdefault("mp_syrk_fp64", {}).update(
         name="mp_syrk (fp64, fp32)", route="cuda",
         source="src/repro_torch/csrc/mp_syrk.cu",
@@ -825,24 +904,36 @@ def main_path_paper(ds, cfg, results):
 def device_profile(fn):
     """fn() under torch.profiler: (wall ms, device busy ms, rows of (name,
     count, ms) by device time).  fn ends in a host read or a sync; one
-    stream, so the device events do not overlap."""
+    stream, so the device events do not overlap.  The trace holds
+    PROFILE_PAD_S of idle time before and after fn: on the card, a trace
+    that ended right after a short call lost some or all of its device
+    events once the process had run for a while, and a padded one did not
+    (when the call held a PyTorch op; a trace of this library's launches
+    alone still came back empty late in a run).  A trace with no device
+    event or with more device time than wall time is taken again, up to
+    three times, and then fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per_kernel = {}  # device-side events only: kernels, copies, sets
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            count, ms = per_kernel.get(e.name, (0, 0.0))
-            per_kernel[e.name] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+        per_kernel = {}  # device-side events only: kernels, copies, sets
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                count, ms = per_kernel.get(e.name, (0, 0.0))
+                per_kernel[e.name] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
+        busy = sum(ms for _, ms in per_kernel.values())
+        if 0 < busy <= 1e3 * wall:
+            break
     rows = sorted(((k, c, ms) for k, (c, ms) in per_kernel.items()),
                   key=lambda r: -r[2])
-    busy = sum(r[2] for r in rows)
     require(0 < busy <= 1e3 * wall, f"device busy {busy} ms in {wall} s")
     return 1e3 * wall, busy, rows
 
@@ -1875,7 +1966,11 @@ def paper_kernels(locs, locs_new, fcfg, results):
             f"mp_syrk fp64 tile step 0: {brel} {orel} {fp32_off} {sym}")
     del out, want
     torch.cuda.empty_cache()
-    nums = syrk64_numbers(pm, nb, t)
+    # no trace of the call here: late in a run, three traces that held
+    # only this library's launches came back without device events
+    # (device_profile); phase 3 traces the same kernels at the panel's step
+    # 0, and 9.1's profiled evaluation at every step of this path
+    nums = syrk64_numbers(pm, nb, t, per_kernel=False)
     emit(phase="paper", step="kernel", kernel="mp_syrk", hi=str(f64),
          lo=str(f32), m=(p - 1) * nb, k=nb, band=t, inband_rel=brel,
          offband_rel=orel, max_abs_err=mx, symmetric=sym,
@@ -1982,8 +2077,18 @@ def main(argv=None):
     t0 = time.perf_counter()
     lib = _build.build(verbose=True)
     _build.library()
+    usage = ptxas_usage(lib.parent / _build.LOG_NAME, SYRK_KERNELS)
+    sass = sass_counts(lib, SYRK_KERNELS)
     emit(phase="build", seconds=time.perf_counter() - t0,
-         library=str(lib.relative_to(ROOT)))
+         library=str(lib.relative_to(ROOT)), ptxas=usage, sass=sass)
+    paper_pair = [k for k in usage if k.startswith(("syrk_band_f64_dmma_kernel",
+                                                    "syrk_offband_fp32_pipelined"))]
+    require(len(paper_pair) == 4 and all(usage[k]["spill_stores"] == 0
+                                         for k in paper_pair),
+            f"the paper pair's mp_syrk kernels: {paper_pair} spill or are missing")
+    dmma = {k: v for k, v in sass.items() if k.startswith("syrk_band_f64_dmma_kernel")}
+    require(len(dmma) == 2 and all(v["DMMA"] > 0 and v["DFMA"] == 0 for v in dmma.values()),
+            f"the fp64 band kernel is not on the fp64 tensor cores: {dmma}")
 
     main_cfg = GEOSTAT_CONFIGS["geostat_65k"]  # geostat_500k with n cut
     cfg = QUICK if args.quick else dict(

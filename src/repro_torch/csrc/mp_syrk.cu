@@ -12,14 +12,14 @@
 //      the rounded partial sums into the fp32 output;
 //   1  (fp32, fp32, fp32): every element in the band;
 //   2  (fp64, fp32, fp32), the paper's DP/SP pair: in-band elements are fp64
-//      dot products; off-band elements take P rounded to fp32 and sum their
-//      products in one fp32 chain over K (rounding a partial sum to lo =
-//      fp32 changes nothing, so round_k plays no part), stored into the
-//      fp64 output;
+//      dot products on the fp64 tensor cores; off-band elements take P
+//      rounded to fp32 and sum their products in one IEEE fp32 FMA chain over
+//      K (rounding a partial sum to lo = fp32 changes nothing, so round_k
+//      plays no part), stored into the fp64 output;
 //   3  (fp64, fp64, fp64): every element in the band.
 // The TPU kernel tied the classification unit and the rounding unit to its
 // own block sizes (bm, bk); here `tile` and `round_k` are arguments and the
-// kernels' blocks (BM x BM outputs, K in steps of 16 or 64) divide them.
+// kernels' blocks (BM x BM outputs, K in steps of 16, 32 or 64) divide them.
 //
 // What bounds it on the H100: on the panel path the in-band part is fp32
 // work on the CUDA cores (67 TFLOP/s) and bounds the call by its operations;
@@ -27,9 +27,14 @@
 // is set by the bytes of its fp32 output (lower block and mirror), not by its
 // products.  As written, the off-band kernel is held by L2 traffic: each
 // 128 x 128 block reads 512 KiB of operands for 128 KiB of output.  Under the
-// fp64 pair both parts are bound by operations: fp64 in the band (67 TFLOP/s
-// on the tensor cores, half that in SIMT FMA, which this kernel uses) and
-// IEEE fp32 off it (67 TFLOP/s on the CUDA cores, the same peak).
+// fp64 pair both parts are bound by operations, at one peak: fp64 in the
+// band, 67 TFLOP/s only on the tensor cores (DMMA; fp64 FMA outside them has
+// half that), and IEEE fp32 off it, 67 TFLOP/s on the CUDA cores.  Their
+// second limits: a 128 x 128 fp64 block reads 2 x 128 rows of P from L2 for
+// 2 * 128^2 flops per column of K, 16 flops a byte, so DMMA at its peak needs
+// ~4 TB/s of L2; an fp32 SIMT thread of 8 x 8 outputs reads 64 bytes of
+// shared memory per 64 FMAs, so 128 FMA lanes an SM clock would need 128
+// bytes of it a clock, all it has, unless the lanes of a warp share loads.
 //
 // What the design does about it:
 //   * U is symmetric, so each kernel computes only the lower blocks (bi >= bj)
@@ -41,18 +46,40 @@
 //     blocks, tile row by tile row (mp_syrk_launch sizes it from the
 //     tile-row offsets below); a block finds its (bi, bj) from its linear
 //     index (band_block, off_block).
-//   * band: SIMT in the band's precision (fp32, or fp64 with BM = 64 so that
-//     the 16 fp64 accumulators of a thread fit its registers), 256 threads per
-//     BM x BM block, (BM / 16)^2 outputs per thread in registers.  K goes in
-//     steps of 16 through two shared-memory buffers, transposed so that each
-//     k step reads four consecutive values; the next step's operands are
-//     loaded into registers while the current one's FMAs run.  Each element
-//     is one FMA chain over k in order, so a diagonal block is symmetric bit
-//     for bit.
+//   * fp32 band (pairs 0, 1): SIMT, 256 threads per BM x BM block,
+//     (BM / 16)^2 outputs per thread in registers.  K goes in steps of 16
+//     through two shared-memory buffers, transposed so that each k step
+//     reads four consecutive values; the next step's operands are loaded
+//     into registers while the current one's FMAs run.  Each element is one
+//     FMA chain over k in order, so a diagonal block is symmetric bit for
+//     bit.
+//   * fp64 band (pairs 2, 3): mma.sync m16n8k4 in fp64 (DMMA: wgmma has no
+//     fp64 form).  A 128 x 128 block (64 x 64 where 128 does not divide the
+//     tile) has 8 warps of 64 x 32 outputs (4 of 32 x 32), 64 fp64
+//     accumulators a thread.  Its operands, K-major rows of P, come by
+//     16-byte cp.async into a ring of 4 shared-memory stages of 16 columns,
+//     3 in flight while one is read: they never pass through registers.
+//     ldmatrix takes only 16-bit elements, so fragments are 8-byte shared
+//     loads; staged rows are 20 doubles apart, so the 16 lanes of a
+//     half-warp (4 rows x 4 columns of a fragment) hit 16 distinct bank
+//     pairs.  Per 4 columns of K a warp issues 16 DMMA for 12 fragment
+//     loads (m16n8k8 and m16n8k16 measured no faster on the H100).  DMMA
+//     sums in no stated order, so a diagonal block is written as its lower
+//     triangle and the mirror of those same values.
 //   * off-band under the fp64 pair: P is written once as fp32 into a scratch
-//     (to_fp32_kernel), and the same SIMT block kernel, instantiated for fp32
-//     operands over the off-band blocks, sums in one fp32 chain per element
-//     and stores the result as fp64.
+//     (to_fp32_kernel); the off-band kernel sums in one IEEE fp32 FMA chain
+//     per element, k in order, and stores fp64.  A 128 x 128 block has 8
+//     warps of 32 x 64, a warp's lanes 4 x 8 threads of 8 x 8 outputs (rows
+//     4 apart, columns 8 apart), 64 accumulators a thread with the
+//     registers to hold them (one block per SM: no spill).  Operands come by
+//     cp.async into a ring of 4 stages of 32 columns; rows are 36 floats
+//     apart, so a warp's 16-byte load (4 columns of K) of 4 A rows or of 8
+//     B rows falls in as many distinct 16-byte bank groups as it has rows,
+//     and the lanes that share a row share the load: one shared-memory wavefront per 16-byte load, 16 of them per
+//     256 FMAs of a warp.  What still holds it below the peak is issue,
+//     not memory: stage depths of 3 to 6, 16 to 64 columns a stage and the
+//     order of the FMAs all measured the same ~41 TFLOP/s, the rate of the
+//     fp32 band kernel above.
 //   * off-band under the bf16 pair: P is written once as bf16 into a
 //     scratch (to_bf16_kernel).
 //     One producer warp fills a ring of shared-memory stages with TMA loads
@@ -134,38 +161,29 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// ---- SIMT blocks: the band in fp32 or fp64, the fp64 pair's fp32 off-band ----
+// ---- the fp32 band: SIMT blocks ------------------------------------------
 constexpr int kSimtThreads = 256;
-constexpr int BK = 16;  // K step of the SIMT kernels
+constexpr int BK = 16;  // K step of the SIMT kernel
 
-// four consecutive values, loaded and stored 16 bytes at a time
-template <typename T>
-struct alignas(16) Vec4 {
-  T x, y, z, w;
-};
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
-
-// One BM x BM lower block (bi >= bj) of U in T arithmetic, written as Out
-// with its mirror.  OFF picks the block list (off_block or band_block).
-template <typename T, typename Out, int BM, bool OFF>
-__device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __restrict__ out,
-                                                int m, int kdim, const Grid& g) {
+// the fp32 in-band lower blocks (bi >= bj), BM x BM, each written with its
+// mirror
+template <int BM>
+__global__ void __launch_bounds__(kSimtThreads, 2)
+syrk_band_lower_kernel(const float* __restrict__ p, float* __restrict__ out, int m, int kdim,
+                       Grid g) {
   constexpr int TM = BM / 16;  // outputs per thread along each axis
   constexpr int G = TM / 4;    // groups of 4 rows (cols) per thread, 64 apart
   constexpr int LD = BM + 4;
-  constexpr int LOADS = BM * BK / 4 / kSimtThreads;  // Vec4s per operand per thread
+  constexpr int LOADS = BM * BK / 4 / kSimtThreads;  // float4s per operand per thread
   constexpr int SLD = BM + 1;  // the mirror's staging rows: conflict-free column reads
   static_assert(LOADS >= 1 && 64 * SLD <= 2 * 2 * BK * LD, "SIMT kernel shapes");
-  __shared__ __align__(16) T sm[2][2][BK][LD];  // [buffer][A, B][k][row]
-  using V = Vec4<T>;
-  using VO = Vec4<Out>;
+  __shared__ __align__(16) float sm[2][2][BK][LD];  // [buffer][A, B][k][row]
+  using V = float4;  // four consecutive values, loaded and stored 16 bytes at a time
 
-  const int2 blk = OFF ? off_block(g, blockIdx.x) : band_block(g, blockIdx.x);
+  const int2 blk = band_block(g, blockIdx.x);
   const int row0 = blk.x * BM, col0 = blk.y * BM;
-  const T* pa = p + static_cast<long long>(row0) * kdim;
-  const T* pb = p + static_cast<long long>(col0) * kdim;
+  const float* pa = p + static_cast<long long>(row0) * kdim;
+  const float* pb = p + static_cast<long long>(col0) * kdim;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
 
@@ -191,7 +209,7 @@ __device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __
     }
   };
 
-  T acc[TM][TM] = {};
+  float acc[TM][TM] = {};
   load(0);
   stage(0);
   __syncthreads();
@@ -201,7 +219,7 @@ __device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __
     if (kt + 1 < nkt) load((kt + 1) * BK);  // in flight during the FMAs below
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      T a[TM], b[TM];
+      float a[TM], b[TM];
 #pragma unroll
       for (int gg = 0; gg < G; ++gg) {
         const V va = *reinterpret_cast<const V*>(&sm[cur][0][kk][gg * 64 + ty * 4]);
@@ -212,7 +230,7 @@ __device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TM; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
     }
     // the other buffer was last read before the previous barrier
     if (kt + 1 < nkt) stage(cur ^ 1);
@@ -226,16 +244,16 @@ __device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __
 #pragma unroll
     for (int gg = 0; gg < G; ++gg) {
       const int c = col0 + gg * 64 + tx * 4;
-      *reinterpret_cast<VO*>(out + r * m + c) =
-          VO{static_cast<Out>(acc[i][gg * 4 + 0]), static_cast<Out>(acc[i][gg * 4 + 1]),
-             static_cast<Out>(acc[i][gg * 4 + 2]), static_cast<Out>(acc[i][gg * 4 + 3])};
+      *reinterpret_cast<V*>(out + r * m + c) =
+          make_float4(acc[i][gg * 4 + 0], acc[i][gg * 4 + 1], acc[i][gg * 4 + 2],
+                      acc[i][gg * 4 + 3]);
     }
   }
   if (row0 == col0) return;  // a diagonal block is whole and symmetric
 
   // its mirror (bj, bi), 64 rows of the block at a time through shared
   // memory: row c of the mirror is column c of the block
-  T* S = &sm[0][0][0][0];
+  float* S = &sm[0][0][0][0];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     __syncthreads();
@@ -247,33 +265,8 @@ __device__ __forceinline__ void syrk_simt_block(const T* __restrict__ p, Out* __
     __syncthreads();
     for (int idx = tid; idx < 64 * BM; idx += kSimtThreads) {
       const int c = idx / 64, lr = idx % 64;
-      out[static_cast<long long>(col0 + c) * m + row0 + gi * 64 + lr] =
-          static_cast<Out>(S[lr * SLD + c]);
+      out[static_cast<long long>(col0 + c) * m + row0 + gi * 64 + lr] = S[lr * SLD + c];
     }
-  }
-}
-
-// the in-band lower blocks in the band's precision T
-template <typename T, int BM>
-__global__ void __launch_bounds__(kSimtThreads, 2)
-syrk_band_lower_kernel(const T* __restrict__ p, T* __restrict__ out, int m, int kdim, Grid g) {
-  syrk_simt_block<T, T, BM, false>(p, out, m, kdim, g);
-}
-
-// the fp64 pair's off-band lower blocks: fp32 operands and sums, fp64 out
-template <int BM>
-__global__ void __launch_bounds__(kSimtThreads, 2)
-syrk_offband_fp32_lower_kernel(const float* __restrict__ p, double* __restrict__ out, int m,
-                               int kdim, Grid g) {
-  syrk_simt_block<float, double, BM, true>(p, out, m, kdim, g);
-}
-
-__global__ void to_fp32_kernel(const double2* __restrict__ src, float2* __restrict__ dst,
-                               long long n2) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n2;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const double2 v = src[i];
-    dst[i] = make_float2(__double2float_rn(v.x), __double2float_rn(v.y));
   }
 }
 
@@ -529,10 +522,242 @@ syrk_offband_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap pmap,
   }
 }
 
+// ---- the fp64 pair: cp.async rings feeding DMMA and fp32 SIMT -------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ROWS rows of P from `src`, columns k0 .. k0 + BK, into a [ROWS][LD] tile:
+// 16 bytes per cp.async, neighbouring threads on neighbouring bytes of a row.
+template <typename T, int ROWS, int BK, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int kdim, int k0) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int CH = BK / V;  // 16-byte chunks of a row
+  static_assert(ROWS * CH % THREADS == 0 && LD % V == 0, "ring shapes");
+#pragma unroll
+  for (int l = 0; l < ROWS * CH / THREADS; ++l) {
+    const int idx = threadIdx.x + l * THREADS;
+    const int r = idx / CH, c = (idx % CH) * V;
+    cp_async16(dst + r * LD + c, src + static_cast<long long>(r) * kdim + k0 + c);
+  }
+}
+
+// The K loop over a ring of STAGES stages, each the A rows then the B rows of
+// one block ([2][BM][LD]), BK columns of K: STAGES - 1 stages in flight
+// while consume(A, B) reads one.  Returns with every copy landed and every
+// thread past its last read, so the caller may reuse the ring.
+template <typename T, int BM, int BK, int LD, int STAGES, int THREADS, typename F>
+__device__ __forceinline__ void ring_k_loop(T* ring, const T* pa, const T* pb, int kdim,
+                                            F&& consume) {
+  constexpr int STAGE = 2 * BM * LD;
+  const int nkt = kdim / BK;
+  auto fill = [&](int kt) {
+    T* st = ring + (kt % STAGES) * STAGE;
+    stage_rows<T, BM, BK, LD, THREADS>(st, pa, kdim, kt * BK);
+    stage_rows<T, BM, BK, LD, THREADS>(st + BM * LD, pb, kdim, kt * BK);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nkt) fill(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt has landed for every thread; kt - 1 is read
+    if (kt + STAGES - 1 < nkt) fill(kt + STAGES - 1);
+    cp_async_commit();
+    const T* st = ring + (kt % STAGES) * STAGE;
+    consume(st, st + BM * LD);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A BM x BM lower block staged in S ([BM][SLD]) written as fp64 at (row0,
+// col0) with its mirror at (col0, row0); a diagonal block as its lower
+// triangle and the mirror of that triangle, so U = U^T bit for bit whatever
+// order the products were summed in.  Rows of both go out whole; SLD is odd,
+// so the column reads of the mirror are free of bank conflicts.
+template <typename S_T, int BM, int SLD, int THREADS>
+__device__ __forceinline__ void store_block_f64(const S_T* S, double* __restrict__ out, int m,
+                                                int row0, int col0) {
+  double* lower = out + static_cast<long long>(row0) * m + col0;
+  if (row0 == col0) {
+    for (int idx = threadIdx.x; idx < BM * BM; idx += THREADS) {
+      const int r = idx / BM, c = idx % BM;
+      lower[static_cast<long long>(r) * m + c] = r >= c ? S[r * SLD + c] : S[c * SLD + r];
+    }
+    return;
+  }
+  double* mirror = out + static_cast<long long>(col0) * m + row0;
+  for (int idx = threadIdx.x; idx < BM * BM; idx += THREADS) {
+    const int r = idx / BM, c = idx % BM;
+    lower[static_cast<long long>(r) * m + c] = S[r * SLD + c];
+    mirror[static_cast<long long>(r) * m + c] = S[c * SLD + r];
+  }
+}
+
+// D (16 x 8) += A (16 x 4, row) B (4 x 8, col) in fp64 on the tensor cores.
+// Lane l holds, with g = l / 4 and t = l % 4: a = A[g][t], A[g + 8][t];
+// b = B[t][g]; d = D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void dmma_m16n8k4(double (&d)[4], const double (&a)[2], double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+template <int BM>
+struct DmmaCfg {
+  static constexpr int WM = BM == 128 ? 64 : 32;  // warp tile: WM x 32 outputs
+  static constexpr int WN = 32;
+  static constexpr int MT = WM / 16, NT = WN / 8;  // m16n8 tiles of a warp
+  static constexpr int WARPS_M = BM / WM;
+  static constexpr int THREADS = WARPS_M * (BM / WN) * 32;
+  static constexpr int BK = 16;      // K columns per stage: 128 bytes of a row
+  static constexpr int LD = BK + 4;  // doubles per staged row
+  static constexpr int STAGES = 4;
+  static constexpr int SLD = BM + 1;  // the epilogue's staging rows
+  static constexpr int SMEM = STAGES * 2 * BM * LD * 8;
+  static_assert(BM * SLD <= STAGES * 2 * BM * LD, "the epilogue's staging reuses the ring");
+};
+
+// the fp64 in-band lower blocks (pairs 2 and 3) on the fp64 tensor cores
+template <int BM>
+__global__ void __launch_bounds__(DmmaCfg<BM>::THREADS, 1)
+syrk_band_f64_dmma_kernel(const double* __restrict__ p, double* __restrict__ out, int m,
+                          int kdim, Grid g) {
+  using C = DmmaCfg<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  double* ring = reinterpret_cast<double*>(smem_raw);
+  const int2 blk = band_block(g, blockIdx.x);
+  const int row0 = blk.x * BM, col0 = blk.y * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = (warp % C::WARPS_M) * C::WM + lane / 4;  // + 16 i (+ 8)
+  const int wc = (warp / C::WARPS_M) * C::WN + lane / 4;  // + 8 j
+  const int tq = lane % 4;
+
+  double acc[C::MT][C::NT][4] = {};
+  ring_k_loop<double, BM, C::BK, C::LD, C::STAGES, C::THREADS>(
+      ring, p + static_cast<long long>(row0) * kdim, p + static_cast<long long>(col0) * kdim,
+      kdim, [&](const double* A, const double* B) {
+#pragma unroll
+        for (int kk = 0; kk < C::BK; kk += 4) {
+          double a[C::MT][2], b[C::NT];
+#pragma unroll
+          for (int i = 0; i < C::MT; ++i) {
+            a[i][0] = A[(wr + 16 * i) * C::LD + kk + tq];
+            a[i][1] = A[(wr + 16 * i + 8) * C::LD + kk + tq];
+          }
+#pragma unroll
+          for (int j = 0; j < C::NT; ++j) b[j] = B[(wc + 8 * j) * C::LD + kk + tq];
+#pragma unroll
+          for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+            for (int j = 0; j < C::NT; ++j) dmma_m16n8k4(acc[i][j], a[i], b[j]);
+        }
+      });
+
+  double* S = ring;
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j) {
+      const int r = wr + 16 * i, c = wc - lane / 4 + 8 * j + 2 * tq;
+      S[r * C::SLD + c] = acc[i][j][0];
+      S[r * C::SLD + c + 1] = acc[i][j][1];
+      S[(r + 8) * C::SLD + c] = acc[i][j][2];
+      S[(r + 8) * C::SLD + c + 1] = acc[i][j][3];
+    }
+  __syncthreads();
+  store_block_f64<double, BM, C::SLD, C::THREADS>(S, out, m, row0, col0);
+}
+
+template <int BM>
+struct F32Cfg {
+  static constexpr int WM = 32, WN = 64;  // warp tile: 4 x 8 lanes of 8 x 8 outputs
+  static constexpr int WARPS_M = BM / WM;
+  static constexpr int THREADS = WARPS_M * (BM / WN) * 32;
+  static constexpr int BK = 32;           // K columns per stage
+  static constexpr int LD = BK + 4;       // floats per staged row: LD / 4 odd
+  static constexpr int STAGES = 4;
+  static constexpr int SLD = BM + 9;  // the epilogue's staging rows
+  static constexpr int SMEM = STAGES * 2 * BM * LD * 4;
+  static_assert(BM * SLD <= STAGES * 2 * BM * LD, "the epilogue's staging reuses the ring");
+};
+
+// the fp64 pair's off-band lower blocks: fp32 operands, one IEEE fp32 FMA
+// chain per element over k in order, fp64 out
+template <int BM>
+__global__ void __launch_bounds__(F32Cfg<BM>::THREADS, 1)
+syrk_offband_fp32_pipelined_kernel(const float* __restrict__ p, double* __restrict__ out, int m,
+                                   int kdim, Grid g) {
+  using C = F32Cfg<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const int2 blk = off_block(g, blockIdx.x);
+  const int row0 = blk.x * BM, col0 = blk.y * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = (warp % C::WARPS_M) * C::WM + lane / 8;  // rows wr + 4 i
+  const int wc = (warp / C::WARPS_M) * C::WN + lane % 8;  // cols wc + 8 j
+
+  float acc[8][8] = {};
+  ring_k_loop<float, BM, C::BK, C::LD, C::STAGES, C::THREADS>(
+      ring, p + static_cast<long long>(row0) * kdim, p + static_cast<long long>(col0) * kdim,
+      kdim, [&](const float* A, const float* B) {
+        const float* a_row = A + wr * C::LD;
+        const float* b_row = B + wc * C::LD;
+#pragma unroll
+        for (int k4 = 0; k4 < C::BK; k4 += 4) {
+          float4 b[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            b[j] = *reinterpret_cast<const float4*>(b_row + 8 * j * C::LD + k4);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 a = *reinterpret_cast<const float4*>(a_row + 4 * i * C::LD + k4);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              float s = __fmaf_rn(a.x, b[j].x, acc[i][j]);
+              s = __fmaf_rn(a.y, b[j].y, s);
+              s = __fmaf_rn(a.z, b[j].z, s);
+              acc[i][j] = __fmaf_rn(a.w, b[j].w, s);
+            }
+          }
+        }
+      });
+
+  float* S = ring;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) S[(wr + 4 * i) * C::SLD + wc + 8 * j] = acc[i][j];
+  __syncthreads();
+  store_block_f64<float, BM, C::SLD, C::THREADS>(S, out, m, row0, col0);
+}
+
+__global__ void to_fp32_kernel(const double2* __restrict__ src, float2* __restrict__ dst,
+                               long long n2) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n2;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const double2 v = src[i];
+    dst[i] = make_float2(__double2float_rn(v.x), __double2float_rn(v.y));
+  }
+}
+
 // the (hi, lo, accum) pairs of mp_syrk_launch
 enum Pair { kF32Bf16 = 0, kF32F32 = 1, kF64F32 = 2, kF64F64 = 3 };
 
-// The grid of the kernel with BM x BM blocks: with an all-hi pair every tile
+// The grid of the kernels with BM x BM blocks: with an all-hi pair every tile
 // is in the band.
 Grid make_grid(int m, int tile, int band_blocks, int pair, int bm) {
   const int n_tiles = m / tile;
@@ -547,25 +772,24 @@ unsigned pass_blocks(long long n) {
   return static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
-template <typename T, int BM>
-cudaError_t launch_band(const T* p, T* out, int m, int kdim, Grid g, long long n_band,
-                        cudaStream_t stream) {
-  if (n_band == 0) return cudaSuccess;
-  syrk_band_lower_kernel<T, BM>
-      <<<static_cast<unsigned>(n_band), kSimtThreads, 0, stream>>>(p, out, m, kdim, g);
+// a kernel with `smem` bytes of dynamic shared memory over `blocks` blocks
+template <typename K, typename... Args>
+cudaError_t launch_ring(K kernel, long long blocks, int threads, int smem, cudaStream_t stream,
+                        Args... args) {
+  if (blocks == 0) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <int BM, bool ONE_ROUND>
-cudaError_t launch_offband_bf16(const CUtensorMap& map, float* out, int m, int kdim,
-                                int round_k, Grid g, long long n_off, cudaStream_t stream) {
-  using C = OffCfg<BM>;
-  auto kernel = syrk_offband_bf16_wgmma_kernel<BM, ONE_ROUND>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(n_off), C::THREADS, C::SMEM, stream>>>(map, out, m, kdim,
-                                                                        round_k, g);
+template <int BM>
+cudaError_t launch_band(const float* p, float* out, int m, int kdim, Grid g, long long n_band,
+                        cudaStream_t stream) {
+  if (n_band == 0) return cudaSuccess;
+  syrk_band_lower_kernel<BM>
+      <<<static_cast<unsigned>(n_band), kSimtThreads, 0, stream>>>(p, out, m, kdim, g);
   return cudaGetLastError();
 }
 
@@ -575,7 +799,7 @@ template <int BM>
 cudaError_t launch_fp32_hi(const float* p, __nv_bfloat16* scratch, float* out, int m, int kdim,
                            int round_k, Grid g, long long n_band, long long n_off,
                            cudaStream_t stream) {
-  cudaError_t err = launch_band<float, BM>(p, out, m, kdim, g, n_band, stream);
+  cudaError_t err = launch_band<BM>(p, out, m, kdim, g, n_band, stream);
   if (err != cudaSuccess || n_off == 0) return err;
   const long long n4 = static_cast<long long>(m) * kdim / 4;
   to_bf16_kernel<<<pass_blocks(n4), 256, 0, stream>>>(
@@ -594,22 +818,28 @@ cudaError_t launch_fp32_hi(const float* p, __nv_bfloat16* scratch, float* out, i
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   if (round_k == kdim)
-    return launch_offband_bf16<BM, true>(map, out, m, kdim, round_k, g, n_off, stream);
-  return launch_offband_bf16<BM, false>(map, out, m, kdim, round_k, g, n_off, stream);
+    return launch_ring(syrk_offband_bf16_wgmma_kernel<BM, true>, n_off, OffCfg<BM>::THREADS,
+                       OffCfg<BM>::SMEM, stream, map, out, m, kdim, round_k, g);
+  return launch_ring(syrk_offband_bf16_wgmma_kernel<BM, false>, n_off, OffCfg<BM>::THREADS,
+                     OffCfg<BM>::SMEM, stream, map, out, m, kdim, round_k, g);
 }
 
-// the fp64 pair's off-band: P as fp32, then the fp32 SIMT kernel
+// the fp64-hi pairs: the fp64 band on DMMA, then (pair 2) P as fp32 and the
+// fp32 off-band kernel
 template <int BM>
-cudaError_t launch_offband_fp32(const double* p, float* scratch, double* out, int m, int kdim,
-                                Grid g, long long n_off, cudaStream_t stream) {
+cudaError_t launch_fp64_hi(const double* p, float* scratch, double* out, int m, int kdim, Grid g,
+                           long long n_band, long long n_off, cudaStream_t stream) {
+  cudaError_t err = launch_ring(syrk_band_f64_dmma_kernel<BM>, n_band, DmmaCfg<BM>::THREADS,
+                                DmmaCfg<BM>::SMEM, stream, p, out, m, kdim, g);
+  if (err != cudaSuccess || n_off == 0) return err;
   const long long n2 = static_cast<long long>(m) * kdim / 2;
   to_fp32_kernel<<<pass_blocks(n2), 256, 0, stream>>>(
       reinterpret_cast<const double2*>(p), reinterpret_cast<float2*>(scratch), n2);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  syrk_offband_fp32_lower_kernel<BM>
-      <<<static_cast<unsigned>(n_off), kSimtThreads, 0, stream>>>(scratch, out, m, kdim, g);
-  return cudaGetLastError();
+  return launch_ring(syrk_offband_fp32_pipelined_kernel<BM>, n_off, F32Cfg<BM>::THREADS,
+                     F32Cfg<BM>::SMEM, stream, static_cast<const float*>(scratch), out, m, kdim,
+                     g);
 }
 
 }  // namespace
@@ -618,11 +848,10 @@ cudaError_t launch_offband_fp32(const double* p, float* scratch, double* out, in
 // scratch: (m, kdim) in lo (bf16 for pair 0, fp32 for pair 2), written here
 // (may be null when the call has no off-band block); out: (m, m) contiguous
 // in hi.  Requires tile % 64 == 0, m % tile == 0, round_k % 64 == 0,
-// kdim % round_k == 0 and bm in {64, 128} dividing tile; bm is the block of
-// the fp32 kernels (pairs 0 and 1, and pair 2's off-band), while the fp64
-// band kernel's block is 64.  Each
-// kernel's grid is its number of lower blocks, from the same tile-row offsets
-// its blocks use to find their (bi, bj).
+// kdim % round_k == 0 and bm in {64, 128} dividing tile; bm is the block
+// side of every kernel of the call.  Each kernel's grid is its number of
+// lower blocks, from the same tile-row offsets its blocks use to find their
+// (bi, bj).
 extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, int kdim,
                               int tile, int round_k, int band_blocks, int pair, int bm,
                               void* stream) {
@@ -630,27 +859,20 @@ extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, in
       band_blocks < 1 || (bm != 64 && bm != 128) || tile % bm || pair < 0 || pair > 3)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Grid g = make_grid(m, tile, band_blocks, pair, bm);
+  const long long n_band = band_row_start(g, g.n_tiles);
+  const long long n_off = off_row_start(g, g.n_tiles);  // 0 for the all-hi pairs
+  if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
   if (pair == kF32Bf16 || pair == kF32F32) {
-    const Grid g = make_grid(m, tile, band_blocks, pair, bm);
-    const long long n_band = band_row_start(g, g.n_tiles);
-    const long long n_off = off_row_start(g, g.n_tiles);
-    if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
     const float* pp = static_cast<const float*>(p);
     auto* sc = static_cast<__nv_bfloat16*>(scratch);
     float* o = static_cast<float*>(out);
     if (bm == 128) return launch_fp32_hi<128>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
     return launch_fp32_hi<64>(pp, sc, o, m, kdim, round_k, g, n_band, n_off, s);
   }
-  const Grid gb = make_grid(m, tile, band_blocks, pair, 64);
-  const Grid go = make_grid(m, tile, band_blocks, pair, bm);
-  const long long n_band = band_row_start(gb, gb.n_tiles);
-  const long long n_off = pair == kF64F32 ? off_row_start(go, go.n_tiles) : 0;
-  if (n_off > 0 && scratch == nullptr) return cudaErrorInvalidValue;
   const double* pp = static_cast<const double*>(p);
+  auto* sc = static_cast<float*>(scratch);
   double* o = static_cast<double*>(out);
-  cudaError_t err = launch_band<double, 64>(pp, o, m, kdim, gb, n_band, s);
-  if (err != cudaSuccess || n_off == 0) return err;
-  float* sc = static_cast<float*>(scratch);
-  if (bm == 128) return launch_offband_fp32<128>(pp, sc, o, m, kdim, go, n_off, s);
-  return launch_offband_fp32<64>(pp, sc, o, m, kdim, go, n_off, s);
+  if (bm == 128) return launch_fp64_hi<128>(pp, sc, o, m, kdim, g, n_band, n_off, s);
+  return launch_fp64_hi<64>(pp, sc, o, m, kdim, g, n_band, n_off, s);
 }

@@ -6,7 +6,9 @@ one shared library with a plain C interface, loaded with `ctypes`.  The
 library links libcuda (`-lcuda`) for `cuTensorMapEncodeTiled`.  The
 library goes to `build/repro_torch_kernels/<hash>/` at the repository root,
 keyed by a hash of the sources and flags, so a changed source is rebuilt
-and an unchanged one is loaded as it is.
+and an unchanged one is loaded as it is.  The compilers' output, with
+`ptxas -v`'s registers, shared memory and spills of every kernel, is kept
+beside it in `nvcc.log`.
 
 Nothing here runs when the module is imported: the first kernel launch
 calls `library()`.
@@ -29,6 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "nvcc.log"   # the compilers' output (ptxas -v) beside the library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,15 +96,17 @@ def build(verbose: bool = False) -> Path:
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        failed = []
+        failed, logs = [], []
         for src, _, proc in procs:
             log, _ = proc.communicate()
+            logs.append(f"[nvcc {src.name}]\n{log}")
             if verbose or proc.returncode:
-                print(f"[nvcc {src.name}]\n{log}", file=sys.stderr, flush=True)
+                print(logs[-1], file=sys.stderr, flush=True)
             if proc.returncode:
                 failed.append(src.name)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}")
+        (out_dir / LOG_NAME).write_text("\n".join(logs))
         tmp_lib = Path(tmp) / LIB_NAME
         subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
                         *(str(obj) for _, obj, _ in procs), "-lcudart",

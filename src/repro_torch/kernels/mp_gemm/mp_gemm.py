@@ -4,10 +4,25 @@ Replaces the Pallas TPU kernel `repro.kernels.mp_gemm.mp_gemm`.  Takes the
 (hi, lo, accum) pairs (fp32, bf16, fp32) and (fp64, fp32, fp32), the
 paper's, and the all-hi (fp32, fp32, fp32) and (fp64, fp64, fp64), in which
 every block is in the band.  Two kernels, each over only the lower blocks
-(bi >= bj) of its class, each block written with its mirror: the SIMT band
-kernel in hi and, after a pass that writes P in lo into a scratch, the off-band
-kernel (bf16 wgmma for the bf16 pair, fp32 SIMT for the fp64 pair).  The C
-entry sizes both grids (csrc/mp_syrk.cu: mp_syrk_launch).
+(bi >= bj) of its class, each block written with its mirror: the band
+kernel in hi and, after a pass that writes P in lo into a scratch, the
+off-band kernel.  The C entry sizes both grids (csrc/mp_syrk.cu:
+mp_syrk_launch).
+
+What bounds each on the H100, and what its design does about it:
+
+- fp32 band (fp32 hi): operations on the CUDA cores (67 TFLOP/s); SIMT with
+  the operands transposed into shared memory through registers.
+- bf16 off-band: the bytes of its fp32 output; TMA into a shared ring and
+  wgmma, one rounding to bf16 per round_k.
+- fp64 band (fp64 hi): operations at 67 TFLOP/s, reached only on the fp64
+  tensor cores; mma.sync m16n8k4 in fp64 (DMMA) fed by a 4-stage cp.async
+  ring, 8-byte fragment loads free of bank conflicts; a diagonal block is its
+  lower triangle and that triangle's mirror.
+- fp32 off-band of the paper pair: IEEE fp32 FMA at 67 TFLOP/s on the CUDA
+  cores, one chain over K in order per element; a 4-stage cp.async ring,
+  lanes that share a row of P share its 16-byte shared loads, and the 64
+  accumulators of a thread in registers (one block per SM, no spill).
 """
 
 from __future__ import annotations
@@ -28,9 +43,8 @@ SPLIT_PAIRS = (0, 2)   # the pairs with an off-band class
 
 
 def block(tile):
-    """The fp32 kernels' block side bm (mp_syrk_launch's argument): 128
-    where it divides the tile, else 64; the fp64 band kernel's block is
-    always 64."""
+    """The kernels' block side bm (mp_syrk_launch's argument): 128 where it
+    divides the tile, else 64."""
     return 64 if tile % 128 else 128
 
 

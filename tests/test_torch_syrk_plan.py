@@ -1,8 +1,12 @@
 """The CUDA SYRK's host side on the CPU: the specification of its tile plan
 (csrc/mp_syrk.cu launches each kernel over exactly the lower blocks of its
 class and writes each with its mirror), the symmetry of the JAX kernel's U
-that makes the mirror faithful, and the wrapper's refusals before any
-build."""
+that makes the mirror faithful, the wrapper's refusals before any build,
+and chip_smoke.py's reading of the kernels' ptxas and SASS facts."""
+
+import importlib.util
+import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -156,57 +160,59 @@ def test_jax_kernel_u_is_symmetric(m, k, bm, bk, band):
 
 
 def _plan_pair(m, tile, band_blocks, pair):
-    """The C entry's two grids for a pair code (mp_gemm.PAIRS): the band
-    kernel's (bm = 64 for the fp64 band) and the off-band kernel's (the
-    wrapper's `block`); the all-hi pairs put every tile in the band."""
+    """The C entry's two grids for a pair code (mp_gemm.PAIRS), both over
+    blocks of the wrapper's `block` (128 where it divides the tile, else
+    64): the band kernel's and the off-band kernel's; the all-hi pairs put
+    every tile in the band."""
     bm = syrk_kernel.block(tile)
     lo = torch.float32 if pair in (1, 3) else torch.bfloat16
-    band = _plan(m, tile, band_blocks, 64 if pair >= 2 else bm, lo)
-    off = _plan(m, tile, band_blocks, bm, lo)
-    return band, off
+    return _plan(m, tile, band_blocks, bm, lo), _plan(m, tile, band_blocks, bm, lo)
 
 
-@pytest.mark.parametrize("tile", [256, 192])
+@pytest.mark.parametrize("tile", [64, 128, 192, 256, 320, 512, 1024])
 @pytest.mark.parametrize("pair", [2, 3])
-@pytest.mark.parametrize("band", [1, 2, 8])
+@pytest.mark.parametrize("band", [1, 2, 8, None])
 @pytest.mark.parametrize("n_tiles", [1, 2, 5, 9])
 def test_fp64_pair_plans_cover_the_square_once(n_tiles, band, pair, tile):
-    """The fp64 band kernel's 64 x 64 blocks and the fp32 off-band kernel's
-    bm x bm blocks (bm = 128 where it divides the tile, else 64) cover U
-    once, each lower block with its mirror, in 64 x 64 cells."""
+    """The fp64 DMMA band kernel's and the fp32 off-band kernel's bm x bm
+    blocks (bm = 128 where it divides the tile, else 64) cover U once, each
+    lower block with its mirror, for every tile mp_gemm.launch accepts and
+    bands from 1 to n_tiles (None)."""
+    band = n_tiles if band is None else band
     m = n_tiles * tile
     pb, po = _plan_pair(m, tile, band, pair)
-    assert pb["bm"] == 64
-    assert po["bm"] == (128 if tile % 128 == 0 else 64)
+    bm = 128 if tile % 128 == 0 else 64
+    assert pb["bm"] == po["bm"] == bm and pb["r"] == tile // bm
     band_eff = n_tiles if pair == 3 else min(band, n_tiles)
-    cells = m // 64
+    cells = m // bm
     seen = np.zeros((cells, cells), np.int64)
     for pl, count, find in ((pb, pb["band"], _band_block),
                             (po, po["off"] if pair == 2 else 0, _off_block)):
-        s = pl["bm"] // 64
         for idx in range(count):
             bi, bj = find(pl, idx)
             assert 0 <= bj <= bi
             in_band = abs(bi // pl["r"] - bj // pl["r"]) < band_eff
             assert in_band == (find is _band_block)
-            for a in range(s):
-                for b in range(s):
-                    seen[bi * s + a, bj * s + b] += 1
-                    if bi != bj:
-                        seen[bj * s + b, bi * s + a] += 1
+            seen[bi, bj] += 1
+            if bi != bj:
+                seen[bj, bi] += 1
     assert (seen == 1).all()
+    if pair == 3:
+        assert po["off"] == 0
 
 
 @pytest.mark.parametrize("m_t,t", [(63, 8), (39, 2)])
 def test_fp64_pair_plan_at_step_0(m_t, t):
     """The panel path's (63 tile rows, band 8) and the tile path's (39,
-    band 2) step 0 at tile 1024: 16 x 16 fp64 band blocks per tile, 8 x 8
-    fp32 off-band blocks of 128."""
+    band 2) step 0 at tile 1024: 8 x 8 blocks of 128 per tile for both the
+    fp64 band and the fp32 off-band kernel."""
     pb, po = _plan_pair(m_t * 1024, 1024, t, 2)
     in_p, off_p = _syrk_products(m_t, t)
-    assert pb["r"] == 16 and po["r"] == 8
-    assert pb["band"] == in_p * 256 - m_t * 16 * 15 // 2
+    assert pb["r"] == 8 and po["r"] == 8
+    assert pb["band"] == in_p * 64 - m_t * 8 * 7 // 2
     assert po["off"] == off_p * 64
+    assert _band_block(pb, 0) == (0, 0)
+    assert _band_block(pb, pb["band"] - 1) == (m_t * 8 - 1, m_t * 8 - 1)
     assert _off_block(po, po["off"] - 1) == (m_t * 8 - 1, (m_t - t) * 8 - 1)
 
 
@@ -225,3 +231,71 @@ def test_wrapper_refuses_shapes_before_any_build(m, kdim, tile, round_k):
                            accum=torch.float32)
     assert launch_counts()["mp_syrk"] == 0
 
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_MANGLED = "_ZN43_GLOBAL__N__8844ba60_10_mp_syrk_cu_3d279d5a{}"
+_DMMA = _MANGLED.format("25syrk_band_f64_dmma_kernelILi128EEEvPKdPdiiNS_4GridE")
+_BF16 = _MANGLED.format("30syrk_offband_bf16_wgmma_kernelILi64ELb1EEEv14CUtensorMap_stPfiiiNS_4GridE")
+_F32 = _MANGLED.format("34syrk_offband_fp32_pipelined_kernelILi64EEEvPKfPdiiNS_4GridE")
+
+
+def test_chip_smoke_reads_ptxas_usage(tmp_path):
+    """The build line's registers and spills per mp_syrk instantiation,
+    from ptxas -v's log; kernels of other sources are left out."""
+    log = tmp_path / "nvcc.log"
+    log.write_text("\n".join([
+        "[nvcc mp_syrk.cu]",
+        f"ptxas info    : Compiling entry function '{_DMMA}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_DMMA}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 194 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{_BF16}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_BF16}",
+        "    56 bytes stack frame, 72 bytes spill stores, 60 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 2 barriers",
+        "ptxas info    : Compiling entry function '_Z13other_kernelPf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 12 registers, used 0 barriers"]))
+    cs = _chip_smoke()
+    assert cs.ptxas_usage(log, cs.SYRK_KERNELS) == {
+        "syrk_band_f64_dmma_kernel<128>": dict(stack=0, spill_stores=0,
+                                               spill_loads=0, registers=194),
+        "syrk_offband_bf16_wgmma_kernel<64,1>": dict(
+            stack=56, spill_stores=72, spill_loads=60, registers=128)}
+
+
+def test_chip_smoke_counts_sass_ops(monkeypatch):
+    """The build line's DMMA / DFMA / FFMA counts per mp_syrk kernel, from
+    cuobjdump -sass, which the fp64 band's DMMA check reads."""
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        f"\t\tFunction : {_DMMA}",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */",
+        "        /*08f0*/                   DMMA.1684 R24, R116, R120, R24 ;",
+        "        /*0900*/                   DMMA.1684 R28, R116, R122, R28 ;",
+        f"\t\tFunction : {_F32}",
+        "        /*0100*/                   FFMA R3, R4, R5, R3 ;",
+        "\t\tFunction : _Z13other_kernelPf",
+        "        /*0100*/                   DFMA R4, R6, R8, R4 ;"])
+    cs = _chip_smoke()
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/cuda/bin/nvcc")
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return types.SimpleNamespace(stdout=sass)
+
+    monkeypatch.setattr(cs.subprocess, "run", run)
+    assert cs.sass_counts("lib.so", cs.SYRK_KERNELS) == {
+        "syrk_band_f64_dmma_kernel<128>": dict(DMMA=2, DFMA=0, FFMA=0),
+        "syrk_offband_fp32_pipelined_kernel<64>": dict(DMMA=0, DFMA=0, FFMA=1)}
+    assert calls == [["/cuda/bin/cuobjdump", "-sass", "lib.so"]]
