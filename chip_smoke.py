@@ -73,6 +73,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      with variance at 4,096 sites, PMSE within 0.2; mp_syrk (fp64, fp32)
      at the tile path's step 0 and matern_cov in fp64 for Sigma and
      Sigma_no against their plain versions (every row slab), timed;
+ 10. the gradient path: matern_cov_grad (the hand-written backward of
+     matern_cov) against its plain version, fp32 and fp64 at every nu, on a
+     4,096^2 G and on phase 8's (fp32) and phase 9's (fp64) Sigma, timed
+     against its byte bound; one value-and-gradient evaluation of dense
+     full(fp32) on phase 8's weak field and full(fp64) on phase 9's field
+     (n_obs cut to a multiple of 1,024 if its predicted peak passes 70 GiB)
+     through the kernels and the plain versions (launch counts, the
+     log-likelihood equal to the no-grad one, gradients kernel vs plain,
+     seconds forward and backward, peak, matern_cov_grad once under the
+     profiler); fit_mle_adam as tests/test_mle_kriging.py runs it (120
+     steps, lr 0.05) at n = 8,192 on phase 6's field against fit_mle, and
+     at n_obs for as many steps as fit in 60 s; tile_cholesky and
+     geostat_loglik_step refusing a theta that requires grad;
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -144,6 +157,24 @@ PAPER_QUICK = dict(n_all=5_632, hold=11, n_obs=5_120, nb=128, grid=3,
 # the paper pair's registered loglik_drift (src/repro/verify/bounds.py),
 # measured at n of a few hundred; phase 9 reports against it
 PAPER_LOGLIK_DRIFT = 1e-6
+# phase 10: matern_cov_grad's check size; the Adam fits (the reference
+# test's setting at n = 8,192 on phase 6's field, then n_obs for as many
+# steps as fit in adam_seconds) and the Nelder-Mead iterations they are held
+# against; the peak a full(fp64) value-and-gradient evaluation may reach
+# before its n_obs is cut
+GRAD = dict(check_n=4_096, adam_n=8_192, adam_steps=120, adam_lr=0.05,
+            adam_seconds=60.0, nm_iters=60, peak_gib=70.0)
+GRAD_QUICK = dict(check_n=1_024, adam_n=2_048, adam_steps=20, adam_lr=0.05,
+                  adam_seconds=5.0, nm_iters=20, peak_gib=70.0)
+# matern_cov_grad against its plain version, of the scale sum |G| dK/dtheta:
+# the terms in fp32 differ by the exps' last bits (~2.4e-7 each at most),
+# in fp64 by ~1e-16; the sums in fp64 in other orders
+GRAD_KERNEL_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-12}
+# a value-and-gradient evaluation, kernel path against plain path (max
+# gradient error over max |gradient|, and |ll| relative): Sigma differs by
+# those last bits, which the Cholesky of an ill-conditioned Sigma amplifies
+# in fp32 (phase 8.1 holds the log-likelihood to 1e-3 for the same reason)
+GRAD_EVAL_TOL = {"torch.float32": 1e-3, "torch.float64": 1e-8}
 
 
 def emit(**obj):
@@ -825,7 +856,7 @@ def main_path(ds, cfg, results):
     p = n // nb
     policy = PrecisionPolicy.tpu(t)
     expected = {"blocked_potrf": p, "mp_syrk": p - 1, "matern_cov": t + 1,
-                "mp_attention": 0}
+                "matern_cov_grad": 0, "mp_attention": 0}
     th0 = [float(v) for v in ds.theta0.tolist()]
     requests = [th0, [th0[0], th0[1] * 0.8, th0[2]],
                 [th0[0], th0[1] * 1.25, th0[2]]]
@@ -882,7 +913,7 @@ def main_path_paper(ds, cfg, results):
     locs, z = ds.locs.double(), ds.z.double()
     theta = [float(v) for v in ds.theta0.tolist()]
     expected = {"blocked_potrf": 0, "mp_syrk": p - 1, "matern_cov": t + 1,
-                "mp_attention": 0}
+                "matern_cov_grad": 0, "mp_attention": 0}
     out = {}
     for impl in ("kernel", "plain"):
         out[impl] = _evaluate(lambda th: geostat_loglik_step(
@@ -1251,8 +1282,8 @@ def serving(scfg, results):
               for c in range(cfg.n_cycles)]
     torch.cuda.synchronize()
     counts = launch_counts()
-    expected = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0,
-                "mp_attention": 2 * cfg.n_cycles}
+    expected = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
+                "mp_syrk": 0, "mp_attention": 2 * cfg.n_cycles}
     require(counts == expected, f"serving launches {counts}, expected {expected}")
     require(tuple(ids.shape) == (b, n_new) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab, f"generated ids {tuple(ids.shape)}")
@@ -1442,7 +1473,8 @@ def fidelity_evaluations(locs, z, theta, fcfg, total, profile=True):
     for label, pol, use_tiles in fidelity_policies(p):
         tiled = _tiled(pol, use_tiles)
         expected = {"matern_cov": 1, "blocked_potrf": p if tiled else 0,
-                    "mp_syrk": p - 1 if tiled else 0, "mp_attention": 0}
+                    "mp_syrk": p - 1 if tiled else 0, "matern_cov_grad": 0,
+                    "mp_attention": 0}
         out = {}
         for impl in ("kernel", "plain"):
             fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
@@ -1776,6 +1808,7 @@ def fidelity(fcfg, results):
     step("8.6 general nu", fidelity_general_nu)
     step("8.7 kernels", fidelity_kernels, locs, locs_new, fcfg, results)
     emit(phase="fidelity", step="seconds", **secs)
+    return locs, z
 
 
 # ---------------------------------------------------------------------------
@@ -1824,7 +1857,8 @@ def paper_evaluations(locs, z, fcfg, total):
     for label, pol, use_tiles in paper_policies(p):
         tiled = _tiled(pol, use_tiles)
         expected = {"matern_cov": 1, "blocked_potrf": 0,
-                    "mp_syrk": p - 1 if tiled else 0, "mp_attention": 0}
+                    "mp_syrk": p - 1 if tiled else 0, "matern_cov_grad": 0,
+                    "mp_attention": 0}
         out = {}
         for impl in ("kernel", "plain"):
             fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
@@ -2046,6 +2080,290 @@ def paper(fcfg, results):
              fits, fcfg)
     step("9.4 kernels", paper_kernels, locs, locs_new, fcfg, results)
     emit(phase="paper", step="seconds", **secs)
+    return locs, z
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the gradient path (fit_mle_adam through matern_cov's backward)
+# ---------------------------------------------------------------------------
+
+def grad_bound(rows, cols, dtype):
+    """(bound ms, bound_by) of one matern_cov_grad call on a (rows, cols) G:
+    G and the locations read once (bytes), against 16 operations per
+    element in the locations' precision (the forward's 9, the derivative's
+    at most 5, two conversions) and 4 fp64 flops (two multiply-adds)."""
+    import torch
+    size = torch.finfo(dtype).bits // 8
+    elems = rows * cols
+    by_bytes = (elems + 2 * (rows + cols)) * size / HBM_BYTES_PER_S
+    peak = FP32_FLOPS if dtype == torch.float32 else FP64_FLOPS
+    by_ops = 16 * elems / peak + 4 * elems / FP64_FLOPS
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def check_matern_grad(fields, gcfg, results):
+    """10.0: matern_cov_grad against its plain version on the card, fp32 and
+    fp64 at every nu, on a (check_n, check_n) G and on the fidelity path's
+    Sigma (phase 8's weak field in fp32, phase 9's field in fp64), G drawn
+    from a seed.  Each sum's error is held against its scale, sum |G|
+    dK/dtheta_k (the plain version on |G|), and a second launch must give
+    the same bits; the kernel is timed with CUDA events at every nu on the
+    large G, the plain version at nu = 0.5."""
+    import torch
+    from repro_torch.kernels.matern_cov import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for dtype, locs, theta in fields:
+        worst, main = 0.0, None
+        tol = GRAD_KERNEL_TOL[str(dtype)]
+        for n in (gcfg["check_n"], locs.shape[0]):
+            la = locs[:n].contiguous()
+            g = torch.randn((n, n), generator=gen, device="cuda", dtype=dtype)
+            for nu in (0.5, 1.5, 2.5):
+                got = ops.matern_cov_grad(la, la, theta, g, nu=nu)
+                # no float atomics: the same bits from run to run
+                require(torch.equal(got, ops.matern_cov_grad(la, la, theta, g,
+                                                             nu=nu)),
+                        f"matern_cov_grad {dtype} n={n} nu={nu}: two runs differ")
+                want = ref.matern_cov_grad(la, la, theta, g, nu=nu)
+                scale = ref.matern_cov_grad(la, la, theta, g.abs(), nu=nu)
+                err = (got.double() - want.double()).abs()
+                ratio = float((err / scale.double()).max())
+                require(got.dtype == dtype and ratio <= tol,
+                        f"matern_cov_grad {dtype} n={n} nu={nu}: {got.tolist()} "
+                        f"vs {want.tolist()}, {ratio} of the scale > {tol}")
+                worst = max(worst, float(err.max()))
+                line = dict(n=n, nu=nu, dtype=str(dtype), grad=got.tolist(),
+                            grad_plain=want.tolist(), scale=scale.tolist(),
+                            max_abs_err=float(err.max()), err_over_scale=ratio,
+                            tol=tol)
+                if n == locs.shape[0]:
+                    line["ms"] = time_ms(lambda: ops.matern_cov_grad(
+                        la, la, theta, g, nu=nu))
+                    line["bound_ms"], line["bound_by"] = grad_bound(n, n, dtype)
+                    if nu == 0.5:
+                        line["plain_ms"] = time_ms(lambda: ref.matern_cov_grad(
+                            la, la, theta, g, nu=nu), reps=2)
+                        main = line
+                emit(phase="gradient", step="kernel", kernel="matern_cov_grad",
+                     **line)
+            del g
+            torch.cuda.empty_cache()
+        key = "matern_cov_grad" + ("" if dtype == torch.float32 else "_fp64")
+        results.setdefault(key, {}).update(
+            name="matern_cov_grad" + ("" if dtype == torch.float32 else " (fp64)"),
+            route="cuda", source="src/repro_torch/csrc/matern_cov.cu",
+            replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
+            max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None)
+
+
+def _value_and_grad(fn, theta):
+    """ll and its gradient in a host fp32 theta, as fit_mle_adam takes them:
+    (ll, grad list, forward s, backward s, peak GiB, launch counts)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    th = torch.tensor(theta, dtype=torch.float32, requires_grad=True)
+    t0 = time.perf_counter()
+    ll = fn(th)
+    value = float(ll.detach())  # waits for the device
+    t1 = time.perf_counter()
+    (g,) = torch.autograd.grad(ll, th)  # a host tensor: waits
+    t2 = time.perf_counter()
+    return (value, g.tolist(), t1 - t0, t2 - t1,
+            torch.cuda.max_memory_allocated() / 2 ** 30, launch_counts())
+
+
+def gradient_evaluation(label, locs, z, theta, results, key):
+    """10.1: one value-and-gradient evaluation of dense full(locations'
+    dtype) at theta through the kernels and through the plain versions:
+    launch counts (matern_cov and matern_cov_grad once each), the kernel
+    path's log-likelihood equal to the no-grad evaluation's bit for bit,
+    gradients kernel against plain, seconds forward and backward, peak, and
+    the kernel path under the profiler (matern_cov_grad_kernel once)."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, make_loglik
+    pol = PrecisionPolicy.full(locs.dtype)
+    expected = {"matern_cov": 1, "matern_cov_grad": 1, "blocked_potrf": 0,
+                "mp_syrk": 0, "mp_attention": 0}
+    out = {}
+    for impl in ("kernel", "plain"):
+        fn = make_loglik(locs, z, pol, nu_static=0.5, impl=impl)
+        out[impl] = _value_and_grad(fn, theta)
+    (a, ga, fa, ba, pa, ca), (b, gb, fb, bb, pb, cb) = out["kernel"], out["plain"]
+    require(ca == expected, f"{label}: launches {ca}, expected {expected}")
+    require(sum(cb.values()) == 0, f"{label}: plain path launched {cb}")
+    fn = make_loglik(locs, z, pol, nu_static=0.5)
+    with torch.no_grad():  # the same fp32 theta, no autograd
+        no_grad = float(fn(torch.tensor(theta, dtype=torch.float32)))
+    require(a == no_grad, f"{label}: ll {a} with grad, {no_grad} without")
+    tol = GRAD_EVAL_TOL[str(locs.dtype)]
+    scale = max(abs(v) for v in gb)
+    err = max(abs(x - y) for x, y in zip(ga, gb)) / scale
+    require(math.isfinite(a) and all(map(math.isfinite, ga)) and ga[2] == 0.0
+            and abs(a - b) <= tol * abs(b) and err <= tol,
+            f"{label}: kernel {a} {ga} vs plain {b} {gb}")
+    wall_ms, busy, rows = device_profile(lambda: _value_and_grad(fn, theta))
+    grad_rows = [(k, c, ms) for k, c, ms in rows if "matern_cov_grad_kernel" in k]
+    require(sum(c for _, c, _ in grad_rows) == 1,
+            f"{label}: matern_cov_grad_kernel launched {grad_rows} in one evaluation")
+    emit(phase="gradient", step="evaluation", policy=label, n=locs.shape[0],
+         theta=list(theta), loglik_kernel=a, loglik_plain=b,
+         loglik_no_grad=no_grad, grad_kernel=ga, grad_plain=gb,
+         grad_err_over_max=err, tol=tol, seconds_forward_kernel=fa,
+         seconds_backward_kernel=ba, seconds_forward_plain=fb,
+         seconds_backward_plain=bb, peak_gib_kernel=pa, peak_gib_plain=pb,
+         launches_kernel=ca, wall_ms=wall_ms, device_busy_ms=busy,
+         idle_share=1 - busy / wall_ms,
+         matern_cov_grad_device_ms=sum(ms for _, _, ms in grad_rows),
+         top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:10]])
+    results.setdefault(key, {})["launches"] = ca["matern_cov_grad"]
+    return fa + ba, pa
+
+
+def fp64_grad_n(n_obs, peak32, limit):
+    """The largest multiple of 1,024, at most n_obs, whose full(fp64)
+    value-and-gradient evaluation is predicted to peak under `limit` GiB:
+    twice the fp32 evaluation's peak at n_obs (the same tensors in twice the
+    bytes), scaled by n^2."""
+    if 2 * peak32 <= limit:
+        return n_obs
+    return int(n_obs * math.sqrt(limit / (2 * peak32)) // 1024 * 1024)
+
+
+def gradient_adam(gcfg, locs, z, t_eval):
+    """10.2: fit_mle_adam on dense full(fp32) as the reference's test runs
+    it (120 steps at lr 0.05 from 0.8 theta0) at n = adam_n on phase 6's
+    field, against fit_mle on the same likelihood (theta2-hat within rel
+    0.1); then Adam at n_obs on phase 8's weak field for as many steps as
+    fit in adam_seconds (t_eval: 10.1's seconds per evaluation), with the
+    log-likelihood of every step."""
+    import torch
+    from repro_torch.core import (PrecisionPolicy, fit_mle, fit_mle_adam,
+                                  make_loglik)
+    from repro_torch.covariance import make_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    pol = PrecisionPolicy.full(torch.float32)
+    nu = torch.tensor([0.5])
+    gen = torch.Generator(device="cuda").manual_seed(1)  # phase 6's field
+    ds = make_dataset(gen, gcfg["adam_n"], MEDIUM, nu_static=0.5)
+    ll = make_loglik(ds.locs, ds.z, pol, nu_static=0.5)
+    start = [0.8 * MEDIUM[0], 0.8 * MEDIUM[1]]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit_mle_adam(lambda th: ll(torch.cat([th, nu])), start,
+                       steps=gcfg["adam_steps"], lr=gcfg["adam_lr"])
+    adam_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts["matern_cov_grad"] == gcfg["adam_steps"]
+            and counts["matern_cov"] == gcfg["adam_steps"] + 1,
+            f"Adam launches {counts}")
+    t0 = time.perf_counter()
+    nm = fit_mle(lambda th: ll([th[0], th[1], 0.5]), start,
+                 max_iters=gcfg["nm_iters"])
+    nm_s = time.perf_counter() - t0
+    rel = abs(float(res.theta[1]) - nm.theta[1]) / nm.theta[1]
+    require(math.isfinite(res.loglik) and rel <= 0.1,
+            f"Adam theta2 {res.theta[1]} vs Nelder-Mead {nm.theta[1]}: rel {rel}")
+    emit(phase="gradient", step="adam", n=gcfg["adam_n"], start=start,
+         steps=gcfg["adam_steps"], lr=gcfg["adam_lr"],
+         theta_adam=res.theta.tolist(), loglik_adam=res.loglik,
+         history=[(h[0].tolist(), h[1]) for h in res.history],
+         seconds_adam=adam_s, seconds_per_step=adam_s / gcfg["adam_steps"],
+         theta_nm=nm.theta.tolist(), loglik_nm=nm.loglik, nm_evals=nm.n_evals,
+         seconds_nm=nm_s, theta2_rel_gap=rel, tol=0.1, launches_adam=counts)
+    del ll, ds
+    torch.cuda.empty_cache()
+    # as many steps at n_obs as fit in adam_seconds: steps are cut, not n
+    steps = max(1, int(gcfg["adam_seconds"] // t_eval))
+    ll = make_loglik(locs, z, pol, nu_static=0.5)
+    values = []
+
+    def traced(th):
+        v = ll(torch.cat([th, nu]))
+        values.append(float(v.detach()))
+        return v
+    start = [0.8 * WEAK[0], 0.8 * WEAK[1]]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fit_mle_adam(traced, start, steps=steps, lr=gcfg["adam_lr"])
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    # the reference's lr is sized for n = 256: at n_obs Adam's first steps
+    # may cross the theta1 / theta2 ridge, so no climb is required here
+    require(counts["matern_cov_grad"] == steps and all(map(math.isfinite, values)),
+            f"Adam at n_obs: {counts} {values}")
+    emit(phase="gradient", step="adam", n=locs.shape[0], start=start,
+         steps=steps, lr=gcfg["adam_lr"], loglik_per_step=values[:steps],
+         loglik_best=max(values), loglik_final=res.loglik,
+         theta=res.theta.tolist(), seconds=secs,
+         seconds_per_step=secs / steps,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=counts)
+
+
+def gradient_guard(locs, z):
+    """10.3: the engines whose kernels have no backward raise on the card
+    for a theta that requires grad, before any of those kernels runs."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, geostat_loglik_step, make_loglik
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    n, nb, pol = 2_048, 256, PrecisionPolicy.tpu(2)
+    th = torch.tensor(list(WEAK), requires_grad=True)
+    calls = {
+        "tile_cholesky (make_loglik, tpu(2))": lambda: make_loglik(
+            locs[:n], z[:n], pol, nb=nb, nu_static=0.5)(th),
+        "geostat_loglik_step (tpu(2))": lambda: geostat_loglik_step(
+            locs[:n], z[:n], th, nb=nb, policy=pol, nu_static=0.5)}
+    reset_launch_counts()
+    for what, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            emit(phase="gradient", step="refused", what=what,
+                 error=type(e).__name__, message=str(e)[:160])
+        else:
+            raise AssertionError(f"{what}: a theta that requires grad ran")
+    counts = launch_counts()
+    require(counts["blocked_potrf"] == counts["mp_syrk"]
+            == counts["matern_cov_grad"] == 0, f"guard launches {counts}")
+
+
+def gradient(gcfg, weak, fp64_field, results):
+    """Phase 10: the gradient path on the card (see the module docstring),
+    sub-steps timed into one phase line."""
+    import torch
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    (locs, z), (locs64, z64) = weak, fp64_field
+    step("10.0 kernel", check_matern_grad,
+         [(torch.float32, locs, list(WEAK[:2])),
+          (torch.float64, locs64, list(MEDIUM[:2]))], gcfg, results)
+    t_eval, peak32 = step("10.1 full(fp32)", gradient_evaluation, "full(fp32)",
+                          locs, z, WEAK, results, "matern_cov_grad")
+    n64 = fp64_grad_n(locs64.shape[0], peak32, gcfg["peak_gib"])
+    emit(phase="gradient", step="fp64 size", n_obs=locs64.shape[0], n=n64,
+         peak_gib_fp32=peak32, predicted_peak_gib_fp64=2 * peak32 * (
+             n64 / locs64.shape[0]) ** 2, limit_gib=gcfg["peak_gib"])
+    _, peak64 = step("10.1 full(fp64)", gradient_evaluation, "full(fp64)",
+                     locs64[:n64].contiguous(), z64[:n64].contiguous(), MEDIUM,
+                     results, "matern_cov_grad_fp64")
+    require(peak64 <= gcfg["peak_gib"] + 1, f"full(fp64) peak {peak64} GiB")
+    step("10.2 Adam", gradient_adam, gcfg, locs, z, t_eval)
+    step("10.3 guard", gradient_guard, locs, z)
+    emit(phase="gradient", step="seconds", **secs)
 
 
 def main(argv=None):
@@ -2106,8 +2424,9 @@ def main(argv=None):
 
     def timed(name, fn, *fn_args):
         t0 = time.perf_counter()
-        fn(*fn_args)
+        out = fn(*fn_args)
         seconds[name] = time.perf_counter() - t0
+        return out
 
 
     p = cfg["n"] // cfg["nb"]
@@ -2137,10 +2456,14 @@ def main(argv=None):
         timed("6 MLE", mle)
     timed("7 serving", serving, SERVE_QUICK if args.quick else SERVE, results)
     torch.cuda.empty_cache()
-    timed("8 fidelity", fidelity, FIDELITY_QUICK if args.quick else FIDELITY,
-          results)
+    weak = timed("8 fidelity", fidelity,
+                 FIDELITY_QUICK if args.quick else FIDELITY, results)
     torch.cuda.empty_cache()
-    timed("9 paper pair", paper, PAPER_QUICK if args.quick else PAPER, results)
+    fp64_field = timed("9 paper pair", paper,
+                       PAPER_QUICK if args.quick else PAPER, results)
+    torch.cuda.empty_cache()
+    timed("10 gradient", gradient, GRAD_QUICK if args.quick else GRAD, weak,
+          fp64_field, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)

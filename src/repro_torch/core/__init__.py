@@ -23,7 +23,7 @@ from .likelihood import (
     make_loglik,
     profiled_loglik_from_factor,
 )
-from .mle import MLEResult, fit_mle, fit_mle_grid, neldermead
+from .mle import MLEResult, fit_mle, fit_mle_adam, fit_mle_grid, neldermead
 from .kriging import kfold_pmse, krige, krige_pmse, pmse
 from .batch_engine import (
     BatchEngine,
@@ -41,7 +41,7 @@ __all__ = [
     "build_banded_covariance", "geostat_loglik_step", "panel_cholesky_banded",
     "build_covariance", "dst_loglik", "loglik_from_factor", "make_factor_fn",
     "make_loglik", "profiled_loglik_from_factor",
-    "MLEResult", "fit_mle", "fit_mle_grid", "neldermead",
+    "MLEResult", "fit_mle", "fit_mle_adam", "fit_mle_grid", "neldermead",
     "kfold_pmse", "krige", "krige_pmse", "pmse",
     "BatchEngine", "BatchPlan", "BatchResult", "chunked", "evaluate_batch",
 ]

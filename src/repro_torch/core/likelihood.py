@@ -23,6 +23,7 @@ import math
 import torch
 
 from ..covariance.matern import HALF_INTEGER_NUS, matern_covariance
+from ..kernels.matern_cov.ops import MaternCov
 from .panel_cholesky import _impl
 from .precision import PrecisionPolicy
 from .tile_cholesky import dst_cholesky, reference_cholesky, tile_cholesky
@@ -97,7 +98,11 @@ def matern_block(locs_a, locs_b, theta, *, nu_static=None,
     function with impl="kernel", one launch per candidate (the kernel on a
     CUDA tensor, its plain version on a CPU tensor), and through the plain
     version with impl="plain"; nu_static=None takes nu from theta[..., 2]
-    through the plain general-nu path (covariance/matern.py).
+    through the plain general-nu path (covariance/matern.py), which autograd
+    differentiates.  A theta that requires grad (with grad mode on) takes
+    each candidate through `MaternCov`, whose backward is the
+    `matern_cov_grad` kernel (its plain version with impl="plain"): one
+    more launch per candidate in the backward.
     """
     if nu_static is None:
         cov = matern_covariance(locs_a, locs_b, _theta(theta, locs_a),
@@ -108,11 +113,17 @@ def matern_block(locs_a, locs_b, theta, *, nu_static=None,
     if nu_static not in HALF_INTEGER_NUS:
         raise ValueError(f"nu_static must be one of {HALF_INTEGER_NUS}")
     batch = theta.shape[:-1]
+    locs_a, locs_b = locs_a.contiguous(), locs_b.contiguous()
+    matern = _impl(impl)[0]
+    if theta.requires_grad and torch.is_grad_enabled():
+        out = torch.stack([
+            MaternCov.apply(locs_a, locs_b, th, nu_static, metric, matern)
+            for th in theta.reshape(-1, theta.shape[-1])])
+        out = out.reshape(batch + out.shape[1:])
+        return out if dtype is None else out.to(dtype)
     flat = theta.reshape(-1, theta.shape[-1]).tolist()
     out = torch.empty((len(flat), locs_a.shape[0], locs_b.shape[0]),
                       dtype=theta.dtype, device=locs_a.device)
-    locs_a, locs_b = locs_a.contiguous(), locs_b.contiguous()
-    matern = _impl(impl)[0]
     for b, th in enumerate(flat):
         matern.matern_cov_tiles(locs_a[None], locs_b[None], th,
                                 nu=nu_static, out_dtype=out.dtype,

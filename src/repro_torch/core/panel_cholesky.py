@@ -53,10 +53,16 @@ def _impl(impl):
 
 def _cholesky(a, dtype):
     """(l, info): the lower Cholesky factor of `a` in `dtype`, all NaN where
-    the matrix is not positive definite (the reference's convention, set in
-    place), and info != 0 there, as the POTRF kernel's."""
+    the matrix is not positive definite (the reference's convention), and
+    info != 0 there, as the POTRF kernel's.  The NaN is set in place, but
+    where autograd records `a` out of place, since its Cholesky backward
+    reads the factor it saved, and then only when a factor failed (a host
+    read of info): a second fp64 factor at n = 40,960 would be 13.4 GB."""
     l, info = torch.linalg.cholesky_ex(a.to(dtype))
-    return l.masked_fill_((info != 0)[..., None, None], torch.nan), info
+    bad = (info != 0)[..., None, None]
+    if a.requires_grad and torch.is_grad_enabled():
+        return (l.masked_fill(bad, torch.nan) if bool(bad.any()) else l), info
+    return l.masked_fill_(bad, torch.nan), info
 
 
 def _potrf(impl, hi):
@@ -68,6 +74,12 @@ def _potrf(impl, hi):
     if hi == torch.float32:
         return _impl(impl)[1]
     return lambda a: _cholesky(a, hi)
+
+
+def _requires_grad(*values):
+    """Whether autograd would record any of these tensors (grad mode on)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in values)
 
 
 def _host_theta(theta):
@@ -256,8 +268,18 @@ def geostat_loglik_step(locs, z, theta, *, nb: int, policy: PrecisionPolicy,
     """One full likelihood evaluation: cov-gen -> factor -> solve -> ll.
 
     Computes on the device of `locs` and returns a 0-d tensor there.  This
-    is the unit the paper benchmarks ("time per iteration").
+    is the unit the paper benchmarks ("time per iteration").  It is not
+    differentiable: the kernels take theta as host numbers and factor in
+    place, so on the card with impl="kernel" a theta (or locs, z) that
+    requires grad raises rather than return a log-likelihood without its
+    graph.
     """
+    if impl == "kernel" and locs.is_cuda and _requires_grad(locs, z, theta):
+        raise NotImplementedError(
+            "geostat_loglik_step on the card has no backward: its kernels "
+            "(matern_cov launched with host theta, blocked_potrf, mp_syrk) "
+            "are forward-only; use the dense make_loglik path "
+            "(ROADMAP A 11: the tile engine's backward on the card)")
     require_ieee_fp32()
     band, off = build_banded_covariance(locs, theta, nb=nb, policy=policy,
                                         nu_static=nu_static, metric=metric,

@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import torch
 
-from .panel_cholesky import _cholesky, _impl, _potrf
+from .panel_cholesky import _cholesky, _impl, _potrf, _requires_grad
 from .precision import PrecisionPolicy, require_ieee_fp32
 
 
@@ -126,9 +126,16 @@ def _column_runs(policy: PrecisionPolicy, k: int, p: int):
 
 def _check_card(a, nb, impl):
     """mp_syrk takes nb % 64 == 0; say so before any work instead of deep
-    inside a step."""
+    inside a step.  blocked_potrf and mp_syrk have no backward: a matrix
+    that autograd records raises here, where the kernels' outputs would
+    otherwise drop its gradient's branches through them without a word."""
     if not (a.is_cuda and impl == "kernel"):
         return
+    if _requires_grad(a):
+        raise NotImplementedError(
+            "tile_cholesky on the card has no backward: blocked_potrf and "
+            "mp_syrk are forward-only (ROADMAP A 11: the tile engine's "
+            "backward on the card); use the dense path for gradients")
     if nb % 64:
         raise ValueError(f"tile_cholesky on the card: nb={nb} must be a "
                          "multiple of 64 (mp_syrk's tile)")

@@ -44,6 +44,10 @@ SIGNATURES = {
     # min_lag, th1, th2, two_nu, dtypes, stream
     "matern_cov_launch": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
                           _I, _D, _D, _I, _I, _P],
+    # locs_a, locs_b, grad, partials, n_partials, out, rows, cols, th1, th2,
+    # two_nu, fp64, stream
+    "matern_cov_grad_launch": [_P, _P, _P, _P, ctypes.c_longlong, _P, _I, _I,
+                               _D, _D, _I, _I, _P],
     # a, out, info, batch, nb, max_blocks, stream
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
     # p, scratch, out, m, kdim, tile, round_k, band_blocks, pair, bm,

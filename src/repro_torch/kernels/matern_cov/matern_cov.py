@@ -5,7 +5,8 @@ Euclidean distance with nu in {0.5, 1.5, 2.5}, written directly by the
 kernel in one of two precisions: fp32 locations give fp32 or bf16 output
 computed in fp32; fp64 locations give fp64 output computed in fp64, or
 that value rounded once to fp32 (the panel path's fp32 off-band of the
-paper pair).
+paper pair).  `launch_grad` runs its backward: the gradient in theta of
+sum G * C for one tile, G in the locations' precision.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 from .. import LAUNCHES
 from .._build import check, library
 
+# the backward's block: columns (threads) and rows of G (kCols, kGradRows)
+GRAD_BLOCK = (128, 256)
 # (locations dtype, out dtype) -> the C entry's `dtypes` code
 _DTYPES = {(torch.float32, torch.float32): 0,
            (torch.float32, torch.bfloat16): 1,
@@ -83,3 +86,39 @@ def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
     check(status, "matern_cov")
     LAUNCHES["matern_cov"] += 1
     return out
+
+
+def launch_grad(locs_a, locs_b, theta, grad_out, *, nu, metric="euclidean"):
+    """sum_ij G_ij dC_ij/dtheta_k for k = 1, 2, C = C(locs_a, locs_b): one
+    backward launch (and its one-block second pass) for the (m, n) tile
+    G = grad_out, fp32 or fp64 as the locations are.  theta: host floats
+    (theta1, theta2, ...), rounded to the locations' precision as `launch`
+    rounds them.  Returns a (2,) tensor in that precision on the device."""
+    two_nu = _two_nu(nu, metric)
+    dtype = locs_a.dtype
+    if (dtype not in (torch.float32, torch.float64) or locs_b.dtype != dtype
+            or grad_out.dtype != dtype):
+        raise ValueError(
+            f"matern_cov_grad kernel: locations {locs_a.dtype}/{locs_b.dtype}"
+            f" with G {grad_out.dtype}; it takes all fp32 or all fp64")
+    _check_locs(locs_a[None], "locs_a")
+    _check_locs(locs_b[None], "locs_b")
+    rows, cols = locs_a.shape[0], locs_b.shape[0]
+    if grad_out.shape != (rows, cols) or not grad_out.is_contiguous():
+        raise ValueError(f"matern_cov_grad kernel: G must be contiguous "
+                         f"({rows}, {cols}), got {tuple(grad_out.shape)}")
+    if locs_b.device != locs_a.device or grad_out.device != locs_a.device:
+        raise ValueError("locs_a, locs_b and G must be on one device")
+    bc, br = GRAD_BLOCK
+    n_partials = 2 * -(-cols // bc) * -(-rows // br)
+    partials = torch.empty(n_partials, dtype=torch.float64,
+                           device=locs_a.device)
+    out = torch.empty(2, dtype=torch.float64, device=locs_a.device)
+    status = library().matern_cov_grad_launch(
+        locs_a.data_ptr(), locs_b.data_ptr(), grad_out.data_ptr(),
+        partials.data_ptr(), n_partials, out.data_ptr(), rows, cols,
+        float(theta[0]), float(theta[1]), two_nu, int(dtype == torch.float64),
+        torch.cuda.current_stream(locs_a.device).cuda_stream)
+    check(status, "matern_cov_grad")
+    LAUNCHES["matern_cov_grad"] += 1
+    return out.to(dtype)

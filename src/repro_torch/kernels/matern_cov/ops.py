@@ -12,6 +12,9 @@ raises on what it does not take (haversine distance, an output wider than
 the locations, such as fp64 from fp32 locations).  A CPU tensor always
 runs the plain version (ref.py).  theta: (theta1, theta2[, theta3]) as host
 numbers; nu is the smoothness, and theta3 is not read.
+
+`matern_cov_grad` is the backward of `matern_cov` in theta, and `MaternCov`
+the autograd Function that pairs the two, for a half-integer nu.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from ...covariance.matern import HALF_INTEGER_NUS
 from . import ref
-from .matern_cov import launch
+from .matern_cov import launch, launch_grad
 
 
 def _plain(locs, nu):
@@ -66,3 +69,60 @@ def matern_cov(locs_a, locs_b, theta, *, nu, out_dtype=torch.float32,
     """(m, 2) x (n, 2) -> (m, n): the one-tile case of `matern_cov_tiles`."""
     return matern_cov_tiles(locs_a[None], locs_b[None], theta, nu=nu,
                             out_dtype=out_dtype, metric=metric)[0]
+
+
+def matern_cov_grad(locs_a, locs_b, theta, grad_out, *, nu,
+                    metric="euclidean"):
+    """The gradient in (theta1, theta2) of sum(grad_out * matern_cov(locs_a,
+    locs_b, theta)): a (2,) tensor in the locations' precision, on their
+    device.  grad_out: (m, n), in that precision.  A CPU tensor runs the
+    plain version; a CUDA tensor launches the backward kernel, which raises
+    on what it does not take (a general nu, haversine distance)."""
+    if not locs_a.is_cuda:
+        return ref.matern_cov_grad(locs_a, locs_b, theta, grad_out, nu=nu,
+                                   metric=metric)
+    return launch_grad(locs_a, locs_b, theta, grad_out, nu=nu, metric=metric)
+
+
+class MaternCov(torch.autograd.Function):
+    """Sigma = matern_cov(locs_a, locs_b, theta) in the locations'
+    precision, differentiable in the tensor theta (theta1, theta2[,
+    theta3]): the forward is `impl.matern_cov`, the backward
+    `impl.matern_cov_grad`, where `impl` is this module (the kernels on a
+    CUDA tensor) or `ref` (the plain versions on any device); theta3 gets a
+    zero gradient (a half-integer nu ignores it) and the locations none.
+    The backward recomputes from the locations and theta and saves no
+    Sigma, so a caller may change Sigma in place (the jitter on its
+    diagonal).
+
+        MaternCov.apply(locs_a, locs_b, theta, nu, metric, impl)
+    """
+
+    @staticmethod
+    def forward(ctx, locs_a, locs_b, theta, nu, metric, impl):
+        th = [float(v) for v in theta.detach().reshape(-1).tolist()]
+        ctx.save_for_backward(locs_a, locs_b)
+        ctx.th, ctx.nu, ctx.metric, ctx.impl = th, nu, metric, impl
+        ctx.theta_dtype, ctx.theta_device = theta.dtype, theta.device
+        ctx.theta_shape = theta.shape
+        # written through a view into a tensor of its own: an output that
+        # is a view may not be changed in place
+        out = torch.empty((locs_a.shape[0], locs_b.shape[0]),
+                          dtype=torch.promote_types(locs_a.dtype,
+                                                    torch.float32),
+                          device=locs_a.device)
+        impl.matern_cov_tiles(locs_a[None], locs_b[None], th, nu=nu,
+                              out_dtype=out.dtype, metric=metric,
+                              out=out[None])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        locs_a, locs_b = ctx.saved_tensors
+        grad = ctx.impl.matern_cov_grad(locs_a, locs_b, ctx.th,
+                                        grad_out.contiguous(), nu=ctx.nu,
+                                        metric=ctx.metric)
+        d_theta = torch.zeros(len(ctx.th), dtype=ctx.theta_dtype,
+                              device=ctx.theta_device)
+        d_theta[:2] = grad.to(ctx.theta_device)
+        return None, None, d_theta.reshape(ctx.theta_shape), None, None, None

@@ -215,8 +215,14 @@ def test_ops_on_cpu_are_the_plain_versions_and_launch_nothing():
     kw = dict(tile=64, round_k=64, band_blocks=1)
     torch.testing.assert_close(syrk_ops.mp_syrk(p, **kw),
                                syrk_ref.mp_syrk(p, **kw), rtol=0, atol=0)
-    assert launch_counts() == {"matern_cov": 0, "blocked_potrf": 0,
-                               "mp_syrk": 0, "mp_attention": 0}
+    g = torch.randn((32, 32), generator=gen)
+    torch.testing.assert_close(
+        matern_ops.matern_cov_grad(locs[0], locs[1], th, g, nu=2.5),
+        matern_ref.matern_cov_grad(locs[0], locs[1], th, g, nu=2.5),
+        rtol=0, atol=0)
+    assert launch_counts() == {"matern_cov": 0, "matern_cov_grad": 0,
+                               "blocked_potrf": 0, "mp_syrk": 0,
+                               "mp_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -242,8 +248,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(NotImplementedError, match="nu=1.3"):
         matern_kernel.launch(locs, locs, [1.0, 0.1], nu=1.3, out=out,
                              outer=False)
-    assert launch_counts() == {"matern_cov": 0, "blocked_potrf": 0,
-                               "mp_syrk": 0, "mp_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        matern_kernel.launch_grad(locs[0], locs[1], [1.0, 0.1], out[0],
+                                  nu=0.5)
+    with pytest.raises(NotImplementedError, match="nu=1.3"):
+        matern_kernel.launch_grad(locs[0], locs[1], [1.0, 0.1], out[0],
+                                  nu=1.3)
+    assert launch_counts() == {"matern_cov": 0, "matern_cov_grad": 0,
+                               "blocked_potrf": 0, "mp_syrk": 0,
+                               "mp_attention": 0}
 
 
 def _c_params(name):
