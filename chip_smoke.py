@@ -4,13 +4,18 @@
     python3 chip_smoke.py            # the full run (one card)
     python3 chip_smoke.py --quick    # small shapes: build and check only
                                      # (phase 9: evaluations and kernels)
+    python3 chip_smoke.py --e2e-ab DIR  # only phases 4, 8.1, 9.1 and 10.1's
+                                     # evaluations, the checkout at DIR and
+                                     # this one in turns (DIR, this, this, DIR)
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. environment: the card (nvidia-smi), torch, CUDA, TF32 flags (off);
   2. build: every CUDA kernel from csrc/, one nvcc per source in parallel,
      with ptxas's registers and spill bytes of each mp_syrk kernel (the
      paper pair's two must not spill) and its DMMA, DFMA and FFMA counts
-     in cuobjdump's SASS (the fp64 band: DMMA and no DFMA);
+     in cuobjdump's SASS (the fp64 band: DMMA and no DFMA), and the same
+     of all 36 matern_cov instantiations (forward general and symmetric,
+     backward) with their MUFU, F2F, DFMA, FFMA and STG counts;
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes, with errors, tolerances and CUDA-event times
      (kernel, plain version, one library call where one computes the same
@@ -26,9 +31,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      all-hi fp64, and its step 0 timed beside its yardstick and bound, and
      each of its two kernels (fp64 DMMA band, fp32 off-band) beside its
      half of the yardstick and its own bound;
-     matern_cov's fp64 forms of phase 4's paper-pair request at every nu:
-     fp64 band storage, and the off-band computed in fp64 and rounded once
-     to fp32;
+     matern_cov's symmetric form (the band's diagonal tiles) at every nu
+     and output dtype, equal bit for bit to the general form and to its
+     transpose, both timed; matern_cov's fp64 forms of phase 4's
+     paper-pair request at every nu: fp64 band storage, and the off-band
+     computed in fp64 and rounded once to fp32;
      3b. mp_attention (banded-precision flash decode) against its plain
      version on the kernel tests' shapes, logit scales, ragged lengths
      (an empty far segment among them) and fp32 / bf16 near K/V, and at
@@ -62,7 +69,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      BatchEngine.loglik on 8 candidates against loglik_sequential; the
      tile path at n = 2,048 on the card and on the CPU; a general-nu
      haversine covariance against fp64; each kernel at the tile path's
-     shapes; nb = 96 refused on the card;
+     shapes (Sigma from matern_cov's symmetric form equal to its transpose
+     and to the general form's bit for bit, both timed); nb = 96 refused
+     on the card;
   9. the paper pair: an fp64 medium field (theta0 = (1, 0.1, 0.5)) at
      n_obs = 40,960 of 45,056, nb = 1,024: full(fp64) dense and through the
      tiles, paper_cpu at DP(10%) and DP(40%), each through the kernels and
@@ -72,10 +81,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      per chunk) for full(fp64) and DP(10%), theta-hat within 0.25; kriging
      with variance at 4,096 sites, PMSE within 0.2; mp_syrk (fp64, fp32)
      at the tile path's step 0 and matern_cov in fp64 for Sigma and
-     Sigma_no against their plain versions (every row slab), timed;
+     Sigma_no against their plain versions (every row slab), timed, Sigma
+     in both forms as in phase 8;
  10. the gradient path: matern_cov_grad (the hand-written backward of
      matern_cov) against its plain version, fp32 and fp64 at every nu, on a
-     4,096^2 G and on phase 8's (fp32) and phase 9's (fp64) Sigma, timed
+     4,096^2 G and on phase 8's (fp32) and phase 9's (fp64) Sigma, in its
+     symmetric form (the same bits twice) and its general form, timed
      against its byte bound; one value-and-gradient evaluation of dense
      full(fp32) on phase 8's weak field and full(fp64) on phase 9's field
      (n_obs cut to a multiple of 1,024 if its predicted peak passes 70 GiB)
@@ -118,6 +129,11 @@ FP64_FLOPS = 34e12      # fp64 FMA outside the tensor cores
 SYRK_KERNELS = ("syrk_band_lower_kernel", "syrk_offband_bf16_wgmma_kernel",
                 "to_bf16_kernel", "syrk_band_f64_dmma_kernel",
                 "syrk_offband_fp32_pipelined_kernel", "to_fp32_kernel")
+# matern_cov's kernels (forward general and symmetric, backward), keyed with
+# their template's types, and the SASS instructions counted in each
+MATERN_KERNELS = ("matern_cov_kernel", "matern_cov_sym_kernel",
+                  "matern_cov_grad_kernel")
+MATERN_SASS_OPS = ("MUFU", "F2F", "DFMA", "FFMA", "STG")
 # idle seconds at each end of a profiler trace (device_profile)
 PROFILE_PAD_S = 0.3
 QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
@@ -188,8 +204,12 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=5):
-    """Median CUDA-event time of fn() over `reps` runs after one warm-up."""
+def time_ms(fn, reps=5, calls=1):
+    """Median CUDA-event time of fn() over `reps` runs after one warm-up.
+    With calls > 1 each run times that many calls back to back and gives
+    the time per call: the device's own time once a call takes longer than
+    the host needs to launch the next, where one call alone also holds the
+    host's launch."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -198,10 +218,11 @@ def time_ms(fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -237,23 +258,34 @@ def syrk_products(n_t, t):
     return in_band, n_t * (n_t + 1) // 2 - in_band
 
 
-def _kernel_key(mangled, names):
+# template arguments in a mangled name: types (typed=True) and integers
+_MANGLED_ARG = re.compile(r"13__nv_bfloat16|L[ib]\d+E|[fd]")
+_TYPE_NAMES = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
+
+
+def _kernel_key(mangled, names, typed=False):
     """"name<template arguments>" of a mangled kernel whose name holds one of
-    `names`, else None."""
+    `names`, else None: its integer arguments, and with typed=True its types
+    too (f32, f64, bf16) in their order."""
     name = next((n for n in names if n in mangled), None)
     if name is None:
         return None
-    args = re.findall(r"L[ib](\d+)E", mangled.split(name, 1)[1].split("Ev", 1)[0])
+    rest = mangled.split(name, 1)[1].split("Ev", 1)[0]
+    if typed:
+        args = [_TYPE_NAMES.get(a) or a[2:-1]
+                for a in _MANGLED_ARG.findall(rest.removeprefix("I"))]
+    else:
+        args = re.findall(r"L[ib](\d+)E", rest)
     return f"{name}<{','.join(args)}>" if args else name
 
 
-def ptxas_usage(log_path, names):
+def ptxas_usage(log_path, names, typed=False):
     """Registers, stack and spill bytes of every kernel instantiation whose
     name holds one of `names`, from ptxas -v's lines in the build's log."""
     usage, key = {}, None
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
-            key = _kernel_key(line.split("'")[1], names)
+            key = _kernel_key(line.split("'")[1], names, typed)
             if key:
                 usage[key] = {}
         elif key and "bytes stack frame" in line:
@@ -265,7 +297,7 @@ def ptxas_usage(log_path, names):
     return usage
 
 
-def sass_counts(lib, names, ops=("DMMA", "DFMA", "FFMA")):
+def sass_counts(lib, names, ops=("DMMA", "DFMA", "FFMA"), typed=False):
     """SASS instructions of each op in `ops` in every kernel instantiation
     whose name holds one of `names`, from cuobjdump -sass of the library."""
     from repro_torch.kernels import _build
@@ -275,7 +307,8 @@ def sass_counts(lib, names, ops=("DMMA", "DFMA", "FFMA")):
     counts, key = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            key = _kernel_key(line.split("Function :", 1)[1].strip(), names)
+            key = _kernel_key(line.split("Function :", 1)[1].strip(), names,
+                              typed)
             if key:
                 counts[key] = dict.fromkeys(ops, 0)
         elif key:
@@ -313,6 +346,10 @@ def check_matern(locs_t, theta, t, nu_main, results):
     emit(phase="kernels", kernel="matern_cov", launch="band storage",
          shape=[p, t, nb, nb], nu=nu_main, max_abs_err=worst, max_rel_err=rel)
     del out, want, err
+    # the band launch of sub-diagonal 0 (the diagonal tiles) is the
+    # symmetric form: the same bits as the general form (the locations as
+    # a copy), each tile its own transpose
+    worst = max(worst, check_matern_sym(locs_t, theta, nu_main, "band d=0"))
     # the band launch of sub-diagonal 1 (p - 1 tile pairs), every nu and dtype
     for nu in (0.5, 1.5, 2.5):
         for dt in (torch.float32, torch.bfloat16):
@@ -333,8 +370,11 @@ def check_matern(locs_t, theta, t, nu_main, results):
             emit(phase="kernels", kernel="matern_cov", launch="band d=1",
                  tiles=p - 1, nb=nb, nu=nu, dtype=str(dt),
                  max_abs_err=float(err.max()))
-    band_ms = time_ms(lambda: ops.matern_cov_tiles(
-        locs_t[1:], locs_t[:p - 1], theta, nu=nu_main, out_dtype=torch.float32))
+    def band_d1():
+        return ops.matern_cov_tiles(locs_t[1:], locs_t[:p - 1], theta, nu=nu_main,
+                                    out_dtype=torch.float32)
+    band_ms = time_ms(band_d1)
+    band_device_ms = time_ms(band_d1, calls=10)
     # the full off-band launch of the main path: bf16 tiles with i - j >= t,
     # compared one tile row at a time to keep the fp32 temporaries small
     out = ops.matern_cov_lower(locs_t, theta, nu=nu_main, min_lag=t,
@@ -357,15 +397,71 @@ def check_matern(locs_t, theta, t, nu_main, results):
     bytes_moved = locs_t.numel() * 4 + p * p * nb * nb * 2
     flops = 9 * lower_elems  # 2 sub, 2 mul, add, sqrt, div, exp, mul
     bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    band_elems = (p - 1) * nb * nb
+    band_bound_ms = 1e3 * max((2 * (p - 1) * nb * 8 + 4 * band_elems) / HBM_BYTES_PER_S,
+                              9 * band_elems / FP32_FLOPS)
     emit(phase="kernels", kernel="matern_cov", launch="off-band",
          shape=[p, p, nb, nb], max_bf16_ulps=ulps, ms=ms, plain_ms=plain_ms,
-         band_d1_ms=band_ms, bound_ms=bound_ms)
+         band_d1_ms=band_ms, band_d1_back_to_back_ms=band_device_ms,
+         band_d1_bound_ms=band_bound_ms, bound_ms=bound_ms)
     results["matern_cov"] = dict(
         name="matern_cov", route="cuda", source="src/repro_torch/csrc/matern_cov.cu",
         replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS
         else "operations", library_ms=None)
+
+
+def check_matern_sym(locs_t, theta, nu_main, what):
+    """The symmetric zip form on tiles (B, nb, 2) at every nu and output
+    dtype: bit for bit the general form's output (the same locations as a
+    copy) and each tile its own transpose, within the phase's tolerance of
+    the plain version (fp32 rel 1e-5, bf16 1 ulp, fp64 1e-12 theta1, fp64 ->
+    fp32 1 fp32 ulp); both forms timed at nu_main in the first dtype.
+    Returns the largest error against the plain version."""
+    import torch
+    from repro_torch.kernels.matern_cov import matern_cov as mc_kernel
+    from repro_torch.kernels.matern_cov import ops, ref
+    f32, f64 = torch.float32, torch.float64
+    dtypes = (f32, torch.bfloat16) if locs_t.dtype == f32 else (f64, f32)
+    copy = locs_t.clone()
+    require(mc_kernel.symmetric(locs_t, locs_t) and not mc_kernel.symmetric(locs_t, copy),
+            "matern_cov symmetric dispatch")
+    worst = 0.0
+    for nu in (0.5, 1.5, 2.5):
+        for dt in dtypes:
+            out = ops.matern_cov_tiles(locs_t, locs_t, theta, nu=nu, out_dtype=dt)
+            gen = ops.matern_cov_tiles(locs_t, copy, theta, nu=nu, out_dtype=dt)
+            want = ref.matern_cov_tiles(locs_t, locs_t, theta, nu=nu, out_dtype=dt)
+            same = bool(torch.equal(out, gen))
+            sym = bool(torch.equal(out, out.transpose(1, 2)))
+            err = (out.double() - want.double()).abs()
+            if dt == torch.bfloat16:
+                tol = bf16_ulp(torch.maximum(out.float().abs(), want.float().abs()))
+            elif dt == f32 and locs_t.dtype == f64:
+                tol = fp32_ulp(torch.maximum(out.double().abs(), want.double().abs()))
+            elif dt == f32:
+                tol = 1e-5 * want.double().abs()
+            else:
+                tol = torch.full_like(err, 1e-12 * theta[0])
+            ratio = float((err / tol.double().clamp_min(1e-300)).max())
+            require(same and sym and ratio <= 1.0,
+                    f"matern_cov {what} symmetric {dt} nu={nu}: equal to general "
+                    f"{same}, to its transpose {sym}, {ratio} of the tolerance")
+            worst = max(worst, float(err.max()))
+            line = dict(tiles=list(locs_t.shape[:2]), nu=nu, dtype=str(dt),
+                        locs=str(locs_t.dtype), equal_to_general=same,
+                        equal_to_transpose=sym, max_abs_err=float(err.max()),
+                        err_over_tol=ratio)
+            if nu == nu_main and dt == dtypes[0]:
+                line["ms"] = time_ms(lambda: ops.matern_cov_tiles(
+                    locs_t, locs_t, theta, nu=nu, out_dtype=dt))
+                line["ms_general"] = time_ms(lambda: ops.matern_cov_tiles(
+                    locs_t, copy, theta, nu=nu, out_dtype=dt))
+            emit(phase="kernels", kernel="matern_cov", launch=f"{what} symmetric",
+                 **line)
+            del out, gen, want, err, tol
+    return worst
 
 
 def check_matern_fp64(locs_t, theta, t, results):
@@ -395,6 +491,8 @@ def check_matern_fp64(locs_t, theta, t, results):
         band_err = float((out - want).abs().max())
         del out, want
         require(band_err <= tol, f"matern fp64 band storage nu={nu}: {band_err}")
+        if nu == 0.5:  # the symmetric d = 0 launch, every nu and output dtype
+            worst = max(worst, check_matern_sym(locs_t, theta, nu, "band d=0 fp64"))
         low = ops.matern_cov_lower(locs_t, theta, nu=nu, min_lag=t,
                                    out_dtype=f32)
         require(low.dtype == f32, f"matern fp64 -> fp32 lower: {low.dtype}")
@@ -1723,7 +1821,10 @@ def fidelity_kernels(locs, locs_new, fcfg, results):
          bound_ms=1e3 * max(flops / FP32_FLOPS, bytes_moved / HBM_BYTES_PER_S))
     del a, l, lw
     # matern_cov: Sigma (n x n) and Sigma_no (m x n), one tile each;
-    # checked on row slabs (the plain version's temporaries are 4x the tile)
+    # checked on row slabs (the plain version's temporaries are 4x the tile);
+    # Sigma = C(locs, locs) is the symmetric form: equal to its transpose
+    # and to the general form's (the locations as a copy) bit for bit, both
+    # forms timed
     theta = list(MEDIUM)
     for what, la in (("Sigma", locs), ("Sigma_no", locs_new)):
         out = mc_ops.matern_cov(la, locs, theta, nu=0.5)
@@ -1733,7 +1834,9 @@ def fidelity_kernels(locs, locs_new, fcfg, results):
             rel = max(rel, float(((out[r0:r0 + 2048] - w).abs()
                                   / w.abs().clamp_min(1e-30)).max()))
         require(rel <= 1e-5, f"matern_cov {what}: rel {rel}")
-        del out, w
+        del w
+        sym = _sigma_forms(out, la, locs, theta, torch.float32) if la is locs else {}
+        del out
         elems = la.shape[0] * n
         bytes_moved = (la.shape[0] + n) * 8 + 4 * elems
         emit(phase="fidelity", step="kernel", kernel="matern_cov", what=what,
@@ -1742,8 +1845,27 @@ def fidelity_kernels(locs, locs_new, fcfg, results):
              plain_ms=time_ms(lambda: mc_ref.matern_cov(la, locs, theta, nu=0.5),
                               reps=2),
              bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S,
-                                9 * elems / FP32_FLOPS))
+                                9 * elems / FP32_FLOPS), **sym)
         torch.cuda.empty_cache()
+
+
+def _sigma_forms(out, la, locs, theta, dtype):
+    """Sigma = out from the symmetric form: equal to its transpose and to
+    the general form's Sigma (la as a copy) bit for bit; the general form
+    timed (ms_general)."""
+    import torch
+    from repro_torch.kernels.matern_cov import ops as mc_ops
+    copy = la.clone()
+    sym = bool(torch.equal(out, out.T))
+    gen = mc_ops.matern_cov(copy, locs, theta, nu=0.5, out_dtype=dtype)
+    same = bool(torch.equal(out, gen))
+    del gen
+    torch.cuda.empty_cache()
+    require(sym and same, f"matern_cov Sigma {dtype}: equal to its transpose "
+            f"{sym}, to the general form {same}")
+    return dict(equal_to_transpose=sym, equal_to_general=same,
+                ms_general=time_ms(lambda: mc_ops.matern_cov(
+                    copy, locs, theta, nu=0.5, out_dtype=dtype)))
 
 
 def _fidelity_data(gen, theta0, fcfg):
@@ -2021,7 +2143,9 @@ def paper_kernels(locs, locs_new, fcfg, results):
                                   out_dtype=f64)
             err = max(err, float((out[r0:r0 + 2048] - w).abs().max()))
         require(err <= 1e-12 * theta[0], f"matern_cov fp64 {what}: {err}")
-        del out, w
+        del w
+        sym = _sigma_forms(out, la, locs, theta, f64) if la is locs else {}
+        del out
         elems = la.shape[0] * n
         bytes_moved = (la.shape[0] + n) * 16 + 8 * elems
         by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S, 9 * elems / FP64_FLOPS
@@ -2035,7 +2159,7 @@ def paper_kernels(locs, locs_new, fcfg, results):
                     bound_by="bytes" if by_bytes >= by_ops else "operations")
         row = row or line  # the row of the kernels line: Sigma
         emit(phase="paper", step="kernel", kernel="matern_cov", what=what,
-             dtype=str(f64), **line)
+             dtype=str(f64), **line, **sym)
         torch.cuda.empty_cache()
     res = results.setdefault("matern_cov_fp64", {})
     res.update(
@@ -2109,7 +2233,10 @@ def check_matern_grad(fields, gcfg, results):
     from a seed.  Each sum's error is held against its scale, sum |G|
     dK/dtheta_k (the plain version on |G|), and a second launch must give
     the same bits; the kernel is timed with CUDA events at every nu on the
-    large G, the plain version at nu = 0.5."""
+    large G, the plain version at nu = 0.5.  The calls pass one location
+    tensor twice: the symmetric form.  The general form (the locations as a
+    copy) is held to the same tolerance against the plain version and
+    against the symmetric form, and timed beside it on the large G."""
     import torch
     from repro_torch.kernels.matern_cov import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -2118,6 +2245,7 @@ def check_matern_grad(fields, gcfg, results):
         tol = GRAD_KERNEL_TOL[str(dtype)]
         for n in (gcfg["check_n"], locs.shape[0]):
             la = locs[:n].contiguous()
+            copy = la.clone()
             g = torch.randn((n, n), generator=gen, device="cuda", dtype=dtype)
             for nu in (0.5, 1.5, 2.5):
                 got = ops.matern_cov_grad(la, la, theta, g, nu=nu)
@@ -2132,14 +2260,26 @@ def check_matern_grad(fields, gcfg, results):
                 require(got.dtype == dtype and ratio <= tol,
                         f"matern_cov_grad {dtype} n={n} nu={nu}: {got.tolist()} "
                         f"vs {want.tolist()}, {ratio} of the scale > {tol}")
+                general = ops.matern_cov_grad(la, copy, theta, g, nu=nu)
+                gen_ratio = float(((general.double() - want.double()).abs()
+                                   / scale.double()).max())
+                sym_ratio = float(((got.double() - general.double()).abs()
+                                   / scale.double()).max())
+                require(max(gen_ratio, sym_ratio) <= tol,
+                        f"matern_cov_grad {dtype} n={n} nu={nu}: general "
+                        f"{general.tolist()}, {gen_ratio} of the scale from the "
+                        f"plain version, {sym_ratio} from the symmetric form")
                 worst = max(worst, float(err.max()))
                 line = dict(n=n, nu=nu, dtype=str(dtype), grad=got.tolist(),
                             grad_plain=want.tolist(), scale=scale.tolist(),
                             max_abs_err=float(err.max()), err_over_scale=ratio,
-                            tol=tol)
+                            tol=tol, general_err_over_scale=gen_ratio,
+                            symmetric_vs_general_over_scale=sym_ratio)
                 if n == locs.shape[0]:
                     line["ms"] = time_ms(lambda: ops.matern_cov_grad(
                         la, la, theta, g, nu=nu))
+                    line["ms_general"] = time_ms(lambda: ops.matern_cov_grad(
+                        la, copy, theta, g, nu=nu))
                     line["bound_ms"], line["bound_by"] = grad_bound(n, n, dtype)
                     if nu == 0.5:
                         line["plain_ms"] = time_ms(lambda: ref.matern_cov_grad(
@@ -2147,7 +2287,7 @@ def check_matern_grad(fields, gcfg, results):
                         main = line
                 emit(phase="gradient", step="kernel", kernel="matern_cov_grad",
                      **line)
-            del g
+            del g, copy
             torch.cuda.empty_cache()
         key = "matern_cov_grad" + ("" if dtype == torch.float32 else "_fp64")
         results.setdefault(key, {}).update(
@@ -2366,16 +2506,132 @@ def gradient(gcfg, weak, fp64_field, results):
     emit(phase="gradient", step="seconds", **secs)
 
 
+# ---------------------------------------------------------------------------
+# --e2e-ab: two versions of the port, end to end, in one run on one card
+# ---------------------------------------------------------------------------
+
+E2E_REPS = 3  # timed evaluations of each, after one warm-up
+
+
+def _median_seconds(fn, reps=E2E_REPS):
+    """Median host seconds of fn() ending in a device sync, after a warm-up."""
+    import torch
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out), out
+
+
+def e2e_times(src):
+    """--e2e-src: the main evaluations of phases 4, 8.1, 9.1 and 10.1 through
+    the port under `src` (a checkout's src/ directory), each from the same
+    seeds and shapes as its phase: geostat_loglik_step at n = 65,536 (tpu(8),
+    theta0), DP(10%) on phase 8's weak field, paper_cpu DP(10%) on phase 9's
+    fp64 medium field, and dense full(fp32)'s value and gradient on phase
+    8's weak field.  One JSON line of median seconds per evaluation."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+    import repro_torch
+    from repro_torch.configs import GEOSTAT_CONFIGS
+    from repro_torch.core import (PrecisionPolicy, geostat_loglik_step,
+                                  make_loglik)
+    from repro_torch.covariance import make_dataset
+    from repro_torch.kernels import _build
+    _build.library()
+    cfg = GEOSTAT_CONFIGS["geostat_65k"]
+    secs, runs = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ds = make_dataset(gen, cfg.n, WEAK, nu_static=cfg.nu)
+    th0 = [float(v) for v in ds.theta0.tolist()]
+    pol = PrecisionPolicy.tpu(cfg.diag_thick)
+    secs["4"], runs["4"] = _median_seconds(lambda: float(geostat_loglik_step(
+        ds.locs, ds.z, th0, nb=cfg.nb, policy=pol, nu_static=cfg.nu,
+        off_update=cfg.off_update)))
+    del ds
+    torch.cuda.empty_cache()
+    fcfg = FIDELITY
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    medium = _fidelity_data(gen, MEDIUM, fcfg)  # drawn first, as in phase 8
+    locs, z, _, _ = _fidelity_data(gen, WEAK, fcfg)
+    del medium
+    torch.cuda.empty_cache()
+    p = fcfg["n_obs"] // fcfg["nb"]
+    fn = make_loglik(locs, z, PrecisionPolicy.from_dp_percent(p, 0.10),
+                     nb=fcfg["nb"], nu_static=0.5)
+    secs["8.1"], runs["8.1"] = _median_seconds(lambda: float(fn(list(WEAK))))
+    fn = make_loglik(locs, z, PrecisionPolicy.full(torch.float32), nu_static=0.5)
+
+    def value_and_grad():
+        th = torch.tensor(WEAK, dtype=torch.float32, requires_grad=True)
+        torch.autograd.grad(fn(th), th)
+    secs["10.1"], runs["10.1"] = _median_seconds(value_and_grad)
+    del fn, locs, z
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    locs, z, _, _ = _paper_data(gen, PAPER)
+    p = PAPER["n_obs"] // PAPER["nb"]
+    fn = make_loglik(locs, z, PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu"),
+                     nb=PAPER["nb"], nu_static=0.5)
+    secs["9.1"], runs["9.1"] = _median_seconds(lambda: float(fn(list(MEDIUM))))
+    emit(phase="e2e", src=str(Path(repro_torch.__file__).parents[1]),
+         library=str(_build.build()), seconds=secs, runs=runs)
+
+
+def e2e_ab(other):
+    """--e2e-ab: e2e_times of the checkout at `other` and of this one in
+    turns (other, this, this, other), each in a process of its own, on one
+    card; each phase's seconds per evaluation beside the spread of each
+    version's two processes."""
+    order = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)]
+    lines = []
+    for label, root in order:
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--e2e-src",
+             str(Path(root) / "src")], check=True, capture_output=True, text=True,
+            timeout=900).stdout
+        line = json.loads([x for x in out.splitlines() if '"e2e"' in x][-1])
+        line["version"] = label
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+    summary = {}
+    for ph in lines[0]["seconds"]:
+        by = {v: [ln["seconds"][ph] for ln in lines if ln["version"] == v]
+              for v in ("other", "this")}
+        spread = max(abs(a - b) / min(a, b) for a, b in by.values())
+        summary[ph] = dict(other=by["other"], this=by["this"],
+                           this_over_other=statistics.mean(by["this"])
+                           / statistics.mean(by["other"]),
+                           spread=spread)
+    emit(phase="e2e_ab", other=str(other), summary=summary)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="small main-path and serving shapes, no MLE: a "
                     "build-and-check run")
+    ap.add_argument("--e2e-ab", metavar="DIR",
+                    help="only time phases 4, 8.1, 9.1 and 10.1's evaluations "
+                    "through the checkout at DIR and this one, in turns")
+    ap.add_argument("--e2e-src", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
+    if args.e2e_src:
+        e2e_times(args.e2e_src)
+        return
+    if args.e2e_ab:
+        print(smi_line(), flush=True)
+        e2e_ab(Path(args.e2e_ab).resolve())
+        print(smi_line(), flush=True)
+        return
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}")
     sys.path.insert(0, str(ROOT / "src"))
@@ -2407,6 +2663,13 @@ def main(argv=None):
     dmma = {k: v for k, v in sass.items() if k.startswith("syrk_band_f64_dmma_kernel")}
     require(len(dmma) == 2 and all(v["DMMA"] > 0 and v["DFMA"] == 0 for v in dmma.values()),
             f"the fp64 band kernel is not on the fp64 tensor cores: {dmma}")
+    # matern_cov: 4 dtype pairs x 3 nu, general and symmetric; the backward
+    # 2 dtypes x 3 nu x (general, symmetric)
+    musage = ptxas_usage(lib.parent / _build.LOG_NAME, MATERN_KERNELS, typed=True)
+    msass = sass_counts(lib, MATERN_KERNELS, MATERN_SASS_OPS, typed=True)
+    emit(phase="build", kernel="matern_cov", ptxas=musage, sass=msass)
+    require(len(musage) == len(msass) == 36,
+            f"matern_cov kernels: {len(musage)} in ptxas, {len(msass)} in SASS")
 
     main_cfg = GEOSTAT_CONFIGS["geostat_65k"]  # geostat_500k with n cut
     cfg = QUICK if args.quick else dict(

@@ -40,14 +40,14 @@ _D = ctypes.c_double
 
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 SIGNATURES = {
-    # locs_i, locs_j, out, n_pairs, n_cols_j, rows, cols, out_tile_stride,
-    # min_lag, th1, th2, two_nu, dtypes, stream
-    "matern_cov_launch": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
-                          _I, _D, _D, _I, _I, _P],
+    # locs_i, locs_j, out, plan, n_pairs, n_cols_j, rows, cols,
+    # out_tile_stride, th1, th2, two_nu, dtypes, sym, stream
+    "matern_cov_launch": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+                          _D, _D, _I, _I, _I, _P],
     # locs_a, locs_b, grad, partials, n_partials, out, rows, cols, th1, th2,
-    # two_nu, fp64, stream
+    # two_nu, fp64, sym, stream
     "matern_cov_grad_launch": [_P, _P, _P, _P, ctypes.c_longlong, _P, _I, _I,
-                               _D, _D, _I, _I, _P],
+                               _D, _D, _I, _I, _I, _P],
     # a, out, info, batch, nb, max_blocks, stream
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
     # p, scratch, out, m, kdim, tile, round_k, band_blocks, pair, bm,
