@@ -95,7 +95,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      seconds forward and backward, peak, matern_cov_grad once under the
      profiler); fit_mle_adam as tests/test_mle_kriging.py runs it (120
      steps, lr 0.05) at n = 8,192 on phase 6's field against fit_mle, and
-     at n_obs for as many steps as fit in 60 s; tile_cholesky and
+     at n_obs for as many steps as fit in 25 s; 10.3 the tile engine's
+     gradient: mp_syrk_grad (mp_syrk's hand-written backward) against its
+     plain version for the four pairs at 4,096 and 39,936 rows (k =
+     1,024, band 2), timed beside its bound and a torch.matmul yardstick,
+     then with a dU that is zero off the band, where the plain version
+     with the band in lo must fail the same check, and the tiles'
+     Cholesky backward at B = 1 and 3; one value-and-gradient evaluation
+     through the tiles of tpu(2) and full(fp32) on phase 8's weak field
+     and paper_cpu(2) on phase 9's fp64 field at n_obs = 40,960, nb =
+     1,024 (the pair's n cut to a multiple of 1,024 if its
+     predicted peak passes 70 GiB) through the kernels and the plain
+     versions (exact launch counts, the log-likelihood equal to the
+     no-grad one, gradients kernel vs plain against the scale sum |G|
+     dSigma/dtheta, seconds, peak, the profiler's top operations), the
+     pair's gradient beside dense full(fp64)'s; fit_mle_adam under the
+     pair through the tiles at n = 8,192 against fit_mle; and
      geostat_loglik_step refusing a theta that requires grad;
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
@@ -176,12 +191,14 @@ PAPER_LOGLIK_DRIFT = 1e-6
 # phase 10: matern_cov_grad's check size; the Adam fits (the reference
 # test's setting at n = 8,192 on phase 6's field, then n_obs for as many
 # steps as fit in adam_seconds) and the Nelder-Mead iterations they are held
-# against; the peak a full(fp64) value-and-gradient evaluation may reach
-# before its n_obs is cut
+# against; the peak an fp64 value-and-gradient evaluation may reach before
+# its n_obs is cut; 10.3's tile path: n_obs and nb (phase 8's)
 GRAD = dict(check_n=4_096, adam_n=8_192, adam_steps=120, adam_lr=0.05,
-            adam_seconds=60.0, nm_iters=60, peak_gib=70.0)
+            adam_seconds=25.0, nm_iters=60, peak_gib=70.0, tile_n=40_960,
+            tile_nb=1_024)
 GRAD_QUICK = dict(check_n=1_024, adam_n=2_048, adam_steps=20, adam_lr=0.05,
-                  adam_seconds=5.0, nm_iters=20, peak_gib=70.0)
+                  adam_seconds=5.0, nm_iters=20, peak_gib=70.0, tile_n=5_120,
+                  tile_nb=128)
 # matern_cov_grad against its plain version, of the scale sum |G| dK/dtheta:
 # the terms in fp32 differ by the exps' last bits (~2.4e-7 each at most),
 # in fp64 by ~1e-16; the sums in fp64 in other orders
@@ -954,7 +971,7 @@ def main_path(ds, cfg, results):
     p = n // nb
     policy = PrecisionPolicy.tpu(t)
     expected = {"blocked_potrf": p, "mp_syrk": p - 1, "matern_cov": t + 1,
-                "matern_cov_grad": 0, "mp_attention": 0}
+                "matern_cov_grad": 0, "mp_syrk_grad": 0, "mp_attention": 0}
     th0 = [float(v) for v in ds.theta0.tolist()]
     requests = [th0, [th0[0], th0[1] * 0.8, th0[2]],
                 [th0[0], th0[1] * 1.25, th0[2]]]
@@ -1011,7 +1028,7 @@ def main_path_paper(ds, cfg, results):
     locs, z = ds.locs.double(), ds.z.double()
     theta = [float(v) for v in ds.theta0.tolist()]
     expected = {"blocked_potrf": 0, "mp_syrk": p - 1, "matern_cov": t + 1,
-                "matern_cov_grad": 0, "mp_attention": 0}
+                "matern_cov_grad": 0, "mp_syrk_grad": 0, "mp_attention": 0}
     out = {}
     for impl in ("kernel", "plain"):
         out[impl] = _evaluate(lambda th: geostat_loglik_step(
@@ -1381,7 +1398,8 @@ def serving(scfg, results):
     torch.cuda.synchronize()
     counts = launch_counts()
     expected = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
-                "mp_syrk": 0, "mp_attention": 2 * cfg.n_cycles}
+                "mp_syrk": 0, "mp_syrk_grad": 0,
+                "mp_attention": 2 * cfg.n_cycles}
     require(counts == expected, f"serving launches {counts}, expected {expected}")
     require(tuple(ids.shape) == (b, n_new) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab, f"generated ids {tuple(ids.shape)}")
@@ -1572,7 +1590,7 @@ def fidelity_evaluations(locs, z, theta, fcfg, total, profile=True):
         tiled = _tiled(pol, use_tiles)
         expected = {"matern_cov": 1, "blocked_potrf": p if tiled else 0,
                     "mp_syrk": p - 1 if tiled else 0, "matern_cov_grad": 0,
-                    "mp_attention": 0}
+                    "mp_syrk_grad": 0, "mp_attention": 0}
         out = {}
         for impl in ("kernel", "plain"):
             fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
@@ -1980,7 +1998,7 @@ def paper_evaluations(locs, z, fcfg, total):
         tiled = _tiled(pol, use_tiles)
         expected = {"matern_cov": 1, "blocked_potrf": 0,
                     "mp_syrk": p - 1 if tiled else 0, "matern_cov_grad": 0,
-                    "mp_attention": 0}
+                    "mp_syrk_grad": 0, "mp_attention": 0}
         out = {}
         for impl in ("kernel", "plain"):
             fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
@@ -2329,7 +2347,7 @@ def gradient_evaluation(label, locs, z, theta, results, key):
     from repro_torch.core import PrecisionPolicy, make_loglik
     pol = PrecisionPolicy.full(locs.dtype)
     expected = {"matern_cov": 1, "matern_cov_grad": 1, "blocked_potrf": 0,
-                "mp_syrk": 0, "mp_attention": 0}
+                "mp_syrk": 0, "mp_syrk_grad": 0, "mp_attention": 0}
     out = {}
     for impl in ("kernel", "plain"):
         fn = make_loglik(locs, z, pol, nu_static=0.5, impl=impl)
@@ -2447,31 +2465,445 @@ def gradient_adam(gcfg, locs, z, t_eval):
          launches=counts)
 
 
-def gradient_guard(locs, z):
-    """10.3: the engines whose kernels have no backward raise on the card
-    for a theta that requires grad, before any of those kernels runs."""
+# ---------------------------------------------------------------------------
+# phase 10.3: the tile engine's gradient (blocked_potrf and mp_syrk under
+# autograd, mp_syrk's backward mp_syrk_grad)
+# ---------------------------------------------------------------------------
+
+def tile_grad_launches(p, fp32_band):
+    """Launches of one value-and-gradient evaluation through the tile engine
+    of p tiles: matern_cov and matern_cov_grad once, blocked_potrf per
+    diagonal tile of an fp32 band (an fp64 band goes to cuSOLVER), mp_syrk
+    and mp_syrk_grad once per step."""
+    return {"matern_cov": 1, "matern_cov_grad": 1,
+            "blocked_potrf": p if fp32_band else 0, "mp_syrk": p - 1,
+            "mp_syrk_grad": p - 1, "mp_attention": 0}
+
+
+def syrk_grad_flops(n_t, nb, t):
+    """(in-band, off-band) flops of mp_syrk_grad on P = (n_t nb, nb), tile =
+    nb: dP = S P, 2 nb flops for each element of the square S; tile row i
+    has min(n_t, i + t) - max(0, i - t + 1) tiles in the band."""
+    band_tiles = sum(min(n_t, i + t) - max(0, i - t + 1) for i in range(n_t))
+    band = 2 * nb * nb * nb * band_tiles
+    return band, 2 * nb * (n_t * nb) ** 2 - band
+
+
+def syrk_grad_bound(n_t, nb, t, pair):
+    """(least ms, bound_by) of mp_syrk_grad on P = (n_t nb, nb) under pair
+    (hi, lo, accum): the band's operations at hi's peak (fp32 67 TFLOP/s,
+    fp64 67 on the tensor cores), the off-band's at lo's (bf16 989 on the
+    tensor cores, fp32 67), on separate units: the larger; against the
+    bytes of dU's lower tiles and P read and dP written, in hi."""
     import torch
-    from repro_torch.core import PrecisionPolicy, geostat_loglik_step, make_loglik
+    hi, lo, _ = pair
+    if lo == hi:  # all-hi: every tile is in the band
+        t = n_t
+    peak = {torch.float32: FP32_FLOPS, torch.float64: FP64_TC_FLOPS,
+            torch.bfloat16: BF16_FLOPS}
+    band_f, off_f = syrk_grad_flops(n_t, nb, t)
+    ops_s = max(band_f / peak[hi], off_f / peak[lo])
+    size = torch.finfo(hi).bits // 8
+    bytes_s = (n_t * (n_t + 1) // 2 * nb * nb + 2 * n_t * nb * nb) * size \
+        / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def syrk_grad_library_ms(g, p, nb, t, pair):
+    """The yardstick: torch.matmul over the same S and P blocks in the same
+    precisions, per tile row its band slab in hi and its two off-band slabs
+    in lo (bf16 products summed in fp32 by cuBLAS, or IEEE fp32), S = L(dU)
+    + L(dU)^T built beforehand in g's place (g is overwritten)."""
+    import torch
+    hi, lo, _ = pair
+    m = p.shape[0]
+    n_t = m // nb
+    t = n_t if lo == hi else t
+    s = g
+    for i in range(n_t):  # S in place: each lower tile row and its mirror
+        r0, r1 = i * nb, (i + 1) * nb
+        s[r0:r1, r1:] = s[r1:, r0:r1].T
+        s[r0:r1, r0:r1] = s[r0:r1, r0:r1] + s[r0:r1, r0:r1].T
+    s_lo, p_lo = (s.to(lo), p.to(lo)) if lo != hi else (None, None)
+
+    def run():
+        for i in range(n_t):
+            rows = slice(i * nb, (i + 1) * nb)
+            b0, b1 = max(0, i - t + 1) * nb, min(n_t, i + t) * nb
+            torch.matmul(s[rows, b0:b1], p[b0:b1])
+            if b0:
+                torch.matmul(s_lo[rows, :b0], p_lo[:b0])
+            if b1 < m:
+                torch.matmul(s_lo[rows, b1:], p_lo[b1:])
+    return time_ms(run)
+
+
+# kernel against plain version, per element of dP, in two parts.  The
+# band: its hi sums in other orders, as a fraction of the band's own scale
+# |S_band| |P| (fp32 measured 5e-7 at 39,936 all-hi rows; a bf16 or TF32
+# band is off by ~1e-4 of it, an fp32 band in place of fp64 by ~1e-7).
+# The off-band: its fp32 (all-fp64: fp64) sums in other orders, as a
+# fraction of its own scale |lo(S_off)| |lo(P)|, each then rounded once to
+# lo, which may round the other way: one lo ulp of the off-band value
+SYRK_GRAD_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-13}
+# (hi, lo) -> the row of mp_syrk_grad in the kernels line
+SYRK_GRAD_ROWS = {("torch.float32", "torch.bfloat16"): "mp_syrk_grad",
+                  ("torch.float64", "torch.float32"): "mp_syrk_grad_fp64"}
+
+
+def _ulp(x, bits):
+    """One ulp of x >= 0 at `bits` significant bits (x in fp64)."""
+    import torch
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - bits)
+
+
+def syrk_grad_err(got, want, g, p, nb, t, pair):
+    """(max |got - want| / tol, max abs err) over dP = mp_syrk_grad(g, p)
+    with tile nb, band t under pair (hi, lo, accum), one tile row at a time
+    in fp64.  Per element tol = SYRK_GRAD_TOL[hi] |S_band| |P| for the band
+    (with lo = hi every tile: one sum), plus for the off-band e = SYRK_GRAD_
+    TOL[accum] |lo(S_off)| |lo(P)| twice and one lo ulp of |off| + e, off
+    its exact value, plus one hi ulp of |dP| twice (the two parts' sum)."""
+    import torch
+    hi, lo, accum = pair
+    f64 = torch.float64
+    m = p.shape[0]
+    n_t = m // nb
+    t = n_t if lo == hi else t
+    bits = {torch.bfloat16: 8, torch.float32: 24, torch.float64: 53}
+    p_hi, p_lo = p.to(f64).abs(), p.to(lo).to(f64)
+    ratio, mx = 0.0, 0.0
+    for i in range(n_t):
+        r0, r1 = i * nb, (i + 1) * nb
+        diag = g[r0:r1, r0:r1]
+        s = torch.cat([g[r0:r1, :r0], diag + diag.T, g[r1:, r0:r1].T], dim=1)
+        b0, b1 = max(0, i - t + 1) * nb, min(n_t, i + t) * nb
+        tol = SYRK_GRAD_TOL[str(hi)] * (s[:, b0:b1].to(f64).abs()
+                                        @ p_hi[b0:b1])
+        if b1 - b0 < m:
+            s_off = s.to(lo).to(f64)
+            s_off[:, b0:b1] = 0
+            e = SYRK_GRAD_TOL[str(accum)] * (s_off.abs() @ p_lo.abs())
+            tol += 2 * e + _ulp((s_off @ p_lo).abs() + e, bits[lo])
+            del s_off, e
+        w = want[r0:r1].to(f64)
+        tol += 2 * _ulp(w.abs(), bits[hi])
+        d = (got[r0:r1].to(f64) - w).abs()
+        ratio = max(ratio, float((d / tol).max()))
+        mx = max(mx, float(d.max()))
+    return ratio, mx
+
+
+def band_only(g, nb, t):
+    """g with every tile at distance >= t from the diagonal set to zero, in
+    place: a dU whose dP is the band's alone."""
+    n_t = g.shape[0] // nb
+    for i in range(n_t):
+        r0, r1 = i * nb, (i + 1) * nb
+        g[r0:r1, :max(0, i - t + 1) * nb] = 0
+        g[r0:r1, min(n_t, i + t) * nb:] = 0
+    return g
+
+
+def check_syrk_grad(gcfg, results):
+    """10.3 (a): mp_syrk_grad against its plain version on the card for the
+    forward's four pairs at (4,096, nb) and at the tile path's step 0 ((p -
+    1) nb, nb), tile nb, band 2, within syrk_grad_err's tolerance: dU
+    random in every tile (its upper tiles must be ignored: the same bits
+    with them zeroed), a second launch the same bits; at step 0 the kernel,
+    plain version and yardstick timed beside the bound; then a dU that is
+    zero off the band, where dP is the band's alone, with a control: the
+    plain version with that band in lo (band_blocks = 0) must fail the same
+    check; then Potrf's backward (torch ops) at B = 1 and 3."""
+    import torch
+    from repro_torch.kernels.blocked_potrf import ops as potrf_ops
+    from repro_torch.kernels.mp_gemm import ops, ref
+    from repro_torch.kernels.mp_gemm.mp_gemm import PAIRS
+    nb, n_obs = gcfg["tile_nb"], gcfg["tile_n"]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    t = 2
+    for pair in PAIRS:
+        hi, lo, accum = pair
+        kw = dict(tile=nb, band_blocks=t, hi=hi, lo=lo, accum=accum)
+        worst, main = 0.0, None
+        for m in dict.fromkeys((min(4_096, n_obs - nb), n_obs - nb)):
+            p = torch.randn((m, nb), generator=gen, device="cuda", dtype=hi)
+            g = torch.randn((m, m), generator=gen, device="cuda", dtype=hi)
+            got = ops.mp_syrk_grad(g, p, **kw)
+            require(torch.equal(got, ops.mp_syrk_grad(g, p, **kw)),
+                    f"mp_syrk_grad {pair} m={m}: two runs differ")
+            lower = (torch.arange(m, device="cuda") // nb)
+            g_low = torch.where(lower[:, None] >= lower[None, :], g, 0)
+            require(torch.equal(got, ops.mp_syrk_grad(g_low, p, **kw)),
+                    f"mp_syrk_grad {pair} m={m}: reads dU's upper tiles")
+            del g_low
+            want = ref.mp_syrk_grad(g, p, **kw)
+            ratio, mx = syrk_grad_err(got, want, g, p, nb, t, pair)
+            require(got.dtype == hi and ratio <= 1.0,
+                    f"mp_syrk_grad {pair} m={m}: {ratio} of the tolerance")
+            worst = max(worst, mx)
+            line = dict(pair=[str(d) for d in pair], m=m, k=nb, tile=nb,
+                        band=t, max_abs_err=mx, err_over_tol=ratio,
+                        tol_band=SYRK_GRAD_TOL[str(hi)],
+                        tol_offband=SYRK_GRAD_TOL[str(accum)])
+            del got, want
+            if m == n_obs - nb:
+                n_t = m // nb
+                band_f, off_f = syrk_grad_flops(n_t, nb, n_t if lo == hi else t)
+                line["ms"] = time_ms(lambda: ops.mp_syrk_grad(g, p, **kw))
+                line["plain_ms"] = time_ms(lambda: ref.mp_syrk_grad(g, p, **kw),
+                                           reps=2)
+                line["bound_ms"], line["bound_by"] = syrk_grad_bound(n_t, nb, t,
+                                                                     pair)
+                line.update(band_gflop=band_f / 1e9, offband_gflop=off_f / 1e9,
+                            tflops=(band_f + off_f) / line["ms"] / 1e9)
+                line["library_ms"] = syrk_grad_library_ms(g, p, nb, t, pair)
+                main = line
+            # the band alone (g is random, or S after the yardstick)
+            g = band_only(g, nb, t)
+            want = ref.mp_syrk_grad(g, p, **kw)
+            ratio, _ = syrk_grad_err(ops.mp_syrk_grad(g, p, **kw), want, g, p,
+                                     nb, t, pair)
+            require(ratio <= 1.0, f"mp_syrk_grad {pair} m={m}: band alone "
+                    f"{ratio} of the tolerance")
+            line["band_only_err_over_tol"] = ratio
+            if lo != hi:
+                lo_band = ref.mp_syrk_grad(g, p, **dict(kw, band_blocks=0))
+                ctrl, _ = syrk_grad_err(lo_band, want, g, p, nb, t, pair)
+                require(ctrl > 1.0, f"mp_syrk_grad {pair} m={m}: a band in lo "
+                        f"passes the check ({ctrl} of the tolerance)")
+                line["lo_band_control_err_over_tol"] = ctrl
+                del lo_band
+            del g, p, want
+            torch.cuda.empty_cache()
+            emit(phase="gradient", step="kernel", kernel="mp_syrk_grad", **line)
+        # the kernels line: the two pairs of the path, (fp32, bf16) and the
+        # paper's (fp64, fp32); the all-hi pairs are in the lines above
+        key = SYRK_GRAD_ROWS.get((str(hi), str(lo)))
+        if key:
+            results.setdefault(key, {}).update(
+                name=key.replace("_fp64", " (fp64, fp32)"), route="cuda",
+                source="src/repro_torch/csrc/mp_syrk.cu",
+                replaces="src/repro/kernels/mp_gemm/mp_gemm.py:52",
+                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"])
+    # Potrf's backward: torch ops on the factor, no kernel of its own
+    for dtype in (torch.float32, torch.float64):
+        for batch in (1, 3):
+            a = spd_batch(gen, batch, nb).to(dtype)
+            l = torch.linalg.cholesky(a)
+            gl = torch.randn(l.shape, generator=gen, device="cuda", dtype=dtype)
+            ms = time_ms(lambda: potrf_ops.cholesky_backward(gl, l))
+            flops = batch * 2 * nb ** 3  # the product and two solves
+            emit(phase="gradient", step="kernel", kernel="Potrf backward",
+                 dtype=str(dtype), batch=batch, nb=nb, ms=ms,
+                 tflops=flops / ms / 1e9)
+            del a, l, gl
+
+
+# a tile-path value-and-gradient evaluation, kernel path against plain
+# path, by policy: (|ll| relative, each gradient component's gap over its
+# scale s_k = sum |G| dSigma/dtheta_k, G = dl/dSigma, the terms the
+# gradient sums; ROADMAP C 13).  The log-likelihood's are phases 8.1's and
+# 9.1's; the gradient's were measured 1.6e-6 (tpu(2)) and 2.1e-11
+# (paper_cpu(2)) at n_obs = 5,120, nb = 128, and 1.7e-7 (tpu(2)) at 40,960:
+# a bf16 rounding that flips between the paths moves tpu(2)'s gradient by
+# up to 12 % of its own size there, since it is a small difference of
+# terms of size s_k.  full(fp32) through the tiles has no such rounding
+# (measured 1.8e-10 and 6.9e-11 at 40,960, ll 1.9e-7): its 1e-8 of s_k,
+# 0.26 and 16.4 against a gradient of (-38.4, 873.6), fails a zero or
+# wrong-signed gradient through blocked_potrf, Potrf's backward and the
+# all-fp32 mp_syrk_grad
+TILE_GRAD_TOL = {"tpu(2)": (1e-3, 1e-5), "full(fp32)": (1e-5, 1e-8),
+                 "paper_cpu(2)": (1e-5, 1e-8)}
+
+
+def _grad_scale(locs, z, pol, theta, nb):
+    """s_k = sum |G| dSigma/dtheta_k for k = 1, 2, with G = dl/dSigma of the
+    kernel path's tile engine at theta (as make_loglik builds Sigma)."""
+    import torch
+    from repro_torch.core import (build_covariance, loglik_from_factor,
+                                  tile_cholesky)
+    from repro_torch.kernels.matern_cov import ops
+    th = [float(v) for v in theta]
+    cov = build_covariance(locs, th, nu_static=0.5, jitter=1e-6,
+                           dtype=pol.hi).requires_grad_(True)
+    ll = loglik_from_factor(tile_cholesky(cov, nb, pol), z)
+    (g_cov,) = torch.autograd.grad(ll, cov)
+    del cov, ll
+    return ops.matern_cov_grad(locs, locs, th, g_cov.abs(), nu=0.5).tolist()
+
+
+def tile_grad_evaluation(label, locs, z, pol, theta, nb, results, key):
+    """10.3 (b): one value-and-gradient evaluation through the tile engine at
+    theta, through the kernels (after one warm-up) and through the plain
+    versions: exact launch counts, the log-likelihood equal to the no-grad
+    one bit for bit, gradients finite and kernel against plain within
+    TILE_GRAD_TOL, seconds forward and backward, peak, and the kernel path
+    under the profiler."""
+    import torch
+    from repro_torch.core import make_loglik
+    p = locs.shape[0] // nb
+    expected = tile_grad_launches(p, pol.hi == torch.float32)
+    out = {}
+    for impl in ("kernel", "plain"):
+        fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5, use_tiles=True,
+                         impl=impl)
+        if impl == "kernel":  # a warm-up: the first maps the allocator's memory
+            _value_and_grad(fn, theta)
+        out[impl] = _value_and_grad(fn, theta)
+    (a, ga, fa, ba, pa, ca), (b, gb, fb, bb, pb, cb) = out["kernel"], out["plain"]
+    require(ca == expected, f"{label}: launches {ca}, expected {expected}")
+    require(sum(cb.values()) == 0, f"{label}: plain path launched {cb}")
+    fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5, use_tiles=True)
+    with torch.no_grad():  # the same fp32 theta, no autograd
+        no_grad = float(fn(torch.tensor(theta, dtype=torch.float32)))
+    require(a == no_grad, f"{label}: ll {a} with grad, {no_grad} without")
+    scale = _grad_scale(locs, z, pol, theta, nb)
+    ll_tol, tol = TILE_GRAD_TOL[label]
+    gap = [abs(x - y) / s for x, y, s in zip(ga, gb, scale)]
+    require(math.isfinite(a) and all(map(math.isfinite, ga)) and ga[2] == 0.0
+            and abs(a - b) <= ll_tol * abs(b) and max(gap) <= tol,
+            f"{label}: kernel {a} {ga} vs plain {b} {gb}, gap {gap} of {scale}")
+    wall_ms, busy, rows = device_profile(lambda: _value_and_grad(fn, theta))
+    emit(phase="gradient", step="tile evaluation", policy=label,
+         n=locs.shape[0], nb=nb, theta=list(theta), loglik_kernel=a,
+         loglik_plain=b, loglik_no_grad=no_grad, grad_kernel=ga,
+         grad_plain=gb, grad_scale=scale, grad_gap_over_scale=gap,
+         grad_err_over_max=max(abs(x - y) for x, y in zip(ga, gb))
+         / max(abs(v) for v in gb), tol=tol, loglik_tol=ll_tol,
+         seconds_forward_kernel=fa,
+         seconds_backward_kernel=ba, seconds_forward_plain=fb,
+         seconds_backward_plain=bb, peak_gib_kernel=pa, peak_gib_plain=pb,
+         launches_kernel=ca, wall_ms=wall_ms, device_busy_ms=busy,
+         idle_share=1 - busy / wall_ms,
+         mp_syrk_grad_device_ms=sum(ms for k, _, ms in rows
+                                    if "mp_syrk_grad_kernel" in k),
+         top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:12]])
+    if key:
+        results.setdefault(key, {})["launches"] = ca["mp_syrk_grad"]
+    return dict(ll=a, grad=ga, scale=scale, seconds=fa + ba, peak=pa)
+
+
+def tile_gradient(gcfg, weak, fp64_field, n64, results):
+    """10.3 (b): tpu(2) and tiled full(fp32) on phase 8's weak field (fp32)
+    and paper_cpu(2) on phase 9's fp64 field at tile_n, nb = tile_nb; the
+    pair's n cut to a multiple of 1,024 if its predicted peak (twice
+    tpu(2)'s, scaled by n^2) passes peak_gib; its gradient against dense full(fp64)'s at the same
+    theta and n (10.1's fp64 n where that is smaller)."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, make_loglik
+    nb, n = gcfg["tile_nb"], gcfg["tile_n"]
+    (locs, z), (locs64, z64) = weak, fp64_field
+    locs, z = locs[:n].contiguous(), z[:n].contiguous()
+    tpu = tile_grad_evaluation("tpu(2)", locs, z, PrecisionPolicy.tpu(2), WEAK,
+                               nb, results, "mp_syrk_grad")
+    torch.cuda.empty_cache()
+    tile_grad_evaluation("full(fp32)", locs, z,
+                         PrecisionPolicy.full(torch.float32), WEAK, nb,
+                         results, None)
+    torch.cuda.empty_cache()
+    n_pair = fp64_grad_n(n, tpu["peak"], gcfg["peak_gib"])
+    emit(phase="gradient", step="paper pair size", n_obs=n, n=n_pair,
+         peak_gib_tpu2=tpu["peak"], predicted_peak_gib=2 * tpu["peak"] * (
+             n_pair / n) ** 2, limit_gib=gcfg["peak_gib"])
+    pol = PrecisionPolicy.paper_cpu(2)
+    pair = tile_grad_evaluation("paper_cpu(2)", locs64[:n_pair].contiguous(),
+                                z64[:n_pair].contiguous(), pol, MEDIUM, nb,
+                                results, "mp_syrk_grad_fp64")
+    require(pair["peak"] <= gcfg["peak_gib"] + 1,
+            f"paper_cpu(2) peak {pair['peak']} GiB")
+    # against dense full(fp64) at the same theta and n
+    n_cmp = min(n_pair, n64)
+    lc, zc = locs64[:n_cmp].contiguous(), z64[:n_cmp].contiguous()
+    if n_cmp != n_pair:
+        grad = _value_and_grad(make_loglik(lc, zc, pol, nb=nb, nu_static=0.5),
+                               MEDIUM)[1]
+    else:
+        grad = pair["grad"]
+    torch.cuda.empty_cache()
+    dense = _value_and_grad(make_loglik(lc, zc, PrecisionPolicy.full(
+        torch.float64), nu_static=0.5), MEDIUM)[1]
+    torch.cuda.empty_cache()
+    emit(phase="gradient", step="paper pair vs full(fp64)", n=n_cmp,
+         theta=list(MEDIUM), grad_paper=grad, grad_full_fp64=dense,
+         rel_gap=[abs(x - y) / abs(y) for x, y in zip(grad[:2], dense[:2])],
+         gap_over_scale=[abs(x - y) / s for x, y, s in zip(
+             grad, dense, pair["scale"])] if n_cmp == n_pair else None)
+    return tpu["seconds"], pair["seconds"]
+
+
+def tile_grad_adam(gcfg):
+    """10.3 (c): fit_mle_adam through the tiles under the paper pair (120
+    steps at lr 0.05 from 0.8 theta0) at n = adam_n, nb = tile_nb, on phase
+    6's field in fp64, against fit_mle on the same likelihood: theta2-hat
+    within rel 0.1 (tests/test_mle_kriging.py:66)."""
+    import torch
+    from repro_torch.core import (PrecisionPolicy, fit_mle, fit_mle_adam,
+                                  make_loglik)
+    from repro_torch.covariance import make_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    nb, steps = gcfg["tile_nb"], gcfg["adam_steps"]
+    gen = torch.Generator(device="cuda").manual_seed(1)  # phase 6's field
+    ds = make_dataset(gen, gcfg["adam_n"], MEDIUM, nu_static=0.5)
+    locs, z = ds.locs.double(), ds.z.double()
+    p = locs.shape[0] // nb
+    ll = make_loglik(locs, z, PrecisionPolicy.paper_cpu(2), nb=nb,
+                     nu_static=0.5)
+    nu = torch.tensor([0.5])
+    start = [0.8 * MEDIUM[0], 0.8 * MEDIUM[1]]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit_mle_adam(lambda th: ll(torch.cat([th, nu])), start, steps=steps,
+                       lr=gcfg["adam_lr"])
+    adam_s = time.perf_counter() - t0
+    counts = launch_counts()
+    # each step one evaluation and its gradient, then one final evaluation
+    require(counts["mp_syrk_grad"] == steps * (p - 1)
+            and counts["mp_syrk"] == (steps + 1) * (p - 1)
+            and counts["matern_cov_grad"] == steps
+            and counts["blocked_potrf"] == 0, f"tile Adam launches {counts}")
+    t0 = time.perf_counter()
+    nm = fit_mle(lambda th: ll([th[0], th[1], 0.5]), start,
+                 max_iters=gcfg["nm_iters"])
+    nm_s = time.perf_counter() - t0
+    rel = abs(float(res.theta[1]) - nm.theta[1]) / nm.theta[1]
+    require(math.isfinite(res.loglik) and rel <= 0.1,
+            f"tile Adam theta2 {res.theta[1]} vs Nelder-Mead {nm.theta[1]}")
+    emit(phase="gradient", step="tile adam", policy="paper_cpu(2)",
+         n=locs.shape[0], nb=nb, start=start, steps=steps, lr=gcfg["adam_lr"],
+         theta_adam=res.theta.tolist(), loglik_adam=res.loglik,
+         history=[(h[0].tolist(), h[1]) for h in res.history],
+         seconds_adam=adam_s, seconds_per_step=adam_s / steps,
+         theta_nm=nm.theta.tolist(), loglik_nm=nm.loglik, nm_evals=nm.n_evals,
+         seconds_nm=nm_s, theta2_rel_gap=rel, tol=0.1, launches_adam=counts)
+
+
+def panel_refusal(locs, z):
+    """10.3 (d): geostat_loglik_step (the panel engine) raises for a theta
+    that requires grad, through the kernels and the plain versions, before
+    any kernel runs."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, geostat_loglik_step
     from repro_torch.kernels import launch_counts, reset_launch_counts
     n, nb, pol = 2_048, 256, PrecisionPolicy.tpu(2)
     th = torch.tensor(list(WEAK), requires_grad=True)
-    calls = {
-        "tile_cholesky (make_loglik, tpu(2))": lambda: make_loglik(
-            locs[:n], z[:n], pol, nb=nb, nu_static=0.5)(th),
-        "geostat_loglik_step (tpu(2))": lambda: geostat_loglik_step(
-            locs[:n], z[:n], th, nb=nb, policy=pol, nu_static=0.5)}
     reset_launch_counts()
-    for what, call in calls.items():
+    for impl in ("kernel", "plain"):
         try:
-            call()
+            geostat_loglik_step(locs[:n], z[:n], th, nb=nb, policy=pol,
+                                nu_static=0.5, impl=impl)
         except NotImplementedError as e:
-            emit(phase="gradient", step="refused", what=what,
-                 error=type(e).__name__, message=str(e)[:160])
+            emit(phase="gradient", step="refused", what="geostat_loglik_step",
+                 impl=impl, error=type(e).__name__, message=str(e)[:160])
         else:
-            raise AssertionError(f"{what}: a theta that requires grad ran")
+            raise AssertionError(f"geostat_loglik_step ({impl}): a theta "
+                                 "that requires grad ran")
     counts = launch_counts()
-    require(counts["blocked_potrf"] == counts["mp_syrk"]
-            == counts["matern_cov_grad"] == 0, f"guard launches {counts}")
+    require(sum(counts.values()) == 0, f"refusal launches {counts}")
 
 
 def gradient(gcfg, weak, fp64_field, results):
@@ -2502,7 +2934,11 @@ def gradient(gcfg, weak, fp64_field, results):
                      results, "matern_cov_grad_fp64")
     require(peak64 <= gcfg["peak_gib"] + 1, f"full(fp64) peak {peak64} GiB")
     step("10.2 Adam", gradient_adam, gcfg, locs, z, t_eval)
-    step("10.3 guard", gradient_guard, locs, z)
+    step("10.3a mp_syrk_grad", check_syrk_grad, gcfg, results)
+    step("10.3b tile gradient", tile_gradient, gcfg, weak, fp64_field, n64,
+         results)
+    step("10.3c tile Adam", tile_grad_adam, gcfg)
+    step("10.3d panel refusal", panel_refusal, locs, z)
     emit(phase="gradient", step="seconds", **secs)
 
 
@@ -2544,12 +2980,18 @@ def e2e_times(src):
     from repro_torch.kernels import _build
     _build.library()
     cfg = GEOSTAT_CONFIGS["geostat_65k"]
-    secs, runs = {}, {}
+    secs, runs, peaks = {}, {}, {}
+
+    def timed(key, fn):  # median seconds, runs and peak GiB of fn
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs[key], runs[key] = _median_seconds(fn)
+        peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 30
     gen = torch.Generator(device="cuda").manual_seed(0)
     ds = make_dataset(gen, cfg.n, WEAK, nu_static=cfg.nu)
     th0 = [float(v) for v in ds.theta0.tolist()]
     pol = PrecisionPolicy.tpu(cfg.diag_thick)
-    secs["4"], runs["4"] = _median_seconds(lambda: float(geostat_loglik_step(
+    timed("4", lambda: float(geostat_loglik_step(
         ds.locs, ds.z, th0, nb=cfg.nb, policy=pol, nu_static=cfg.nu,
         off_update=cfg.off_update)))
     del ds
@@ -2563,13 +3005,13 @@ def e2e_times(src):
     p = fcfg["n_obs"] // fcfg["nb"]
     fn = make_loglik(locs, z, PrecisionPolicy.from_dp_percent(p, 0.10),
                      nb=fcfg["nb"], nu_static=0.5)
-    secs["8.1"], runs["8.1"] = _median_seconds(lambda: float(fn(list(WEAK))))
+    timed("8.1", lambda: float(fn(list(WEAK))))
     fn = make_loglik(locs, z, PrecisionPolicy.full(torch.float32), nu_static=0.5)
 
     def value_and_grad():
         th = torch.tensor(WEAK, dtype=torch.float32, requires_grad=True)
         torch.autograd.grad(fn(th), th)
-    secs["10.1"], runs["10.1"] = _median_seconds(value_and_grad)
+    timed("10.1", value_and_grad)
     del fn, locs, z
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -2577,9 +3019,9 @@ def e2e_times(src):
     p = PAPER["n_obs"] // PAPER["nb"]
     fn = make_loglik(locs, z, PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu"),
                      nb=PAPER["nb"], nu_static=0.5)
-    secs["9.1"], runs["9.1"] = _median_seconds(lambda: float(fn(list(MEDIUM))))
+    timed("9.1", lambda: float(fn(list(MEDIUM))))
     emit(phase="e2e", src=str(Path(repro_torch.__file__).parents[1]),
-         library=str(_build.build()), seconds=secs, runs=runs)
+         library=str(_build.build()), seconds=secs, runs=runs, peak_gib=peaks)
 
 
 def e2e_ab(other):
@@ -2606,7 +3048,10 @@ def e2e_ab(other):
         summary[ph] = dict(other=by["other"], this=by["this"],
                            this_over_other=statistics.mean(by["this"])
                            / statistics.mean(by["other"]),
-                           spread=spread)
+                           spread=spread, peak_gib={
+                               v: max(ln["peak_gib"][ph] for ln in lines
+                                      if ln["version"] == v)
+                               for v in ("other", "this")})
     emit(phase="e2e_ab", other=str(other), summary=summary)
 
 

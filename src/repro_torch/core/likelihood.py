@@ -156,7 +156,8 @@ def make_factor_fn(locs, policy: PrecisionPolicy, *, nb: int = 128,
     `make_loglik`, kriging and the batch engine's fused evaluate.  Not
     applicable to mode="dst" (block factors; see `dst_cholesky`).  `impl`
     picks kernels or plain versions for the covariance and the tile
-    engine (see `tile_cholesky`).
+    engine (see `tile_cholesky`).  A theta that requires grad gives a
+    differentiable factor on either path.
     """
     if policy.mode == "dst":
         raise ValueError("dst mode factors independent blocks; "

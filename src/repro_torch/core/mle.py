@@ -210,7 +210,8 @@ def fit_mle_adam(loglik_fn: Callable, theta0, *, steps: int = 150,
                  lr: float = 0.05) -> MLEResult:
     """Gradient MLE: Adam on -loglik(exp(x)) with the gradient from autograd
     through the factorization (beyond-paper path; needs a differentiable
-    evaluation: the dense path on the card, see `likelihood.matern_block`).
+    evaluation: `make_loglik`, dense or through the tile engine, whose
+    kernels have backwards on the card; not `geostat_loglik_step`).
 
     loglik_fn: theta (an fp32 tensor that requires grad) -> log-likelihood
     (a 0-d tensor on any device).  x starts at log(theta0) in fp32 on the

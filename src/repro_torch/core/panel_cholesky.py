@@ -30,18 +30,25 @@ positive definite raises a flag on the device (no host sync per step), and
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from ..kernels.blocked_potrf import ops as potrf_ops, ref as potrf_ref
 from ..kernels.matern_cov import ops as matern_ops, ref as matern_ref
-from ..kernels.mp_gemm import ops as syrk_ops, ref as syrk_ref
+from ..kernels.mp_gemm import ops as syrk_ops
 from .precision import PrecisionPolicy, lo_matmul, require_ieee_fp32
 
+# (matern_cov module, POTRF, SYRK) of each impl.  Under autograd the kernel
+# POTRF differentiates through `Potrf` and the plain one through autograd;
+# the SYRK of either through `MpSyrk`, whose backward is the mp_syrk_grad
+# kernel with "kernel" on a CUDA tensor and its plain version otherwise
+# (autograd through ref.mp_syrk would clone U's whole gradient per tile row)
 _IMPLS = {
     "kernel": (matern_ops, potrf_ops.potrf, syrk_ops.mp_syrk),
-    "plain": (matern_ref, potrf_ref.potrf, syrk_ref.mp_syrk),
+    "plain": (matern_ref, potrf_ref.potrf,
+              functools.partial(syrk_ops.mp_syrk, plain=True)),
 }
 
 
@@ -269,17 +276,17 @@ def geostat_loglik_step(locs, z, theta, *, nb: int, policy: PrecisionPolicy,
 
     Computes on the device of `locs` and returns a 0-d tensor there.  This
     is the unit the paper benchmarks ("time per iteration").  It is not
-    differentiable: the kernels take theta as host numbers and factor in
-    place, so on the card with impl="kernel" a theta (or locs, z) that
-    requires grad raises rather than return a log-likelihood without its
-    graph.
+    differentiable, on either device and for either impl: it builds Sigma
+    from theta as host numbers and factors in place, so a theta (or locs,
+    z) that requires grad raises rather than return a log-likelihood
+    without its graph.  `make_loglik` differentiates (dense or through the
+    tile engine).
     """
-    if impl == "kernel" and locs.is_cuda and _requires_grad(locs, z, theta):
+    if _requires_grad(locs, z, theta):
         raise NotImplementedError(
-            "geostat_loglik_step on the card has no backward: its kernels "
-            "(matern_cov launched with host theta, blocked_potrf, mp_syrk) "
-            "are forward-only; use the dense make_loglik path "
-            "(ROADMAP A 11: the tile engine's backward on the card)")
+            "geostat_loglik_step has no backward: it builds Sigma from theta "
+            "as host numbers and factors in place; use make_loglik, dense or "
+            "through the tiles (ROADMAP A 12: the panel engine's gradient)")
     require_ieee_fp32()
     band, off = build_banded_covariance(locs, theta, nb=nb, policy=policy,
                                         nu_static=nu_static, metric=metric,

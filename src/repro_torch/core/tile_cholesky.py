@@ -46,13 +46,21 @@ band to `torch.linalg.cholesky_ex`.  The SYRK kernel takes the pairs
 nb a multiple of 64; other inputs raise on a CUDA tensor with
 impl="kernel".  A factor tile that is not positive definite comes back all
 NaN from either POTRF, and the NaN reaches the log-likelihood.
+
+A matrix that requires grad (with grad mode on) is differentiated through
+the same forward: `blocked_potrf` through `Potrf` (each tile's Cholesky
+backward in torch ops), the plain POTRF and `cholesky_ex` through autograd,
+and the SYRK through `MpSyrk`, whose backward is the
+`mp_syrk_grad` kernel on a CUDA tensor with impl="kernel" and its plain
+version otherwise.  The values and launches of the forward are those
+without autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .panel_cholesky import _cholesky, _impl, _potrf, _requires_grad
+from .panel_cholesky import _cholesky, _impl, _potrf
 from .precision import PrecisionPolicy, require_ieee_fp32
 
 
@@ -124,19 +132,60 @@ def _column_runs(policy: PrecisionPolicy, k: int, p: int):
     return [r for r in runs if r[0] < r[1]]
 
 
+class _Cut(torch.autograd.Function):
+    """x's blocks [(r0, r1, c0, c1)] over its last two axes, each a view of
+    x or, where dtypes gives one, a copy in that dtype; differentiable in x.
+    The backward writes every block's gradient into one zero tensor of x's
+    shape.  A slice per block would give a zero tensor of all of x per
+    block instead, and a split per axis a tensor per row besides.
+
+        _Cut.apply(x, blocks, dtypes)
+    """
+
+    @staticmethod
+    def forward(ctx, x, blocks, dtypes):
+        ctx.blocks, ctx.like, ctx.shape = blocks, x.new_empty(0), x.shape
+        return tuple(
+            x[..., r0:r1, c0:c1] if dt is None
+            else x[..., r0:r1, c0:c1].to(dt, copy=True)
+            for (r0, r1, c0, c1), dt in zip(blocks,
+                                            dtypes or [None] * len(blocks)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = ctx.like.new_zeros(ctx.shape)
+        for (r0, r1, c0, c1), gr in zip(ctx.blocks, grads):
+            g[..., r0:r1, c0:c1].copy_(gr)
+        return g, None, None
+
+
+class _Assemble(torch.autograd.Function):
+    """A zero tensor of `shape` in `dtype` with each piece written into its
+    block [(r0, r1, c0, c1)] over the last two axes; differentiable in the
+    pieces, each of whose gradients is a view of the output's.
+
+        _Assemble.apply(shape, dtype, blocks, *pieces)
+    """
+
+    @staticmethod
+    def forward(ctx, shape, dtype, blocks, *pieces):
+        ctx.blocks, ctx.dtypes = blocks, [x.dtype for x in pieces]
+        out = pieces[0].new_zeros(shape, dtype=dtype)
+        for (r0, r1, c0, c1), x in zip(blocks, pieces):
+            out[..., r0:r1, c0:c1] = x
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None) + tuple(
+            g[..., r0:r1, c0:c1].to(dt)
+            for (r0, r1, c0, c1), dt in zip(ctx.blocks, ctx.dtypes))
+
+
 def _check_card(a, nb, impl):
     """mp_syrk takes nb % 64 == 0; say so before any work instead of deep
-    inside a step.  blocked_potrf and mp_syrk have no backward: a matrix
-    that autograd records raises here, where the kernels' outputs would
-    otherwise drop its gradient's branches through them without a word."""
-    if not (a.is_cuda and impl == "kernel"):
-        return
-    if _requires_grad(a):
-        raise NotImplementedError(
-            "tile_cholesky on the card has no backward: blocked_potrf and "
-            "mp_syrk are forward-only (ROADMAP A 11: the tile engine's "
-            "backward on the card); use the dense path for gradients")
-    if nb % 64:
+    inside a step."""
+    if a.is_cuda and impl == "kernel" and nb % 64:
         raise ValueError(f"tile_cholesky on the card: nb={nb} must be a "
                          "multiple of 64 (mp_syrk's tile)")
 
@@ -171,9 +220,15 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
 
     # initial storage conversion (lines 2-6, dlag2s on off-band tiles):
     # runs[i] = [(j0, j1, dtype, (B, nb, (j1 - j0) nb) tensor)]
-    runs = [[(j0, j1, dt, a[:, i * nb:(i + 1) * nb, j0 * nb:j1 * nb].to(
-                dt, copy=True))
-             for j0, j1, dt in _row_runs(policy, i)] for i in range(p)]
+    spans = [(i, j0, j1, dt) for i in range(p)
+             for j0, j1, dt in _row_runs(policy, i)]
+    pieces = _Cut.apply(a, [(i * nb, (i + 1) * nb, j0 * nb, j1 * nb)
+                            for i, j0, j1, _ in spans],
+                        [dt for *_, dt in spans])
+    runs = [[] for _ in range(p)]
+    for (i, j0, j1, dt), piece in zip(spans, pieces):
+        runs[i].append((j0, j1, dt, piece))
+    del pieces
 
     def tile(i, j):
         for j0, j1, _, run in runs[i]:
@@ -198,8 +253,10 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
             else:                                   # line 14: strsm
                 x = _trsm_right_lt(l_kk_lo, panel.to(lo),
                                    policy.solve_dtype, dt)
-            for r, i in enumerate(range(r0, r1)):
-                tile(i, k).copy_(x[:, r])
+            # unbind, not an index per tile: under autograd an index's
+            # backward is a zero tensor of all of x
+            for i, x_i in zip(range(r0, r1), x.unbind(1)):
+                tile(i, k).copy_(x_i)
             cols.append(x.to(hi))                   # line 15: sconv2d
 
         # trailing update (lines 19, 25, 27): one SYRK per candidate over
@@ -207,29 +264,32 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
         m_t = p - k - 1
         col = torch.cat(cols, dim=1).reshape(b_count, m_t * nb, nb)
         band = min(policy.diag_thick, m_t)
-        for b in range(b_count):
-            u = syrk(col[b], tile=nb, round_k=nb, band_blocks=band, hi=hi,
+        for b, col_b in enumerate(col.unbind(0)):
+            u = syrk(col_b, tile=nb, round_k=nb, band_blocks=band, hi=hi,
                      lo=lo, accum=policy.accum_dtype)
-            for i in range(k + 1, p):
-                rows = u[(i - k - 1) * nb:(i - k) * nb]
-                for j0, j1, dt, run in runs[i]:
-                    js, je = max(j0, k + 1), min(j1, i + 1)
-                    if js >= je:
-                        continue
-                    dst = run[b, :, (js - j0) * nb:(je - j0) * nb]
-                    blk = rows[:, (js - k - 1) * nb:(je - k - 1) * nb]
-                    if dt == hi:                    # lines 19, 25
-                        dst.sub_(blk)
-                    elif dt == lo:                  # line 27, lo storage
-                        dst.sub_(blk.to(lo))
-                    else:                           # line 27, lo2 storage
-                        dst.copy_(dst.to(lo) - blk.to(lo))
-            del u
+            # each run's share of tiles k + 1 .. i of U's row i
+            spans = [(i, j0, dt, run, max(j0, k + 1), min(j1, i + 1))
+                     for i in range(k + 1, p) for j0, j1, dt, run in runs[i]]
+            spans = [sp for sp in spans if sp[4] < sp[5]]
+            blks = _Cut.apply(
+                u, [((i - k - 1) * nb, (i - k) * nb, (js - k - 1) * nb,
+                     (je - k - 1) * nb) for i, _, _, _, js, je in spans],
+                None)
+            for (i, j0, dt, run, js, je), blk in zip(spans, blks):
+                dst = run[b, :, (js - j0) * nb:(je - j0) * nb]
+                if dt == hi:                        # lines 19, 25
+                    dst.sub_(blk)
+                elif dt == lo:                      # line 27, lo storage
+                    dst.sub_(blk.to(lo))
+                else:                               # line 27, lo2 storage
+                    dst.copy_(dst.to(lo) - blk.to(lo))
+            del u, blks
 
-    out = torch.zeros((b_count, n, n), dtype=hi, device=a.device)
-    for i in range(p):
-        for j0, j1, _, run in runs[i]:
-            out[:, i * nb:(i + 1) * nb, j0 * nb:j1 * nb] = run
+    spans = [(i, j0, j1, run) for i in range(p) for j0, j1, _, run in runs[i]]
+    out = _Assemble.apply((b_count, n, n), hi,
+                          [(i * nb, (i + 1) * nb, j0 * nb, j1 * nb)
+                           for i, j0, j1, _ in spans],
+                          *[run for *_, run in spans])
     return out.tril_().reshape(batch + (n, n))
 
 

@@ -842,6 +842,151 @@ cudaError_t launch_fp64_hi(const double* p, float* scratch, double* out, int m, 
                      g);
 }
 
+
+// ---- the backward: dP = S P, S = L(dU) + L(dU)^T --------------------------
+// One block of kGradThreads computes one 64 x 64 tile of dP (m x kdim):
+// rows r0.., columns c0.., each thread 4 x 4 outputs (rows ty * 4 + i,
+// columns tx * 4 + j).  It walks the m axis (j) in chunks of GradStage::GK
+// (32 floats or 16 doubles), each inside one tile of j since GK divides the
+// tile.  The chunk's S comes from dU by tile order: below the block's tile
+// row dU[r][j] (staged transposed), above it dU[j][r], in the diagonal tile
+// dU[r][j] + dU[j][r] summed in hi; only lower tiles of dU are read.
+// Chunks off the band are one range of j on each side of it: S and P
+// rounded to lo (bf16 or fp32) into fp32 accumulators, products exact for
+// bf16 operands; the band's chunks in hi arithmetic (IEEE fp32 FMA, or fp64
+// FMA), then out = hi(band) + hi(lo(off)), the off-band sum rounded once,
+// as ref.mp_syrk_grad.  The next chunk is loaded into registers while the
+// current one's FMAs run, two shared-memory stages in turn.
+constexpr int kGradThreads = 256;
+
+template <typename T>
+struct GradStage {
+  static constexpr int GK = 128 / sizeof(T);     // chunk of the m axis
+  static constexpr int LD = 64 + 16 / sizeof(T);  // rows stay 16-byte aligned
+  T s[GK][LD];                                    // S^T: [j][r]
+  T p[GK][LD];                                    // P:   [j][c]
+};
+
+__device__ __forceinline__ void ld4(const float* src, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void ld4(const double* src, double (&v)[4]) {
+  const double2 x = *reinterpret_cast<const double2*>(src);
+  const double2 y = *reinterpret_cast<const double2*>(src + 2);
+  v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
+}
+__device__ __forceinline__ void st4(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* dst, const double (&v)[4]) {
+  *reinterpret_cast<double2*>(dst) = make_double2(v[0], v[1]);
+  *reinterpret_cast<double2*>(dst + 2) = make_double2(v[2], v[3]);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+// acc += S[r0 + .., j0 .. j1) P[j0 .. j1, c0 + ..) in C arithmetic, each
+// operand converted by cvt (hi -> C).  j0 and j1 are multiples of the tile;
+// returns with every thread past its last shared-memory read.
+template <typename C, typename Hi, typename Cvt>
+__device__ __forceinline__ void grad_range(C (&acc)[4][4], const Hi* __restrict__ g,
+                                           const Hi* __restrict__ p, int m, int kdim, int tile,
+                                           int r0, int c0, int j0, int j1, GradStage<C>* st,
+                                           Cvt cvt) {
+  using S = GradStage<C>;
+  constexpr int GK = S::GK;
+  constexpr int PER = 64 * GK / kGradThreads;  // values of each operand a thread stages
+  const int n = (j1 - j0) / GK;
+  if (n <= 0) return;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int ti = r0 / tile;
+  Hi rs[PER], rp[PER];
+  bool upper = false;
+  auto load = [&](int jc) {
+    const int tj = jc / tile;
+    upper = tj > ti;
+#pragma unroll
+    for (int l = 0; l < PER; ++l) {
+      const int idx = tid + l * kGradThreads;
+      rp[l] = p[static_cast<long long>(jc + idx / 64) * kdim + c0 + idx % 64];
+      if (upper) {  // dU[j][r], r fastest
+        rs[l] = g[static_cast<long long>(jc + idx / 64) * m + r0 + idx % 64];
+      } else {      // dU[r][j], j fastest; + dU[j][r] in the diagonal tile
+        const int r = idx / GK, j = idx % GK;
+        rs[l] = g[static_cast<long long>(r0 + r) * m + jc + j];
+        if (tj == ti) rs[l] += g[static_cast<long long>(jc + j) * m + r0 + r];
+      }
+    }
+  };
+  auto stage = [&](S& sm) {
+#pragma unroll
+    for (int l = 0; l < PER; ++l) {
+      const int idx = tid + l * kGradThreads;
+      sm.p[idx / 64][idx % 64] = cvt(rp[l]);
+      if (upper) sm.s[idx / 64][idx % 64] = cvt(rs[l]);
+      else sm.s[idx % GK][idx / GK] = cvt(rs[l]);
+    }
+  };
+  load(j0);
+  stage(st[0]);
+  __syncthreads();
+  for (int q = 0; q < n; ++q) {
+    if (q + 1 < n) load(j0 + (q + 1) * GK);  // in flight during the FMAs below
+    const S& cur = st[q & 1];
+#pragma unroll 8
+    for (int j = 0; j < GK; ++j) {
+      C a[4], b[4];
+      ld4(&cur.s[j][ty * 4], a);
+      ld4(&cur.p[j][tx * 4], b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fma_rn(a[i], b[jj], acc[i][jj]);
+    }
+    // the other stage was last read before the previous barrier
+    if (q + 1 < n) stage(st[(q + 1) & 1]);
+    __syncthreads();
+  }
+}
+
+// dP = S P for one pair: Hi the hi type, BF16 whether lo is bf16 (else lo is
+// fp32: the paper pair; the all-hi pairs have no off-band chunk).  Two
+// blocks per SM, so 16 warps an SM hide the staging loads' latency: 128
+// registers a thread, of which ptxas spills a few (~200 bytes); unbounded
+// it takes 208-230 registers, one block per SM
+template <typename Hi, bool BF16>
+__global__ void __launch_bounds__(kGradThreads, 2)
+mp_syrk_grad_kernel(const Hi* __restrict__ g, const Hi* __restrict__ p, Hi* __restrict__ dp,
+                    int m, int kdim, int tile, int band) {
+  constexpr size_t kStage = sizeof(GradStage<float>) > sizeof(GradStage<Hi>)
+                                ? sizeof(GradStage<float>) : sizeof(GradStage<Hi>);
+  __shared__ __align__(16) unsigned char smem[2 * kStage];
+  const int r0 = blockIdx.y * 64, c0 = blockIdx.x * 64;
+  const int ti = r0 / tile, n_tiles = m / tile;
+  const int b0 = max(0, ti - band + 1) * tile, b1 = min(n_tiles, ti + band) * tile;
+  auto to_lo = [](Hi x) -> float {
+    if constexpr (BF16) return round_bf16(x);
+    else return static_cast<float>(x);  // round to nearest
+  };
+  float off[4][4] = {};
+  auto* st32 = reinterpret_cast<GradStage<float>*>(smem);
+  grad_range<float>(off, g, p, m, kdim, tile, r0, c0, 0, b0, st32, to_lo);
+  grad_range<float>(off, g, p, m, kdim, tile, r0, c0, b1, m, st32, to_lo);
+  Hi acc[4][4] = {};
+  grad_range<Hi>(acc, g, p, m, kdim, tile, r0, c0, b0, b1,
+                 reinterpret_cast<GradStage<Hi>*>(smem), [](Hi x) { return x; });
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    Hi v[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      v[jj] = acc[i][jj] + static_cast<Hi>(BF16 ? round_bf16(off[i][jj]) : off[i][jj]);
+    st4(dp + static_cast<long long>(r0 + ty * 4 + i) * kdim + c0 + tx * 4, v);
+  }
+}
+
 }  // namespace
 
 // p: (m, kdim) contiguous in hi (fp32 for pairs 0 and 1, fp64 for 2 and 3);
@@ -875,4 +1020,35 @@ extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, in
   double* o = static_cast<double*>(out);
   if (bm == 128) return launch_fp64_hi<128>(pp, sc, o, m, kdim, g, n_band, n_off, s);
   return launch_fp64_hi<64>(pp, sc, o, m, kdim, g, n_band, n_off, s);
+}
+
+// g: dU (m, m) contiguous in hi, only its lower tiles read; p: (m, kdim)
+// contiguous in hi; dp: (m, kdim) in hi, written here.  Requires tile % 64
+// == 0, m % tile == 0, kdim % 64 == 0 and m / 64 <= 65535; pair as
+// mp_syrk_launch's.  One block per 64 x 64 tile of dP, the kdim / 64 blocks
+// of a row of tiles next to each other so that they share S in L2.
+extern "C" int mp_syrk_grad_launch(const void* g, const void* p, void* dp, int m, int kdim,
+                                   int tile, int band_blocks, int pair, void* stream) {
+  if (tile <= 0 || tile % 64 || m <= 0 || m % tile || kdim <= 0 || kdim % 64 ||
+      m / 64 > 65535 || band_blocks < 1 || pair < 0 || pair > 3)
+    return cudaErrorInvalidValue;
+  const int n_tiles = m / tile;
+  const bool split = pair == kF32Bf16 || pair == kF64F32;
+  const int band = split && band_blocks < n_tiles ? band_blocks : n_tiles;
+  const dim3 grid(kdim / 64, m / 64);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pair == kF32Bf16 || pair == kF32F32) {
+    const auto* gg = static_cast<const float*>(g);
+    const auto* pp = static_cast<const float*>(p);
+    auto* out = static_cast<float*>(dp);
+    if (pair == kF32Bf16)
+      mp_syrk_grad_kernel<float, true><<<grid, kGradThreads, 0, s>>>(gg, pp, out, m, kdim, tile, band);
+    else
+      mp_syrk_grad_kernel<float, false><<<grid, kGradThreads, 0, s>>>(gg, pp, out, m, kdim, tile, band);
+  } else {
+    mp_syrk_grad_kernel<double, false><<<grid, kGradThreads, 0, s>>>(
+        static_cast<const double*>(g), static_cast<const double*>(p), static_cast<double*>(dp), m,
+        kdim, tile, band);
+  }
+  return cudaGetLastError();
 }

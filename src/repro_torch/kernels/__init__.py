@@ -12,7 +12,7 @@ it went through the kernels.
 """
 
 LAUNCHES = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
-            "mp_syrk": 0, "mp_attention": 0}
+            "mp_syrk": 0, "mp_syrk_grad": 0, "mp_attention": 0}
 
 
 def reset_launch_counts() -> None:

@@ -23,6 +23,13 @@ What bounds each on the H100, and what its design does about it:
   cores, one chain over K in order per element; a 4-stage cp.async ring,
   lanes that share a row of P share its 16-byte shared loads, and the 64
   accumulators of a thread in registers (one block per SM, no spill).
+
+`launch_grad` runs the backward, `mp_syrk_grad_kernel`: dP = S P with S the
+lower tiles of dU and their transpose, hi arithmetic inside the band and lo
+operands with an fp32 sum off it.  It has no TPU counterpart (the JAX
+package differentiates its jnp engines).  A simple SIMT kernel, bound by its
+operations (2 m^2 kdim, twice the forward's): 64 x 64 tiles of dP, 4 x 4
+outputs a thread, IEEE FMA only (no TF32, no tensor cores yet).
 """
 
 from __future__ import annotations
@@ -83,4 +90,35 @@ def launch(p, *, tile, round_k, band_blocks, hi, lo, accum):
         torch.cuda.current_stream(p.device).cuda_stream)
     check(status, "mp_syrk")
     LAUNCHES["mp_syrk"] += 1
+    return out
+
+
+def launch_grad(g, p, *, tile, band_blocks, hi, lo, accum):
+    """dP (m, kdim) hi of U = P P^T from dU = g (m, m) hi (its lower tiles
+    only), with the forward's banded precision."""
+    m, kdim = (p.shape[0], p.shape[-1]) if p.ndim else (0, 0)
+    if tile <= 0 or tile % 64 or m % tile or kdim <= 0 or kdim % 64:
+        raise ValueError(
+            f"mp_syrk_grad kernel: needs tile % 64 == 0, m % tile == 0 and "
+            f"kdim % 64 == 0; got m={m}, kdim={kdim}, tile={tile}")
+    pair = PAIRS.get((hi, lo, accum))
+    if pair is None:
+        raise NotImplementedError(
+            f"mp_syrk_grad kernel: (hi, lo, accum) = ({hi}, {lo}, {accum}); "
+            "it takes the forward's pairs")
+    if not (p.is_cuda and g.is_cuda) or p.dtype != hi or g.dtype != hi:
+        raise ValueError(f"mp_syrk_grad kernel: g and p must be {hi} CUDA "
+                         "tensors")
+    if p.ndim != 2 or g.shape != (m, m) or not (p.is_contiguous()
+                                                 and g.is_contiguous()):
+        raise ValueError(f"mp_syrk_grad kernel: p must be a contiguous 2-D "
+                         f"tensor and g a contiguous ({m}, {m}) one")
+    if band_blocks < 1:
+        raise ValueError(f"band_blocks must be >= 1, got {band_blocks}")
+    out = torch.empty_like(p)
+    status = library().mp_syrk_grad_launch(
+        g.data_ptr(), p.data_ptr(), out.data_ptr(), m, kdim, tile,
+        band_blocks, pair, torch.cuda.current_stream(p.device).cuda_stream)
+    check(status, "mp_syrk_grad")
+    LAUNCHES["mp_syrk_grad"] += 1
     return out

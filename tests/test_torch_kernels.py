@@ -215,6 +215,11 @@ def test_ops_on_cpu_are_the_plain_versions_and_launch_nothing():
     kw = dict(tile=64, round_k=64, band_blocks=1)
     torch.testing.assert_close(syrk_ops.mp_syrk(p, **kw),
                                syrk_ref.mp_syrk(p, **kw), rtol=0, atol=0)
+    du = torch.randn((128, 128), generator=gen)
+    kw.pop("round_k")
+    torch.testing.assert_close(syrk_ops.mp_syrk_grad(du, p, **kw),
+                               syrk_ref.mp_syrk_grad(du, p, **kw),
+                               rtol=0, atol=0)
     g = torch.randn((32, 32), generator=gen)
     torch.testing.assert_close(
         matern_ops.matern_cov_grad(locs[0], locs[1], th, g, nu=2.5),
@@ -222,7 +227,7 @@ def test_ops_on_cpu_are_the_plain_versions_and_launch_nothing():
         rtol=0, atol=0)
     assert launch_counts() == {"matern_cov": 0, "matern_cov_grad": 0,
                                "blocked_potrf": 0, "mp_syrk": 0,
-                               "mp_attention": 0}
+                               "mp_syrk_grad": 0, "mp_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -237,6 +242,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         syrk_kernel.launch(torch.ones(128, 64), tile=64, round_k=64,
                            band_blocks=1, hi=torch.float32, lo=torch.bfloat16,
                            accum=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        syrk_kernel.launch_grad(torch.ones(128, 128), torch.ones(128, 64),
+                                tile=64, band_blocks=1, hi=torch.float32,
+                                lo=torch.bfloat16, accum=torch.float32)
+    with pytest.raises(NotImplementedError, match="pairs"):
+        syrk_kernel.launch_grad(torch.ones(128, 128), torch.ones(128, 64),
+                                tile=64, band_blocks=1, hi=torch.float32,
+                                lo=torch.float16, accum=torch.float32)
     q = torch.zeros((2, 4, 64))
     kv = torch.zeros((2, 128, 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -256,7 +269,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                   nu=1.3)
     assert launch_counts() == {"matern_cov": 0, "matern_cov_grad": 0,
                                "blocked_potrf": 0, "mp_syrk": 0,
-                               "mp_attention": 0}
+                               "mp_syrk_grad": 0, "mp_attention": 0}
 
 
 def _c_params(name):
