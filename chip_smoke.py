@@ -15,7 +15,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      paper pair's two must not spill) and its DMMA, DFMA and FFMA counts
      in cuobjdump's SASS (the fp64 band: DMMA and no DFMA), and the same
      of all 36 matern_cov instantiations (forward general and symmetric,
-     backward) with their MUFU, F2F, DFMA, FFMA and STG counts;
+     backward) with their MUFU, F2F, DFMA, FFMA and STG counts, and of
+     mp_syrk_grad's 22 (the pre-pass, the wgmma, IEEE fp32 and DMMA
+     engines) with their HGMMA, DMMA, DFMA and FFMA counts (the 128 x 128
+     engines must not spill);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes, with errors, tolerances and CUDA-event times
      (kernel, plain version, one library call where one computes the same
@@ -98,7 +101,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      at n_obs for as many steps as fit in 25 s; 10.3 the tile engine's
      gradient: mp_syrk_grad (mp_syrk's hand-written backward) against its
      plain version for the four pairs at 4,096 and 39,936 rows (k =
-     1,024, band 2), timed beside its bound and a torch.matmul yardstick,
+     1,024, band 2), timed beside its bound and a torch.matmul yardstick
+     and each class's device time (pre-pass, off-band, band),
      then with a dU that is zero off the band, where the plain version
      with the band in lo must fail the same check, and the tiles'
      Cholesky backward at B = 1 and 3; one value-and-gradient evaluation
@@ -144,6 +148,15 @@ FP64_FLOPS = 34e12      # fp64 FMA outside the tensor cores
 SYRK_KERNELS = ("syrk_band_lower_kernel", "syrk_offband_bf16_wgmma_kernel",
                 "to_bf16_kernel", "syrk_band_f64_dmma_kernel",
                 "syrk_offband_fp32_pipelined_kernel", "to_fp32_kernel")
+# the kernels of one mp_syrk_grad call, as the profiler names them: the
+# pre-pass (D + D^T, the packed lo tiles of dU, lo(P)), the {fp32, bf16}
+# off-band on wgmma, the IEEE fp32 engine (fp32 band, the paper pair's
+# off-band) and the fp64 band on DMMA; keyed with their template's types
+SYRK_GRAD_KERNELS = ("mp_syrk_grad_diag_kernel", "mp_syrk_grad_lo_tiles_kernel",
+                     "mp_syrk_grad_lo_p_kernel", "mp_syrk_grad_offband_wgmma_kernel",
+                     "mp_syrk_grad_fp32_kernel", "mp_syrk_grad_dmma_kernel")
+SYRK_GRAD_SASS_OPS = ("HGMMA", "DMMA", "DFMA", "FFMA")
+SYRK_GRAD_PREPASS = SYRK_GRAD_KERNELS[:3]
 # matern_cov's kernels (forward general and symmetric, backward), keyed with
 # their template's types, and the SASS instructions counted in each
 MATERN_KERNELS = ("matern_cov_kernel", "matern_cov_sym_kernel",
@@ -332,6 +345,53 @@ def sass_counts(lib, names, ops=("DMMA", "DFMA", "FFMA"), typed=False):
             for op in ops:
                 counts[key][op] += bool(re.search(rf"\b{op}\b", line))
     return counts
+
+
+def syrk_grad_class(name):
+    """The class of an mp_syrk_grad kernel from its name as the profiler
+    gives it (demangled), else None: "prepass", "offband" (the wgmma
+    kernel, the fp32 engine with OFF = true) or "band" (DMMA, the fp32
+    engine with OFF = false)."""
+    kernel = next((k for k in SYRK_GRAD_KERNELS if k in name), None)
+    if kernel is None:
+        return None
+    if kernel in SYRK_GRAD_PREPASS:
+        return "prepass"
+    if kernel == "mp_syrk_grad_fp32_kernel":
+        return "offband" if ", true>" in name else "band"
+    return "offband" if "wgmma" in kernel else "band"
+
+
+def syrk_grad_device_ms(rows):
+    """({class: ms}, total ms) of mp_syrk_grad's kernels among
+    device_profile's rows (name, count, ms); no other kernel counts."""
+    out = dict.fromkeys(("prepass", "offband", "band"), 0.0)
+    for name, _, ms in rows:
+        cls = syrk_grad_class(name)
+        if cls:
+            out[cls] += ms
+    return out, sum(out.values())
+
+
+def check_syrk_grad_build(lib):
+    """mp_syrk_grad's kernels in the build (phase 2): ptxas's registers and
+    spills and their SASS counts; 22 instantiations, the main path's 128 x
+    128 engines without spills, the fp64 band on DMMA, the bf16 off-band
+    on wgmma."""
+    from repro_torch.kernels import _build
+    usage = ptxas_usage(lib.parent / _build.LOG_NAME, SYRK_GRAD_KERNELS, typed=True)
+    sass = sass_counts(lib, SYRK_GRAD_KERNELS, SYRK_GRAD_SASS_OPS, typed=True)
+    emit(phase="build", kernel="mp_syrk_grad", ptxas=usage, sass=sass)
+    main = [k for k in usage if "<128,128" in k]
+    require(len(usage) == len(sass) == 22 and len(main) == 4
+            and all(usage[k]["spill_stores"] == 0 for k in main),
+            f"mp_syrk_grad kernels: {len(usage)} in ptxas, {len(sass)} in "
+            f"SASS; the 128 x 128 engines {main} spill or are missing")
+    require(all(v["DMMA"] > 0 and v["DFMA"] == 0 for k, v in sass.items()
+                if k.startswith("mp_syrk_grad_dmma_kernel"))
+            and all(v["HGMMA"] > 0 for k, v in sass.items()
+                    if k.startswith("mp_syrk_grad_offband_wgmma_kernel")),
+            f"mp_syrk_grad's engines are off their units: {sass}")
 
 
 def require(cond, what):
@@ -2607,6 +2667,48 @@ def band_only(g, nb, t):
     return g
 
 
+# 10.3 (a)'s small shapes: (m, tile, kdim) giving the engines' four block
+# shapes (bm, bn) = (64, 64), (128, 64), (64, 128), (128, 128)
+SYRK_GRAD_BLOCK_SHAPES = ((768, 64, 192), (1_280, 128, 192), (768, 64, 256),
+                          (1_280, 128, 128))
+
+
+def check_syrk_grad_blocks():
+    """mp_syrk_grad at small shapes that take each block shape of its
+    engines (the main path takes 128 x 128), the four pairs at band 1 and
+    3: within syrk_grad_err's tolerance, the same bits on a second launch
+    and with dU's upper tiles zeroed."""
+    import torch
+    from repro_torch.kernels.mp_gemm import ops, ref
+    from repro_torch.kernels.mp_gemm.mp_gemm import PAIRS
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for m, tile, kdim in SYRK_GRAD_BLOCK_SHAPES:
+        worst = 0.0
+        for pair in PAIRS:
+            for t in (1, 3):
+                kw = dict(tile=tile, band_blocks=t, hi=pair[0], lo=pair[1],
+                          accum=pair[2])
+                p = torch.randn((m, kdim), generator=gen, device="cuda",
+                                dtype=pair[0])
+                g = torch.randn((m, m), generator=gen, device="cuda",
+                                dtype=pair[0])
+                got = ops.mp_syrk_grad(g, p, **kw)
+                lower = torch.arange(m, device="cuda") // tile
+                g_low = torch.where(lower[:, None] >= lower[None, :], g, 0)
+                ratio, _ = syrk_grad_err(got, ref.mp_syrk_grad(g, p, **kw), g,
+                                         p, tile, t, pair)
+                require(torch.equal(got, ops.mp_syrk_grad(g, p, **kw))
+                        and torch.equal(got, ops.mp_syrk_grad(g_low, p, **kw))
+                        and ratio <= 1.0,
+                        f"mp_syrk_grad {pair} m={m} tile={tile} kdim={kdim} "
+                        f"band {t}: {ratio} of the tolerance, or its bits moved")
+                worst = max(worst, ratio)
+        emit(phase="gradient", step="kernel", kernel="mp_syrk_grad",
+             launch="block shape", m=m, tile=tile, kdim=kdim,
+             block=[64 if tile % 128 else 128, 64 if kdim % 128 else 128],
+             bands=[1, 3], err_over_tol=worst)
+
+
 def check_syrk_grad(gcfg, results):
     """10.3 (a): mp_syrk_grad against its plain version on the card for the
     forward's four pairs at (4,096, nb) and at the tile path's step 0 ((p -
@@ -2616,11 +2718,13 @@ def check_syrk_grad(gcfg, results):
     plain version and yardstick timed beside the bound; then a dU that is
     zero off the band, where dP is the band's alone, with a control: the
     plain version with that band in lo (band_blocks = 0) must fail the same
-    check; then Potrf's backward (torch ops) at B = 1 and 3."""
+    check; then Potrf's backward (torch ops) at B = 1 and 3.  First the
+    engines' other block shapes at small sizes (check_syrk_grad_blocks)."""
     import torch
     from repro_torch.kernels.blocked_potrf import ops as potrf_ops
     from repro_torch.kernels.mp_gemm import ops, ref
     from repro_torch.kernels.mp_gemm.mp_gemm import PAIRS
+    check_syrk_grad_blocks()
     nb, n_obs = gcfg["tile_nb"], gcfg["tile_n"]
     gen = torch.Generator(device="cuda").manual_seed(20)
     t = 2
@@ -2653,6 +2757,16 @@ def check_syrk_grad(gcfg, results):
                 n_t = m // nb
                 band_f, off_f = syrk_grad_flops(n_t, nb, n_t if lo == hi else t)
                 line["ms"] = time_ms(lambda: ops.mp_syrk_grad(g, p, **kw))
+                # each class's device time, where the profiler gives it: a
+                # trace of this library's launches alone can come back
+                # empty late in a run (device_profile), so the call ends in
+                # a PyTorch reduction, which no class counts
+                try:
+                    _, _, rows = device_profile(
+                        lambda: ops.mp_syrk_grad(g, p, **kw).sum())
+                    line["class_ms"], line["device_ms"] = syrk_grad_device_ms(rows)
+                except AssertionError:  # no device events: not measured
+                    line["class_ms"] = line["device_ms"] = None
                 line["plain_ms"] = time_ms(lambda: ref.mp_syrk_grad(g, p, **kw),
                                            reps=2)
                 line["bound_ms"], line["bound_by"] = syrk_grad_bound(n_t, nb, t,
@@ -2723,18 +2837,28 @@ TILE_GRAD_TOL = {"tpu(2)": (1e-3, 1e-5), "full(fp32)": (1e-5, 1e-8),
 
 def _grad_scale(locs, z, pol, theta, nb):
     """s_k = sum |G| dSigma/dtheta_k for k = 1, 2, with G = dl/dSigma of the
-    kernel path's tile engine at theta (as make_loglik builds Sigma)."""
+    kernel path's tile engine at theta (as make_loglik builds Sigma).  G is
+    taken by a hook during the backward, which frees Sigma as the
+    evaluation does: kept as a leaf for autograd.grad, it added 12.5 GiB to
+    the pair's backward at 40,960, and 10.3 run alone ran out of memory.
+    The hook is on a view of Sigma: on Sigma itself, whose last op is the
+    jitter's in-place add on its diagonal, PyTorch 2.13 (CPU) crashed."""
     import torch
     from repro_torch.core import (build_covariance, loglik_from_factor,
                                   tile_cholesky)
     from repro_torch.kernels.matern_cov import ops
-    th = [float(v) for v in theta]
+    th = torch.tensor([float(v) for v in theta], requires_grad=True,
+                      dtype=torch.promote_types(locs.dtype, torch.float32))
+    th_host = th.tolist()
+    scale = []
     cov = build_covariance(locs, th, nu_static=0.5, jitter=1e-6,
-                           dtype=pol.hi).requires_grad_(True)
+                           dtype=pol.hi).view(-1, locs.shape[0])
+    cov.register_hook(lambda g: scale.append(ops.matern_cov_grad(
+        locs, locs, th_host, g.abs(), nu=0.5).tolist()))
     ll = loglik_from_factor(tile_cholesky(cov, nb, pol), z)
-    (g_cov,) = torch.autograd.grad(ll, cov)
-    del cov, ll
-    return ops.matern_cov_grad(locs, locs, th, g_cov.abs(), nu=0.5).tolist()
+    del cov
+    torch.autograd.grad(ll, th)
+    return scale[0]
 
 
 def tile_grad_evaluation(label, locs, z, pol, theta, nb, results, key):
@@ -2769,6 +2893,7 @@ def tile_grad_evaluation(label, locs, z, pol, theta, nb, results, key):
             and abs(a - b) <= ll_tol * abs(b) and max(gap) <= tol,
             f"{label}: kernel {a} {ga} vs plain {b} {gb}, gap {gap} of {scale}")
     wall_ms, busy, rows = device_profile(lambda: _value_and_grad(fn, theta))
+    grad_class_ms, grad_ms = syrk_grad_device_ms(rows)
     emit(phase="gradient", step="tile evaluation", policy=label,
          n=locs.shape[0], nb=nb, theta=list(theta), loglik_kernel=a,
          loglik_plain=b, loglik_no_grad=no_grad, grad_kernel=ga,
@@ -2780,8 +2905,7 @@ def tile_grad_evaluation(label, locs, z, pol, theta, nb, results, key):
          seconds_backward_plain=bb, peak_gib_kernel=pa, peak_gib_plain=pb,
          launches_kernel=ca, wall_ms=wall_ms, device_busy_ms=busy,
          idle_share=1 - busy / wall_ms,
-         mp_syrk_grad_device_ms=sum(ms for k, _, ms in rows
-                                    if "mp_syrk_grad_kernel" in k),
+         mp_syrk_grad_device_ms=grad_ms, mp_syrk_grad_class_ms=grad_class_ms,
          top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:12]])
     if key:
         results.setdefault(key, {})["launches"] = ca["mp_syrk_grad"]
@@ -3108,6 +3232,7 @@ def main(argv=None):
     dmma = {k: v for k, v in sass.items() if k.startswith("syrk_band_f64_dmma_kernel")}
     require(len(dmma) == 2 and all(v["DMMA"] > 0 and v["DFMA"] == 0 for v in dmma.values()),
             f"the fp64 band kernel is not on the fp64 tensor cores: {dmma}")
+    check_syrk_grad_build(lib)
     # matern_cov: 4 dtype pairs x 3 nu, general and symmetric; the backward
     # 2 dtypes x 3 nu x (general, symmetric)
     musage = ptxas_usage(lib.parent / _build.LOG_NAME, MATERN_KERNELS, typed=True)

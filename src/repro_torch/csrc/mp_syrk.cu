@@ -1,4 +1,6 @@
-// Banded mixed-precision SYRK U = P P^T, written for sm_90a.
+// Banded mixed-precision SYRK U = P P^T, written for sm_90a, and its
+// backward dP = S P (mp_syrk_grad_launch; its design is described where its
+// kernels begin, below the forward's).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/mp_gemm/mp_gemm.py: _mp_syrk_kernel / mp_syrk_pallas.
@@ -358,6 +360,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 
 // D (64 x N, fp32 registers) = A (64 x 16) B^T (N x 16), both K-major bf16 in
 // shared memory; scale_d = 0 ignores D's old value.
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -367,7 +370,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -376,9 +379,10 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
 }
 
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -386,19 +390,21 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
 }
 
-template <int N>
+// D (64 x N) = A (64 x 16) B^T (N x 16); TA = 1 reads A MN-major (its 64
+// rows contiguous in each K row) instead of K-major
+template <int N, int TA = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db,
                                            int scale_d) {
-  if constexpr (N == 128) wgmma_m64n128(d, da, db, scale_d);
-  else wgmma_m64n64(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_m64n128<TA>(d, da, db, scale_d);
+  else wgmma_m64n64<TA>(d, da, db, scale_d);
 }
 
 template <int BM>
@@ -844,147 +850,692 @@ cudaError_t launch_fp64_hi(const double* p, float* scratch, double* out, int m, 
 
 
 // ---- the backward: dP = S P, S = L(dU) + L(dU)^T --------------------------
-// One block of kGradThreads computes one 64 x 64 tile of dP (m x kdim):
-// rows r0.., columns c0.., each thread 4 x 4 outputs (rows ty * 4 + i,
-// columns tx * 4 + j).  It walks the m axis (j) in chunks of GradStage::GK
-// (32 floats or 16 doubles), each inside one tile of j since GK divides the
-// tile.  The chunk's S comes from dU by tile order: below the block's tile
-// row dU[r][j] (staged transposed), above it dU[j][r], in the diagonal tile
-// dU[r][j] + dU[j][r] summed in hi; only lower tiles of dU are read.
-// Chunks off the band are one range of j on each side of it: S and P
-// rounded to lo (bf16 or fp32) into fp32 accumulators, products exact for
-// bf16 operands; the band's chunks in hi arithmetic (IEEE fp32 FMA, or fp64
-// FMA), then out = hi(band) + hi(lo(off)), the off-band sum rounded once,
-// as ref.mp_syrk_grad.  The next chunk is loaded into registers while the
-// current one's FMAs run, two shared-memory stages in turn.
-constexpr int kGradThreads = 256;
+// It has no TPU counterpart (the JAX package differentiates its jnp
+// engines).  Row r of tile row ti takes S[r][j] from dU's lower tiles:
+// dU[r][j] left of the diagonal tile (K-major), dU[j][r] right of it
+// (MN-major), D + D^T in the diagonal tile D = dU[ti][ti].  The rounding
+// points are ref.mp_syrk_grad's: the band (|ti - tj| < band) is S_band P in
+// hi; off the band each S element (one dU element, since band >= 1) and P
+// are rounded to lo, the products summed in fp32 and the sum rounded once
+// to lo; dP = hi(band) + hi(lo(off)).
+//
+// What bounds it at the tile path's step 0 (39,936 x 1,024, band 2): 2 m^2
+// kdim = 3.27 TFLOP, of which 0.25 in the band; under {fp32, bf16} the
+// band's fp32 operations (67 TFLOP/s), the off-band's bf16 ones at 989
+// below them; under the paper pair its IEEE fp32 off-band (67 on the CUDA
+// cores) beside an fp64 band on the tensor cores (DMMA, 67 too); all-hi
+// pairs their one class.  The design is the forward's three engines, each
+// adapted from U = P P^T to dP = S P (K along the m axis, B = rows of P):
+//   * a pre-pass per call writes D + D^T in hi for every diagonal tile
+//     (mp_syrk_grad_diag_kernel), and under the split pairs lo(dU) for
+//     every lower off-band tile, packed tile by tile in row order
+//     (mp_syrk_grad_lo_tiles_kernel), and lo(P) (mp_syrk_grad_lo_p_kernel:
+//     transposed to (kdim, m) for bf16, so that wgmma's B is K-major);
+//   * the {fp32, bf16} off-band on bf16 wgmma fed by TMA
+//     (mp_syrk_grad_offband_wgmma_kernel): a producer warp, a ring of 4
+//     stages of 64 columns of K and mbarriers, as the forward's kernel.  A
+//     tile left of the band is a K-major box of its packed lo tile; a tile
+//     right of it is the packed tile (tj, ti) read MN-major, two boxes of
+//     64 rows, through wgmma's transpose bit.  The tensor cores sum 4
+//     stages (256 products a term) into one accumulator, which is added
+//     with IEEE fp32 adds into a second: their internal alignment then
+//     touches only short partial sums, whatever the K length (39,936);
+//   * the fp64 band (the pair, all-fp64) on DMMA, mma.sync m16n8k4 .f64
+//     (mp_syrk_grad_dmma_kernel), a 4-stage cp.async ring, both operands
+//     staged [k][row] with rows 4 doubles longer than the block, so that
+//     fragment loads and the 8-byte copies that transpose a tile left of
+//     the diagonal meet no bank conflict;
+//   * IEEE fp32 on the CUDA cores (mp_syrk_grad_fp32_kernel): the fp32 band
+//     ({fp32, bf16}, all-fp32) from dU and P, and the paper pair's off-band
+//     from the lo scratch: a 4-stage cp.async ring of 32 columns of K, 8 x
+//     8 outputs a thread (rows in two groups of 4, 16 apart; columns in two
+//     groups of 4, 32 apart), so that a warp's 16-byte loads of A are 64
+//     contiguous bytes and of B 128: one wavefront each; tiles left of the
+//     diagonal are transposed by 4-byte copies, 4 rows x 8 columns a warp,
+//     without bank conflicts.  No TF32.  (Staging fp64 dU for the pair and
+//     rounding it in shared memory, with no fp32 copy, measured 21 %
+//     slower at step 0.)
+// Every block is 128 x 128 outputs of dP (64 where the tile or kdim is not
+// a multiple of 128), its kdim / BN column blocks next to each other so
+// that they share their rows of S in L2.  The class with an off-band writes
+// hi(lo(off)) into dP first (0 for a row with none); the band's kernel
+// then adds its hi sum in its epilogue, or writes it when the call has no
+// off-band.  No atomics: the same bits on every launch.  Only dU's lower
+// tiles are read.
 
-template <typename T>
-struct GradStage {
-  static constexpr int GK = 128 / sizeof(T);     // chunk of the m axis
-  static constexpr int LD = 64 + 16 / sizeof(T);  // rows stay 16-byte aligned
-  T s[GK][LD];                                    // S^T: [j][r]
-  T p[GK][LD];                                    // P:   [j][c]
-};
+// Lower off-band tiles (a, b), a - b >= band, packed in row order: the
+// x = a - band rows before row a hold x (x + 1) / 2 of them.
+__host__ __device__ __forceinline__ long long tri(long long x) { return x * (x + 1) / 2; }
+__host__ __device__ __forceinline__ long long packed_index(int a, int b, int band) {
+  return tri(a - band) + b;
+}
 
-__device__ __forceinline__ void ld4(const float* src, float (&v)[4]) {
+// ---- the pre-pass --------------------------------------------------------
+__device__ __forceinline__ void load4(const float* src, float (&v)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
 }
-__device__ __forceinline__ void ld4(const double* src, double (&v)[4]) {
+__device__ __forceinline__ void load4(const double* src, double (&v)[4]) {
   const double2 x = *reinterpret_cast<const double2*>(src);
   const double2 y = *reinterpret_cast<const double2*>(src + 2);
   v[0] = x.x; v[1] = x.y; v[2] = y.x; v[3] = y.y;
 }
-__device__ __forceinline__ void st4(float* dst, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ void store4_lo(__nv_bfloat16* dst, const float (&v)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
 }
-__device__ __forceinline__ void st4(double* dst, const double (&v)[4]) {
-  *reinterpret_cast<double2*>(dst) = make_double2(v[0], v[1]);
-  *reinterpret_cast<double2*>(dst + 2) = make_double2(v[2], v[3]);
+__device__ __forceinline__ void store4_lo(float* dst, const double (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(__double2float_rn(v[0]), __double2float_rn(v[1]),
+                                                __double2float_rn(v[2]), __double2float_rn(v[3]));
 }
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float to_lo(float x) { return round_bf16(x); }
+__device__ __forceinline__ float to_lo(double x) { return __double2float_rn(x); }
 
-// acc += S[r0 + .., j0 .. j1) P[j0 .. j1, c0 + ..) in C arithmetic, each
-// operand converted by cvt (hi -> C).  j0 and j1 are multiples of the tile;
-// returns with every thread past its last shared-memory read.
-template <typename C, typename Hi, typename Cvt>
-__device__ __forceinline__ void grad_range(C (&acc)[4][4], const Hi* __restrict__ g,
-                                           const Hi* __restrict__ p, int m, int kdim, int tile,
-                                           int r0, int c0, int j0, int j1, GradStage<C>* st,
-                                           Cvt cvt) {
-  using S = GradStage<C>;
-  constexpr int GK = S::GK;
-  constexpr int PER = 64 * GK / kGradThreads;  // values of each operand a thread stages
-  const int n = (j1 - j0) / GK;
-  if (n <= 0) return;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int ti = r0 / tile;
-  Hi rs[PER], rp[PER];
-  bool upper = false;
-  auto load = [&](int jc) {
-    const int tj = jc / tile;
-    upper = tj > ti;
+constexpr int kPassThreads = 256;
+constexpr int kPassElems = 4 * 4 * kPassThreads;  // elements of a tile per block and step
+
+// lo(dU[a][b]) for every packed tile q = packed_index(a, b): blockIdx.y
+// walks the tiles, blockIdx.x the 4,096-element runs of one
+template <typename Hi, typename Lo>
+__global__ void __launch_bounds__(kPassThreads)
+mp_syrk_grad_lo_tiles_kernel(const Hi* __restrict__ g, Lo* __restrict__ out, int m, int tile,
+                             int band, long long n_packed) {
+  const long long tt = static_cast<long long>(tile) * tile;
+  for (long long q = blockIdx.y; q < n_packed; q += gridDim.y) {
+    long long x = static_cast<long long>((sqrt(8.0 * static_cast<double>(q) + 1.0) - 1.0) / 2.0);
+    while (tri(x) > q) --x;
+    while (tri(x + 1) <= q) ++x;
+    const long long a = x + band, b = q - tri(x);
+    const Hi* src = g + a * tile * m + b * tile;
+    Lo* dst = out + q * tt;
+    for (long long e = (blockIdx.x * static_cast<long long>(kPassThreads) + threadIdx.x) * 4;
+         e < tt; e += static_cast<long long>(gridDim.x) * kPassThreads * 4) {
+      const long long r = e / tile, c = e % tile;
+      Hi v[4];
+      load4(src + r * m + c, v);
+      store4_lo(dst + e, v);
+    }
+  }
+}
+
+// D + D^T in hi for every diagonal tile, 32 x 32 at a time through shared
+// memory: dd[i][r][c] = D[r][c] + D[c][r], D = dU[i][i]
+template <typename Hi>
+__global__ void __launch_bounds__(256)
+mp_syrk_grad_diag_kernel(const Hi* __restrict__ g, Hi* __restrict__ dd, int m, int tile) {
+  __shared__ Hi t[32][33];
+  const int i = blockIdx.z, r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const Hi* d = g + static_cast<long long>(i) * tile * m + static_cast<long long>(i) * tile;
+  for (int y = ty; y < 32; y += 8) t[y][tx] = d[static_cast<long long>(c0 + y) * m + r0 + tx];
+  __syncthreads();
+  Hi* o = dd + static_cast<long long>(i) * tile * tile;
+  for (int y = ty; y < 32; y += 8)
+    o[static_cast<long long>(r0 + y) * tile + c0 + tx] =
+        d[static_cast<long long>(r0 + y) * m + c0 + tx] + t[tx][y];
+}
+
+// lo(P), 32 x 32 at a time: transposed to (kdim, m) when TRANS (bf16 for
+// wgmma's K-major B), else in P's (m, kdim) layout
+template <typename Hi, typename Lo, bool TRANS>
+__global__ void __launch_bounds__(256)
+mp_syrk_grad_lo_p_kernel(const Hi* __restrict__ p, Lo* __restrict__ out, int m, int kdim) {
+  __shared__ float t[32][33];
+  const int j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int y = ty; y < 32; y += 8) {
+    const float v = to_lo(p[static_cast<long long>(j0 + y) * kdim + c0 + tx]);
+    if constexpr (TRANS) t[y][tx] = v;
+    else out[static_cast<long long>(j0 + y) * kdim + c0 + tx] = v;
+  }
+  if constexpr (TRANS) {
+    __syncthreads();
+    for (int y = ty; y < 32; y += 8)
+      out[static_cast<long long>(c0 + y) * m + j0 + tx] = __float2bfloat16_rn(t[tx][y]);
+  }
+}
+
+// ---- staging for the cp.async engines ------------------------------------
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)), "l"(src), "n"(N)
+               : "memory");
+}
+
+// dst[kk][mm] (row length LD) = src[kk * ld + mm], ROWS x COLS: 16-byte
+// copies, neighbouring threads on neighbouring bytes of a row
+template <typename T, int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void stage_natural(T* dst, const T* src, long long ld) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int CH = COLS / V;
+  static_assert(ROWS * CH % THREADS == 0 && LD % V == 0, "staging shapes");
 #pragma unroll
-    for (int l = 0; l < PER; ++l) {
-      const int idx = tid + l * kGradThreads;
-      rp[l] = p[static_cast<long long>(jc + idx / 64) * kdim + c0 + idx % 64];
-      if (upper) {  // dU[j][r], r fastest
-        rs[l] = g[static_cast<long long>(jc + idx / 64) * m + r0 + idx % 64];
-      } else {      // dU[r][j], j fastest; + dU[j][r] in the diagonal tile
-        const int r = idx / GK, j = idx % GK;
-        rs[l] = g[static_cast<long long>(r0 + r) * m + jc + j];
-        if (tj == ti) rs[l] += g[static_cast<long long>(jc + j) * m + r0 + r];
+  for (int l = 0; l < ROWS * CH / THREADS; ++l) {
+    const int idx = threadIdx.x + l * THREADS;
+    const int r = idx / CH, c = (idx % CH) * V;
+    cp_async16(dst + r * LD + c, src + r * ld + c);
+  }
+}
+
+// dst[kk][mm] = src[mm * ld + kk]: one element per copy, each 32 of them
+// 4 rows mm x 8 columns kk, so that with LD = 4 (mod 32) floats (mod 16
+// doubles) the stores of a warp (half-warp) fall in distinct banks
+template <typename T, int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void stage_transposed(T* dst, const T* src, long long ld) {
+  static_assert(ROWS % 8 == 0 && COLS % 4 == 0 && ROWS * COLS % THREADS == 0 && THREADS % 32 == 0,
+                "staging shapes");
+#pragma unroll
+  for (int l = 0; l < ROWS * COLS / THREADS; ++l) {
+    const int idx = threadIdx.x + l * THREADS;
+    const int grp = idx / 32, ln = idx % 32;
+    const int mm = 4 * (grp % (COLS / 4)) + ln % 4, kk = 8 * (grp / (COLS / 4)) + ln / 4;
+    cp_async_ca<sizeof(T)>(dst + kk * LD + mm, src + mm * ld + kk);
+  }
+}
+
+// The K loop over a ring of STAGES stages: fill(kt, stage) stages chunk kt,
+// consume(stage) reads one; STAGES - 1 chunks in flight.  Returns with
+// every copy landed and every thread past its last read.
+template <int STAGES, typename Fill, typename Consume>
+__device__ __forceinline__ void grad_ring_loop(int nkt, Fill&& fill, Consume&& consume) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nkt) fill(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk kt has landed for every thread; kt - 1 is read
+    if (kt + STAGES - 1 < nkt) fill(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+    consume(kt % STAGES);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Where the block (rows r0 .. r0 + BM of tile row ti) finds chunk j of K
+// (the S columns j .. j + BK, all in one tile tj): the A operand staged
+// [k][row] and the B operand P[j ..][c0 ..].
+struct GradBlock {
+  int r0, c0, ti, rl;  // first row, first column, tile row, first row within the tile
+  int n_t, b0, b1;     // tiles, the band's K range [b0, b1)
+};
+
+__device__ __forceinline__ GradBlock grad_block(int bm, int bn, int m, int kdim, int tile,
+                                                int band) {
+  const int nbn = kdim / bn;
+  GradBlock b;
+  b.r0 = (blockIdx.x / nbn) * bm;
+  b.c0 = (blockIdx.x % nbn) * bn;
+  b.ti = b.r0 / tile;
+  b.rl = b.r0 - b.ti * tile;
+  b.n_t = m / tile;
+  b.b0 = max(0, b.ti - band + 1) * tile;
+  b.b1 = min(b.n_t, b.ti + band) * tile;
+  return b;
+}
+
+// ---- IEEE fp32 on the CUDA cores -----------------------------------------
+template <int BM, int BN>
+struct GradF32Cfg {
+  static constexpr int WARPS_M = BM / 32, WARPS_N = BN / 64;  // warp tile 32 x 64
+  static constexpr int THREADS = WARPS_M * WARPS_N * 32;
+  static constexpr int BK = 32;                        // K columns per stage
+  static constexpr int LDA = BM + 4, LDB = BN + 4;     // = 4 (mod 32)
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE = BK * (LDA + LDB);       // floats
+  static constexpr int SMEM = STAGES * STAGE * 4;
+};
+
+// OFF: the paper pair's off-band (A the packed lo tiles, B lo(P), fp64 out,
+// written); else the fp32 band (A from dU and the D + D^T tiles, B = P,
+// fp32 out, added when `add`)
+template <int BM, int BN, bool OFF>
+__global__ void __launch_bounds__(GradF32Cfg<BM, BN>::THREADS, 1)
+mp_syrk_grad_fp32_kernel(const float* __restrict__ a_src, const float* __restrict__ dd,
+                         const float* __restrict__ p, void* __restrict__ out, int m, int kdim,
+                         int tile, int band, int add) {
+  using C = GradF32Cfg<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const GradBlock blk = grad_block(BM, BN, m, kdim, tile, band);
+  const long long tt = static_cast<long long>(tile) * tile;
+  // K chunks: the band [b0, b1), or the off-band [0, b0) then [b1, m)
+  const int nl = OFF ? blk.b0 / C::BK : 0;
+  const int nkt = OFF ? (blk.b0 + m - blk.b1) / C::BK : (blk.b1 - blk.b0) / C::BK;
+
+  auto fill = [&](int kt, int s) {
+    float* A = ring + s * C::STAGE;
+    float* B = A + C::BK * C::LDA;
+    const int j = OFF ? (kt < nl ? kt * C::BK : blk.b1 + (kt - nl) * C::BK) : blk.b0 + kt * C::BK;
+    const int tj = j / tile, jl = j - tj * tile;
+    if constexpr (OFF) {
+      if (tj < blk.ti)  // packed tile (ti, tj) as it is: [row][k]
+        stage_transposed<float, C::BK, BM, C::LDA, C::THREADS>(
+            A, a_src + packed_index(blk.ti, tj, band) * tt + static_cast<long long>(blk.rl) * tile + jl,
+            tile);
+      else              // packed tile (tj, ti): [k][row]
+        stage_natural<float, C::BK, BM, C::LDA, C::THREADS>(
+            A, a_src + packed_index(tj, blk.ti, band) * tt + static_cast<long long>(jl) * tile + blk.rl,
+            tile);
+    } else {
+      if (tj < blk.ti)
+        stage_transposed<float, C::BK, BM, C::LDA, C::THREADS>(
+            A, a_src + static_cast<long long>(blk.r0) * m + j, m);
+      else if (tj == blk.ti)
+        stage_natural<float, C::BK, BM, C::LDA, C::THREADS>(
+            A, dd + blk.ti * tt + static_cast<long long>(jl) * tile + blk.rl, tile);
+      else
+        stage_natural<float, C::BK, BM, C::LDA, C::THREADS>(
+            A, a_src + static_cast<long long>(j) * m + blk.r0, m);
+    }
+    stage_natural<float, C::BK, BN, C::LDB, C::THREADS>(
+        B, p + static_cast<long long>(j) * kdim + blk.c0, kdim);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ar = (warp % C::WARPS_M) * 32 + (lane / 8) * 4;  // rows ar + i, ar + 16 + i
+  const int bc = (warp / C::WARPS_M) * 64 + (lane % 8) * 4;  // cols bc + j, bc + 32 + j
+  float acc[8][8] = {};
+  grad_ring_loop<C::STAGES>(nkt, fill, [&](int s) {
+    const float* A = ring + s * C::STAGE;
+    const float* B = A + C::BK * C::LDA;
+#pragma unroll 8
+    for (int kk = 0; kk < C::BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + kk * C::LDA + ar);
+      const float4 a1 = *reinterpret_cast<const float4*>(A + kk * C::LDA + ar + 16);
+      const float4 b0 = *reinterpret_cast<const float4*>(B + kk * C::LDB + bc);
+      const float4 b1 = *reinterpret_cast<const float4*>(B + kk * C::LDB + bc + 32);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = __fmaf_rn(a[i], b[jj], acc[i][jj]);
+    }
+  });
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long row = blk.r0 + ar + (i < 4 ? i : 12 + i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long o = row * kdim + blk.c0 + bc + 32 * h;
+      const float* v = &acc[i][4 * h];
+      if constexpr (OFF) {  // lo = fp32: the fp32 sum is its own rounding
+        double* d = static_cast<double*>(out) + o;
+        *reinterpret_cast<double2*>(d) = make_double2(v[0], v[1]);
+        *reinterpret_cast<double2*>(d + 2) = make_double2(v[2], v[3]);
+      } else {
+        float4* d = reinterpret_cast<float4*>(static_cast<float*>(out) + o);
+        float4 x = make_float4(v[0], v[1], v[2], v[3]);
+        if (add) {
+          const float4 y = *d;
+          x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+        }
+        *d = x;
       }
     }
-  };
-  auto stage = [&](S& sm) {
-#pragma unroll
-    for (int l = 0; l < PER; ++l) {
-      const int idx = tid + l * kGradThreads;
-      sm.p[idx / 64][idx % 64] = cvt(rp[l]);
-      if (upper) sm.s[idx / 64][idx % 64] = cvt(rs[l]);
-      else sm.s[idx % GK][idx / GK] = cvt(rs[l]);
-    }
-  };
-  load(j0);
-  stage(st[0]);
-  __syncthreads();
-  for (int q = 0; q < n; ++q) {
-    if (q + 1 < n) load(j0 + (q + 1) * GK);  // in flight during the FMAs below
-    const S& cur = st[q & 1];
-#pragma unroll 8
-    for (int j = 0; j < GK; ++j) {
-      C a[4], b[4];
-      ld4(&cur.s[j][ty * 4], a);
-      ld4(&cur.p[j][tx * 4], b);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fma_rn(a[i], b[jj], acc[i][jj]);
-    }
-    // the other stage was last read before the previous barrier
-    if (q + 1 < n) stage(st[(q + 1) & 1]);
-    __syncthreads();
   }
 }
 
-// dP = S P for one pair: Hi the hi type, BF16 whether lo is bf16 (else lo is
-// fp32: the paper pair; the all-hi pairs have no off-band chunk).  Two
-// blocks per SM, so 16 warps an SM hide the staging loads' latency: 128
-// registers a thread, of which ptxas spills a few (~200 bytes); unbounded
-// it takes 208-230 registers, one block per SM
-template <typename Hi, bool BF16>
-__global__ void __launch_bounds__(kGradThreads, 2)
-mp_syrk_grad_kernel(const Hi* __restrict__ g, const Hi* __restrict__ p, Hi* __restrict__ dp,
-                    int m, int kdim, int tile, int band) {
-  constexpr size_t kStage = sizeof(GradStage<float>) > sizeof(GradStage<Hi>)
-                                ? sizeof(GradStage<float>) : sizeof(GradStage<Hi>);
-  __shared__ __align__(16) unsigned char smem[2 * kStage];
-  const int r0 = blockIdx.y * 64, c0 = blockIdx.x * 64;
-  const int ti = r0 / tile, n_tiles = m / tile;
-  const int b0 = max(0, ti - band + 1) * tile, b1 = min(n_tiles, ti + band) * tile;
-  auto to_lo = [](Hi x) -> float {
-    if constexpr (BF16) return round_bf16(x);
-    else return static_cast<float>(x);  // round to nearest
+// ---- the fp64 band on DMMA -----------------------------------------------
+template <int BM, int BN>
+struct GradDmmaCfg {
+  static constexpr int WM = BM == 128 ? 64 : 32, WN = 32;  // warp tile
+  static constexpr int MT = WM / 16, NT = WN / 8;           // m16n8 tiles of a warp
+  static constexpr int WARPS_M = BM / WM;
+  static constexpr int THREADS = WARPS_M * (BN / WN) * 32;
+  static constexpr int BK = 16;                     // K columns per stage
+  static constexpr int LDA = BM + 4, LDB = BN + 4;  // = 4 (mod 16) doubles
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE = BK * (LDA + LDB);    // doubles
+  static constexpr int SMEM = STAGES * STAGE * 8;
+};
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(GradDmmaCfg<BM, BN>::THREADS, 1)
+mp_syrk_grad_dmma_kernel(const double* __restrict__ g, const double* __restrict__ dd,
+                         const double* __restrict__ p, double* __restrict__ out, int m, int kdim,
+                         int tile, int band, int add) {
+  using C = GradDmmaCfg<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  double* ring = reinterpret_cast<double*>(smem_raw);
+  const GradBlock blk = grad_block(BM, BN, m, kdim, tile, band);
+  const long long tt = static_cast<long long>(tile) * tile;
+  const int nkt = (blk.b1 - blk.b0) / C::BK;
+
+  auto fill = [&](int kt, int s) {
+    double* A = ring + s * C::STAGE;
+    double* B = A + C::BK * C::LDA;
+    const int j = blk.b0 + kt * C::BK;
+    const int tj = j / tile, jl = j - tj * tile;
+    if (tj < blk.ti)
+      stage_transposed<double, C::BK, BM, C::LDA, C::THREADS>(
+          A, g + static_cast<long long>(blk.r0) * m + j, m);
+    else if (tj == blk.ti)
+      stage_natural<double, C::BK, BM, C::LDA, C::THREADS>(
+          A, dd + blk.ti * tt + static_cast<long long>(jl) * tile + blk.rl, tile);
+    else
+      stage_natural<double, C::BK, BM, C::LDA, C::THREADS>(
+          A, g + static_cast<long long>(j) * m + blk.r0, m);
+    stage_natural<double, C::BK, BN, C::LDB, C::THREADS>(
+        B, p + static_cast<long long>(j) * kdim + blk.c0, kdim);
   };
-  float off[4][4] = {};
-  auto* st32 = reinterpret_cast<GradStage<float>*>(smem);
-  grad_range<float>(off, g, p, m, kdim, tile, r0, c0, 0, b0, st32, to_lo);
-  grad_range<float>(off, g, p, m, kdim, tile, r0, c0, b1, m, st32, to_lo);
-  Hi acc[4][4] = {};
-  grad_range<Hi>(acc, g, p, m, kdim, tile, r0, c0, b0, b1,
-                 reinterpret_cast<GradStage<Hi>*>(smem), [](Hi x) { return x; });
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp % C::WARPS_M) * C::WM, wn = (warp / C::WARPS_M) * C::WN;
+  const int gq = lane / 4, tq = lane % 4;
+  double acc[C::MT][C::NT][4] = {};
+  grad_ring_loop<C::STAGES>(nkt, fill, [&](int s) {
+    const double* A = ring + s * C::STAGE;
+    const double* B = A + C::BK * C::LDA;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    Hi v[4];
+    for (int kk = 0; kk < C::BK; kk += 4) {
+      const double* ak = A + (kk + tq) * C::LDA + wm + gq;
+      const double* bk = B + (kk + tq) * C::LDB + wn + gq;
+      double a[C::MT][2], b[C::NT];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      v[jj] = acc[i][jj] + static_cast<Hi>(BF16 ? round_bf16(off[i][jj]) : off[i][jj]);
-    st4(dp + static_cast<long long>(r0 + ty * 4 + i) * kdim + c0 + tx * 4, v);
+      for (int i = 0; i < C::MT; ++i) {
+        a[i][0] = ak[16 * i];
+        a[i][1] = ak[16 * i + 8];
+      }
+#pragma unroll
+      for (int jj = 0; jj < C::NT; ++jj) b[jj] = bk[8 * jj];
+#pragma unroll
+      for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < C::NT; ++jj) dmma_m16n8k4(acc[i][jj], a[i], b[jj]);
+    }
+  });
+
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int jj = 0; jj < C::NT; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = blk.r0 + wm + 16 * i + gq + 8 * h;
+        double2* d = reinterpret_cast<double2*>(out + row * kdim + blk.c0 + wn + 8 * jj + 2 * tq);
+        double2 x = make_double2(acc[i][jj][2 * h], acc[i][jj][2 * h + 1]);
+        if (add) {
+          const double2 y = *d;
+          x = make_double2(x.x + y.x, x.y + y.y);
+        }
+        *d = x;
+      }
+}
+
+// ---- the {fp32, bf16} off-band on bf16 wgmma -----------------------------
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of an MN-major tile written by TMA with the 128-byte
+// swizzle: K rows of 64 bf16 (128 bytes), 8-row groups 1,024 bytes apart;
+// one 64-element MN atom, so the leading offset (the next atom) is unused
+// and holds the same 1,024.  Advancing K by 16 rows adds 2,048 bytes.
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* tile) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= uint64_t(1024 >> 4) << 16;
+  d |= uint64_t(1024 >> 4) << 32;
+  d |= uint64_t(1) << 62;
+  return d;
+}
+
+template <int BM, int BN>
+struct GradWgCfg {
+  static constexpr int NWG = BM / 64;             // consumer warpgroups, 64 rows each
+  static constexpr int THREADS = NWG * 128 + 32;  // and one producer warp
+  static constexpr int STAGES = 4;
+  static constexpr int A_BYTES = BM * KC * 2;     // K-major BM x 64, or BM / 64 MN-major 64 x 64
+  static constexpr int B_BYTES = BN * KC * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static constexpr int FLUSH = 4;                 // stages summed in the tensor cores per IEEE add
+};
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(GradWgCfg<BM, BN>::THREADS, 1)
+mp_syrk_grad_offband_wgmma_kernel(const __grid_constant__ CUtensorMap smap_k,
+                                  const __grid_constant__ CUtensorMap smap_mn,
+                                  const __grid_constant__ CUtensorMap pmap,
+                                  float* __restrict__ dp, int m, int kdim, int tile, int band) {
+  using C = GradWgCfg<BM, BN>;
+  constexpr int R = BN / 2;  // accumulator registers per thread (64 x BN per warpgroup)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+
+  const GradBlock blk = grad_block(BM, BN, m, kdim, tile, band);
+  const int per_tile = tile / KC;
+  const int nlc = blk.b0 / KC;                   // chunks left of the band
+  const int n = nlc + (m - blk.b1) / KC;         // and right of it
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NWG * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp == C::NWG * 4) {  // the producer warp: one thread issues the loads
+    if (lane == 0) {
+      for (int kc = 0; kc < n; ++kc) {
+        const int s = kc % C::STAGES;
+        if (kc >= C::STAGES) mbar_wait(&empty[s], (kc / C::STAGES - 1) & 1);
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        const bool left = kc < nlc;
+        const int x = left ? kc : kc - nlc;
+        const int tj = left ? x / per_tile : blk.ti + band + x / per_tile;
+        const int k0 = (x % per_tile) * KC;
+        if (left) {
+          tma_load_3d(st, &smap_k, &full[s], k0, blk.rl,
+                      static_cast<int>(packed_index(blk.ti, tj, band)));
+        } else {
+          const int q = static_cast<int>(packed_index(tj, blk.ti, band));
+#pragma unroll
+          for (int h = 0; h < C::NWG; ++h)
+            tma_load_3d(st + h * 64 * 128, &smap_mn, &full[s], blk.rl + 64 * h, k0, q);
+        }
+        tma_load_2d(st + C::A_BYTES, &pmap, &full[s], tj * tile + k0, blk.c0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows wg * 64 .. wg * 64 + 63 of the block
+  const int wg = warp / 4;
+  float acc[R], total[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = total[i] = 0.f;
+  for (int kc = 0; kc < n; ++kc) {
+    const int s = kc % C::STAGES;
+    mbar_wait(&full[s], (kc / C::STAGES) & 1);
+    const uint8_t* st = ring + s * C::STAGE_BYTES;
+    const uint64_t db = smem_desc(st + C::A_BYTES);
+    const bool fresh = kc % C::FLUSH == 0;
+    fence_regs(acc);
+    wgmma_fence();
+    if (kc < nlc) {  // K-major A: the next 16 columns are 32 bytes on
+      const uint64_t da = smem_desc(st + wg * 64 * 128);
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_bf16<BN, 0>(acc, da + 2 * kk, db + 2 * kk, (fresh && kk == 0) ? 0 : 1);
+    } else {         // MN-major A: the next 16 K rows are 2,048 bytes on
+      const uint64_t da = smem_desc_mn(st + wg * 64 * 128);
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_bf16<BN, 1>(acc, da + 128 * kk, db + 2 * kk, (fresh && kk == 0) ? 0 : 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done: free its stage
+    fence_regs(acc);
+    if (kc > 0 && lane == 0) mbar_arrive(&empty[(kc - 1) % C::STAGES]);
+    if ((kc + 1) % C::FLUSH == 0 || kc + 1 == n) {  // IEEE fp32 adds of the partial
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < R; ++i) total[i] += acc[i];
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: the sum rounded once to bf16, stored as fp32, straight from
+  // the registers (lane pairs of columns)
+  const int w = warp % 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = blk.r0 + wg * 64 + w * 16 + lane / 4 + 8 * h;
+      const int col = blk.c0 + 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(dp + row * kdim + col) =
+          make_float2(round_bf16(total[4 * j + 2 * h]), round_bf16(total[4 * j + 2 * h + 1]));
+    }
+}
+
+// ---- the backward's launch -----------------------------------------------
+// The scratch of one call, each part 1,024-byte aligned: the D + D^T tiles
+// (n_t tile^2 in hi), then under the split pairs with an off-band the
+// packed lo tiles (n_packed tile^2 in lo) and lo(P) (m kdim in lo).
+// kernels/mp_gemm/mp_gemm.py:grad_scratch_layout computes the same.
+struct GradScratch {
+  long long dd, s_lo, p_lo, total;
+};
+
+inline long long align1k(long long x) { return (x + 1023) / 1024 * 1024; }
+
+GradScratch grad_scratch(int m, int kdim, int tile, int pair, long long n_packed) {
+  const long long hi = pair == kF32Bf16 || pair == kF32F32 ? 4 : 8;
+  const long long lo = pair == kF32Bf16 ? 2 : 4;
+  const long long tt = static_cast<long long>(tile) * tile;
+  GradScratch sc{0, 0, 0, 0};
+  sc.total = static_cast<long long>(m / tile) * tt * hi;
+  if (n_packed > 0) {
+    sc.s_lo = align1k(sc.total);
+    sc.p_lo = align1k(sc.s_lo + n_packed * tt * lo);
+    sc.total = sc.p_lo + static_cast<long long>(m) * kdim * lo;
+  }
+  return sc;
+}
+
+template <typename Hi>
+cudaError_t launch_grad_prepass(const Hi* g, Hi* dd, int m, int tile, cudaStream_t stream) {
+  mp_syrk_grad_diag_kernel<Hi><<<dim3(tile / 32, tile / 32, m / tile), 256, 0, stream>>>(
+      g, dd, m, tile);
+  return cudaGetLastError();
+}
+
+template <typename Hi, typename Lo, bool TRANS>
+cudaError_t launch_grad_lo(const Hi* g, const Hi* p, Lo* s_lo, Lo* p_lo, int m, int kdim,
+                           int tile, int band, long long n_packed, cudaStream_t stream) {
+  const long long tt = static_cast<long long>(tile) * tile;
+  const unsigned runs = static_cast<unsigned>((tt + kPassElems - 1) / kPassElems);
+  const unsigned tiles = static_cast<unsigned>(n_packed < 65535 ? n_packed : 65535);
+  mp_syrk_grad_lo_tiles_kernel<Hi, Lo><<<dim3(runs, tiles), kPassThreads, 0, stream>>>(
+      g, s_lo, m, tile, band, n_packed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mp_syrk_grad_lo_p_kernel<Hi, Lo, TRANS><<<dim3(m / 32, kdim / 32), 256, 0, stream>>>(
+      p, p_lo, m, kdim);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled for a bf16 tensor with the 128-byte swizzle
+bool bf16_map(CUtensorMap* map, void* base, cuuint32_t rank, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims, strides,
+                                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN>
+cudaError_t launch_grad_bf16_off(__nv_bfloat16* s_lo, __nv_bfloat16* pt_lo, float* dp, int m,
+                                 int kdim, int tile, int band, long long n_packed,
+                                 cudaStream_t stream) {
+  CUtensorMap smap_k, smap_mn, pmap;
+  const cuuint64_t sdims[3] = {static_cast<cuuint64_t>(tile), static_cast<cuuint64_t>(tile),
+                               static_cast<cuuint64_t>(n_packed)};
+  const cuuint64_t sstrides[2] = {static_cast<cuuint64_t>(tile) * 2,
+                                  static_cast<cuuint64_t>(tile) * tile * 2};
+  const cuuint32_t box_k[3] = {KC, BM, 1}, box_mn[3] = {64, KC, 1};
+  const cuuint64_t pdims[2] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(kdim)};
+  const cuuint64_t pstrides[1] = {static_cast<cuuint64_t>(m) * 2};
+  const cuuint32_t pbox[2] = {KC, BN};
+  if (!bf16_map(&smap_k, s_lo, 3, sdims, sstrides, box_k) ||
+      !bf16_map(&smap_mn, s_lo, 3, sdims, sstrides, box_mn) ||
+      !bf16_map(&pmap, pt_lo, 2, pdims, pstrides, pbox))
+    return cudaErrorInvalidValue;
+  using C = GradWgCfg<BM, BN>;
+  return launch_ring(mp_syrk_grad_offband_wgmma_kernel<BM, BN>,
+                     static_cast<long long>(m / BM) * (kdim / BN), C::THREADS, C::SMEM, stream,
+                     smap_k, smap_mn, pmap, dp, m, kdim, tile, band);
+}
+
+template <int BM, int BN>
+cudaError_t launch_grad_engines(const void* g, const void* p, void* dp, const GradScratch& sc,
+                                uint8_t* scratch, int m, int kdim, int tile, int band, int pair,
+                                long long n_packed, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(m / BM) * (kdim / BN);
+  const int add = n_packed > 0;
+  cudaError_t err;
+  if (pair == kF32Bf16 || pair == kF32F32) {
+    const auto* gg = static_cast<const float*>(g);
+    const auto* pp = static_cast<const float*>(p);
+    auto* dd = reinterpret_cast<float*>(scratch + sc.dd);
+    if ((err = launch_grad_prepass(gg, dd, m, tile, stream)) != cudaSuccess) return err;
+    if (add) {
+      auto* s_lo = reinterpret_cast<__nv_bfloat16*>(scratch + sc.s_lo);
+      auto* p_lo = reinterpret_cast<__nv_bfloat16*>(scratch + sc.p_lo);
+      err = launch_grad_lo<float, __nv_bfloat16, true>(gg, pp, s_lo, p_lo, m, kdim, tile, band,
+                                                       n_packed, stream);
+      if (err == cudaSuccess)
+        err = launch_grad_bf16_off<BM, BN>(s_lo, p_lo, static_cast<float*>(dp), m, kdim, tile,
+                                           band, n_packed, stream);
+      if (err != cudaSuccess) return err;
+    }
+    using C = GradF32Cfg<BM, BN>;
+    return launch_ring(mp_syrk_grad_fp32_kernel<BM, BN, false>, blocks, C::THREADS, C::SMEM,
+                       stream, gg, static_cast<const float*>(dd), pp, dp, m, kdim, tile, band,
+                       add);
+  }
+  const auto* gg = static_cast<const double*>(g);
+  const auto* pp = static_cast<const double*>(p);
+  auto* dd = reinterpret_cast<double*>(scratch + sc.dd);
+  if ((err = launch_grad_prepass(gg, dd, m, tile, stream)) != cudaSuccess) return err;
+  if (add) {
+    auto* s_lo = reinterpret_cast<float*>(scratch + sc.s_lo);
+    auto* p_lo = reinterpret_cast<float*>(scratch + sc.p_lo);
+    err = launch_grad_lo<double, float, false>(gg, pp, s_lo, p_lo, m, kdim, tile, band, n_packed,
+                                               stream);
+    if (err != cudaSuccess) return err;
+    using C = GradF32Cfg<BM, BN>;
+    err = launch_ring(mp_syrk_grad_fp32_kernel<BM, BN, true>, blocks, C::THREADS, C::SMEM, stream,
+                      static_cast<const float*>(s_lo), static_cast<const float*>(nullptr),
+                      static_cast<const float*>(p_lo), dp, m, kdim, tile, band, 0);
+    if (err != cudaSuccess) return err;
+  }
+  using C = GradDmmaCfg<BM, BN>;
+  return launch_ring(mp_syrk_grad_dmma_kernel<BM, BN>, blocks, C::THREADS, C::SMEM, stream, gg,
+                     static_cast<const double*>(dd), pp, static_cast<double*>(dp), m, kdim, tile,
+                     band, add);
 }
 
 }  // namespace
@@ -1023,32 +1574,31 @@ extern "C" int mp_syrk_launch(const void* p, void* scratch, void* out, int m, in
 }
 
 // g: dU (m, m) contiguous in hi, only its lower tiles read; p: (m, kdim)
-// contiguous in hi; dp: (m, kdim) in hi, written here.  Requires tile % 64
-// == 0, m % tile == 0, kdim % 64 == 0 and m / 64 <= 65535; pair as
-// mp_syrk_launch's.  One block per 64 x 64 tile of dP, the kdim / 64 blocks
-// of a row of tiles next to each other so that they share S in L2.
-extern "C" int mp_syrk_grad_launch(const void* g, const void* p, void* dp, int m, int kdim,
-                                   int tile, int band_blocks, int pair, void* stream) {
+// contiguous in hi; dp: (m, kdim) in hi, written here; scratch: at least
+// scratch_bytes = grad_scratch(...).total bytes (the D + D^T tiles, the
+// packed lo tiles and lo(P)), written here.  Requires tile % 64 == 0, m %
+// tile == 0, kdim % 64 == 0 and m / 64 <= 65535; pair as mp_syrk_launch's.
+// Blocks are BM x BN of dP: 128 where it divides the tile (kdim), else 64.
+extern "C" int mp_syrk_grad_launch(const void* g, const void* p, void* dp, void* scratch,
+                                   long long scratch_bytes, int m, int kdim, int tile,
+                                   int band_blocks, int pair, void* stream) {
   if (tile <= 0 || tile % 64 || m <= 0 || m % tile || kdim <= 0 || kdim % 64 ||
-      m / 64 > 65535 || band_blocks < 1 || pair < 0 || pair > 3)
+      m / 64 > 65535 || kdim / 32 > 65535 || band_blocks < 1 || pair < 0 || pair > 3)
     return cudaErrorInvalidValue;
   const int n_tiles = m / tile;
   const bool split = pair == kF32Bf16 || pair == kF64F32;
   const int band = split && band_blocks < n_tiles ? band_blocks : n_tiles;
-  const dim3 grid(kdim / 64, m / 64);
+  const long long n_packed = tri(n_tiles - band);  // 0 for the all-hi pairs
+  const GradScratch sc = grad_scratch(m, kdim, tile, pair, n_packed);
+  if (scratch == nullptr || scratch_bytes < sc.total) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pair == kF32Bf16 || pair == kF32F32) {
-    const auto* gg = static_cast<const float*>(g);
-    const auto* pp = static_cast<const float*>(p);
-    auto* out = static_cast<float*>(dp);
-    if (pair == kF32Bf16)
-      mp_syrk_grad_kernel<float, true><<<grid, kGradThreads, 0, s>>>(gg, pp, out, m, kdim, tile, band);
-    else
-      mp_syrk_grad_kernel<float, false><<<grid, kGradThreads, 0, s>>>(gg, pp, out, m, kdim, tile, band);
-  } else {
-    mp_syrk_grad_kernel<double, false><<<grid, kGradThreads, 0, s>>>(
-        static_cast<const double*>(g), static_cast<const double*>(p), static_cast<double*>(dp), m,
-        kdim, tile, band);
-  }
-  return cudaGetLastError();
+  auto* sp = static_cast<uint8_t*>(scratch);
+  const bool bm128 = tile % 128 == 0, bn128 = kdim % 128 == 0;
+  if (bm128 && bn128)
+    return launch_grad_engines<128, 128>(g, p, dp, sc, sp, m, kdim, tile, band, pair, n_packed, s);
+  if (bm128)
+    return launch_grad_engines<128, 64>(g, p, dp, sc, sp, m, kdim, tile, band, pair, n_packed, s);
+  if (bn128)
+    return launch_grad_engines<64, 128>(g, p, dp, sc, sp, m, kdim, tile, band, pair, n_packed, s);
+  return launch_grad_engines<64, 64>(g, p, dp, sc, sp, m, kdim, tile, band, pair, n_packed, s);
 }

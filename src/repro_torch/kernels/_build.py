@@ -53,8 +53,10 @@ SIGNATURES = {
     # p, scratch, out, m, kdim, tile, round_k, band_blocks, pair, bm,
     # stream
     "mp_syrk_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # g, p, dp, m, kdim, tile, band_blocks, pair, stream
-    "mp_syrk_grad_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g, p, dp, scratch, scratch_bytes, m, kdim, tile, band_blocks, pair,
+    # stream
+    "mp_syrk_grad_launch": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+                            _I, _I, _P],
     # q, k, v, scales, seg_len, acc, m, l, ws_acc, ws_m, ws_l, batch, g, d,
     # s, blk, chunk, sm_scale, q_bf16, kv_dtype, stream
     "mp_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -181,7 +181,9 @@ def launch_grad(locs_a, locs_b, theta, grad_out, *, nu, metric="euclidean"):
     (theta1, theta2, ...), rounded to the locations' precision as `launch`
     rounds them.  Returns a (2,) tensor in that precision on the device.
     `symmetric` locations launch the symmetric form (G need not be
-    symmetric); its sums differ from the general form's in their order."""
+    symmetric); its sums differ from the general form's in their order.
+    Haversine distance raises here (`_two_nu`), before any build, until
+    ROADMAP A 5; the plain version (ref.matern_cov_grad) takes it."""
     two_nu = _two_nu(nu, metric)
     dtype = locs_a.dtype
     if (dtype not in (torch.float32, torch.float64) or locs_b.dtype != dtype

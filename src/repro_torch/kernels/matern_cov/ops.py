@@ -76,8 +76,9 @@ def matern_cov_grad(locs_a, locs_b, theta, grad_out, *, nu,
     """The gradient in (theta1, theta2) of sum(grad_out * matern_cov(locs_a,
     locs_b, theta)): a (2,) tensor in the locations' precision, on their
     device.  grad_out: (m, n), in that precision.  A CPU tensor runs the
-    plain version; a CUDA tensor launches the backward kernel, which raises
-    on what it does not take (a general nu, haversine distance)."""
+    plain version, Euclidean or haversine; a CUDA tensor launches the
+    backward kernel, which raises on what it does not take (a general nu,
+    and haversine distance until ROADMAP A 5)."""
     if not locs_a.is_cuda:
         return ref.matern_cov_grad(locs_a, locs_b, theta, grad_out, nu=nu,
                                    metric=metric)

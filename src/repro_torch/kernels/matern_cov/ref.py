@@ -85,17 +85,17 @@ def matern_cov_grad(locs_a, locs_b, theta, grad_out, *, nu,
     forward writes theta1 whatever x is.  theta3 has no gradient: a
     half-integer nu ignores it.  Per-element terms are computed in theta's
     precision, as the forward computes K; the products with G are summed in
-    fp64, GRAD_ROWS rows at a time (distances by direct differences, as
-    the forward's)."""
+    fp64, GRAD_ROWS rows at a time.  r is the forward's distance under
+    `metric` (`pairwise_distance`: direct differences for "euclidean", the
+    great circle in degrees for "haversine"); it does not depend on theta,
+    so only r differs between the metrics."""
     if nu not in HALF_INTEGER_NUS:
         raise ValueError(f"matern_cov_grad: nu={nu} has no closed form")
-    if metric != "euclidean":
-        raise NotImplementedError("matern_cov_grad: euclidean distance only")
     th = _theta(theta, nu, locs_a)
     acc = torch.zeros(2, dtype=torch.float64, device=locs_a.device)
     for r0 in range(0, locs_a.shape[0], GRAD_ROWS):
         rows = slice(r0, r0 + GRAD_ROWS)
-        r = pairwise_distance(locs_a[rows], locs_b)
+        r = pairwise_distance(locs_a[rows], locs_b, metric=metric)
         x = r / th[1]
         at0 = r == 0.0
         corr = torch.where(at0, 1.0, _matern_half_integer(x, nu))

@@ -24,12 +24,27 @@ What bounds each on the H100, and what its design does about it:
   lanes that share a row of P share its 16-byte shared loads, and the 64
   accumulators of a thread in registers (one block per SM, no spill).
 
-`launch_grad` runs the backward, `mp_syrk_grad_kernel`: dP = S P with S the
-lower tiles of dU and their transpose, hi arithmetic inside the band and lo
-operands with an fp32 sum off it.  It has no TPU counterpart (the JAX
-package differentiates its jnp engines).  A simple SIMT kernel, bound by its
-operations (2 m^2 kdim, twice the forward's): 64 x 64 tiles of dP, 4 x 4
-outputs a thread, IEEE FMA only (no TF32, no tensor cores yet).
+`launch_grad` runs the backward, dP = S P with S the lower tiles of dU and
+their transpose, hi arithmetic inside the band and lo operands with an fp32
+sum off it.  It has no TPU counterpart (the JAX package differentiates its
+jnp engines).  Bound by its operations (2 m^2 kdim, twice the forward's),
+it runs the forward's three engines adapted to dP = S P, after a pre-pass
+that writes D + D^T in hi for each diagonal tile D of dU and, under the
+split pairs, lo(dU) for each lower off-band tile (packed in row order)
+and lo(P) into one scratch (`grad_scratch_layout`):
+
+- {fp32, bf16} off-band: bf16 wgmma fed by TMA, a tile right of the band
+  read MN-major through the transpose bit, the tensor cores' partial sums
+  added in IEEE fp32 every 256 columns of K, the sum rounded once to bf16;
+- the paper pair's fp64 band and all of all-fp64: DMMA from a cp.async
+  ring;
+- the fp32 band ({fp32, bf16}), all of all-fp32 and the paper pair's fp32
+  off-band: IEEE fp32 FMA on the CUDA cores from a cp.async ring, 8 x 8
+  outputs a thread.
+
+The off-band kernel writes lo(off) into dP, the band's then adds its hi
+sum.  tests/test_torch_syrk_grad_plan.py specifies the dataflow and the
+block and chunk plan in Python.
 """
 
 from __future__ import annotations
@@ -93,6 +108,30 @@ def launch(p, *, tile, round_k, band_blocks, hi, lo, accum):
     return out
 
 
+ALIGN = 1024   # alignment of each part of the backward's scratch
+
+
+def grad_scratch_layout(m, kdim, tile, band_blocks, pair):
+    """The backward's scratch (csrc/mp_syrk.cu: grad_scratch): byte offset
+    and size of the D + D^T tiles (n_t tile^2 in hi) and, for a split pair
+    with an off-band, of the n_packed lower off-band tiles of dU in lo,
+    packed in row order, and of lo(P) (m kdim, transposed for bf16); each
+    part 1,024-aligned.  The all-hi pairs have no off-band."""
+    hi, lo = {0: (4, 2), 1: (4, 4), 2: (8, 4), 3: (8, 8)}[pair]
+    n_t = m // tile
+    off = n_t - min(band_blocks, n_t) if pair in SPLIT_PAIRS else 0
+    n_packed = off * (off + 1) // 2
+    align = lambda x: -(-x // ALIGN) * ALIGN  # noqa: E731
+    out = dict(n_packed=n_packed, dd=(0, n_t * tile * tile * hi))
+    total = out["dd"][1]
+    if n_packed:
+        out["s_lo"] = (align(total), n_packed * tile * tile * lo)
+        out["p_lo"] = (align(sum(out["s_lo"])), m * kdim * lo)
+        total = sum(out["p_lo"])
+    out["total"] = total
+    return out
+
+
 def launch_grad(g, p, *, tile, band_blocks, hi, lo, accum):
     """dP (m, kdim) hi of U = P P^T from dU = g (m, m) hi (its lower tiles
     only), with the forward's banded precision."""
@@ -116,9 +155,12 @@ def launch_grad(g, p, *, tile, band_blocks, hi, lo, accum):
     if band_blocks < 1:
         raise ValueError(f"band_blocks must be >= 1, got {band_blocks}")
     out = torch.empty_like(p)
+    nbytes = grad_scratch_layout(m, kdim, tile, band_blocks, pair)["total"]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=p.device)
     status = library().mp_syrk_grad_launch(
-        g.data_ptr(), p.data_ptr(), out.data_ptr(), m, kdim, tile,
-        band_blocks, pair, torch.cuda.current_stream(p.device).cuda_stream)
+        g.data_ptr(), p.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        nbytes, m, kdim, tile, band_blocks, pair,
+        torch.cuda.current_stream(p.device).cuda_stream)
     check(status, "mp_syrk_grad")
     LAUNCHES["mp_syrk_grad"] += 1
     return out

@@ -25,6 +25,7 @@ from repro.core.tile_cholesky import (_potrf, _trsm_right_lt, assemble_lower,
 from repro_torch.core import PrecisionPolicy, fit_mle, fit_mle_adam
 from repro_torch.core import likelihood as tlik
 from repro_torch.core.panel_cholesky import _cholesky
+from repro_torch.covariance.matern import pairwise_distance
 from repro_torch.kernels.matern_cov import ops as mc_ops
 from repro_torch.kernels.matern_cov import ref as mc_ref
 from test_torch_panel import _port_policy
@@ -429,3 +430,105 @@ def test_chip_smoke_cuts_the_fp64_gradient_n(peak32, want):
     assert n == want and n % 1024 == 0
     assert 2 * peak32 * (n / 40_960) ** 2 <= 70.0
     assert n == 40_960 or 2 * peak32 * ((n + 1024) / 40_960) ** 2 > 70.0
+
+
+# ----------------------------------------------------------------------
+# haversine distance (ROADMAP C 15): the theta-gradient on the CPU, the
+# card's refusal
+# ----------------------------------------------------------------------
+
+# theta = (1, theta2, 0.5) by nu.  theta2 = 2 degrees for nu = 0.5; the
+# smoother nu take a shorter range, since at theta2 = 2 their fp32 Sigma
+# is too ill-conditioned to compare two fp32 orders of summation (measured
+# there: log-likelihoods 5.8e-4 (nu = 1.5) and 2.3e-2 (2.5) apart, tpu(2)
+# NaN in both packages)
+HAV_THETA2 = {0.5: 2.0, 1.5: 0.3, 2.5: 0.2}
+
+
+@pytest.fixture(scope="module")
+def hav_data():
+    """n = 128 fp32 (lon, lat) in a 10 x 10 degree box, z standard
+    normal."""
+    rng = np.random.default_rng(21)
+    locs = rng.uniform(0.0, 10.0, size=(N, 2)).astype(np.float32)
+    return locs, rng.standard_normal(N).astype(np.float32)
+
+
+def _hav_scale(jp, theta, nu, locs, z):
+    """s_k = sum |G| dSigma/dtheta_k with G = dl/dSigma of the port's path
+    (dense for full, the tile engine for a mixed policy), haversine r."""
+    lt = torch.from_numpy(locs)
+    pol = _port_policy(jp)
+    cov = tlik.build_covariance(lt, theta, nu_static=nu, metric="haversine",
+                                jitter=1e-6, impl="plain").requires_grad_(True)
+    l = (tlik.reference_cholesky(cov, pol.hi) if pol.mode == "full"
+         else tlik.tile_cholesky(cov, NB, pol, impl="plain"))
+    (g,) = torch.autograd.grad(tlik.loglik_from_factor(l, torch.from_numpy(z)),
+                               cov)
+    return mc_ref.matern_cov_grad(lt, lt, theta.tolist(), g.abs(), nu=nu,
+                                  metric="haversine").double().numpy()
+
+
+# (log-likelihood relative, gradient gap over s_k), measured for nu = 0.5 /
+# 1.5 / 2.5: dense full(fp32) ll 4.2e-7 / 6.4e-7 / 3.7e-6 and gradient
+# 8.4e-9 / 8.7e-8 / 1.3e-6 (fp32 sums in other orders); tpu(2) ll 9.5e-7
+# / 0 / 0 and gradient 2.6e-4 / 2.0e-5 / 3.5e-5, the bf16 cotangent-rounding
+# gap of ROADMAP C 13, larger than the Euclidean cases' (<= 1e-4) in this
+# strongly correlated field
+HAV_TOL = {"full(fp32)": (1e-5, 5e-6), "tpu(2)": (1e-5, 1e-3)}
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5])
+@pytest.mark.parametrize("case", list(HAV_TOL))
+def test_haversine_value_and_grad_matches_jax(case, nu, hav_data):
+    """ROADMAP C 15: MaternCov differentiates haversine distance (it raised
+    for every half-integer nu); dense full(fp32) and tiled tpu(2) through
+    MaternCov (impl="kernel": the plain versions on the CPU) against
+    jax.value_and_grad of the JAX make_loglik, nb = 32."""
+    jp = JP.full(jnp.float32) if case == "full(fp32)" else JP.tpu(2)
+    theta = np.array([1.0, HAV_THETA2[nu], 0.5], np.float32)
+    v, g, ll, gt = _value_and_grads(jp, theta, *hav_data, impl="kernel",
+                                    nu_static=nu, metric="haversine")
+    ll_tol, tol = HAV_TOL[case]
+    assert np.isfinite([v, ll]).all() and np.isfinite(gt).all() and gt[2] == 0
+    assert abs(ll - v) <= ll_tol * abs(v)
+    gap = np.abs(gt[:2] - g[:2]) / _hav_scale(jp, theta, nu, *hav_data)
+    assert gap.max() <= tol, gap
+
+
+def test_haversine_matern_cov_grad_matches_autograd():
+    """The plain backward under haversine (ref.matern_cov_grad, through
+    MaternCov) against autograd of the Matern written out on the haversine
+    distance, fp64, every nu (measured <= 6.3e-18 of the scale), with 8
+    r = 0 pairs."""
+    la, lb, g = _grad_inputs(torch.float64)
+    la, lb = la * 10.0, lb * 10.0  # degrees
+    r = pairwise_distance(la, lb, metric="haversine")
+    for nu in (0.5, 1.5, 2.5):
+        th = torch.tensor([0.8, 2.0, nu], dtype=torch.float64,
+                          requires_grad=True)
+        x = r / th[1]
+        poly = {0.5: torch.ones_like(x), 1.5: 1 + x, 2.5: 1 + x + x ** 2 / 3}[nu]
+        k = th[0] * torch.where(r == 0, torch.ones_like(x), poly * torch.exp(-x))
+        (want,) = torch.autograd.grad((k * g).sum(), th)
+        sigma = mc_ops.MaternCov.apply(la, lb, th, nu, "haversine", mc_ops)
+        (got,) = torch.autograd.grad((sigma * g).sum(), th)
+        scale = mc_ref.matern_cov_grad(la, lb, [0.8, 2.0], g.abs(), nu=nu,
+                                       metric="haversine")
+        assert got[2] == 0.0
+        assert torch.all((got[:2] - want[:2]).abs() <= 1e-13 * scale)
+
+
+def test_haversine_grad_kernel_refuses_before_any_build(monkeypatch):
+    """On a CUDA tensor the backward kernel still refuses haversine (ROADMAP
+    A 5), in _two_nu, before its checks and before the library is built."""
+    from repro_torch.kernels.matern_cov import matern_cov as mc_kernel
+
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(mc_kernel, "library", no_build)
+    la, lb, g = _grad_inputs(torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A 5"):
+        mc_kernel.launch_grad(la, lb, [1.0, 2.0], g, nu=0.5,
+                              metric="haversine")

@@ -362,3 +362,91 @@ def test_chip_smoke_syrk_grad_bound():
     assert by == "operations" and ms == pytest.approx(45.07, abs=0.01)
     ms, by = cs.syrk_grad_bound(39, 1024, 2, (F32, BF16, F32))
     assert by == "operations" and ms == pytest.approx(3.69, abs=0.01)
+
+
+# the kernels of one mp_syrk_grad call as the profiler named them on the
+# card (demangled, cut as device_profile's rows are not), and kernels of
+# the forward that must not count
+PROFILED = {
+    "void (anonymous namespace)::mp_syrk_grad_diag_kernel<float>(float "
+    "const*, float*, int, int)": "prepass",
+    "void (anonymous namespace)::mp_syrk_grad_lo_tiles_kernel<float, "
+    "__nv_bfloat16>(float const*, __nv_bfloat16*, int, int, int, long long)":
+        "prepass",
+    "void (anonymous namespace)::mp_syrk_grad_lo_p_kernel<double, float, "
+    "false>(double const*, float*, int, int)": "prepass",
+    "void (anonymous namespace)::mp_syrk_grad_offband_wgmma_kernel<128, "
+    "128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float*, int, int, "
+    "int, int)": "offband",
+    "void (anonymous namespace)::mp_syrk_grad_fp32_kernel<128, 128, true>("
+    "float const*, float const*, float const*, void*, int, int, int, int, "
+    "int)": "offband",
+    "void (anonymous namespace)::mp_syrk_grad_fp32_kernel<128, 128, false>("
+    "float const*, float const*, float const*, void*, int, int, int, int, "
+    "int)": "band",
+    "void (anonymous namespace)::mp_syrk_grad_dmma_kernel<128, 128>(double "
+    "const*, double const*, double const*, double*, int, int, int, int, int)":
+        "band",
+    "void (anonymous namespace)::syrk_band_lower_kernel<128>(float const*, "
+    "float*, int, int, (anonymous namespace)::Grid)": None,
+    "void (anonymous namespace)::to_fp32_kernel(double2 const*, float2*, "
+    "long long)": None,
+    "void (anonymous namespace)::syrk_band_f64_dmma_kernel<128>(double "
+    "const*, double*, int, int, (anonymous namespace)::Grid)": None,
+    "Memcpy DtoD (Device -> Device)": None,
+}
+
+
+def test_chip_smoke_syrk_grad_kernel_names(tmp_path):
+    """chip_smoke.py's profile sums for mp_syrk_grad (10.3 (a)'s classes,
+    10.3 (b)'s mp_syrk_grad_device_ms) take every kernel of the call and
+    no other, and its ptxas / SASS facts name every kernel: the
+    SYRK_GRAD_KERNELS tuple is exactly the __global__ mp_syrk_grad_*
+    kernels of csrc/mp_syrk.cu."""
+    import re
+    from pathlib import Path
+    cs = _chip_smoke()
+    rows = [(name, 1, float(i + 1)) for i, name in enumerate(PROFILED)]
+    classes, total = cs.syrk_grad_device_ms(rows)
+    want = {c: sum(ms for (name, _, ms) in rows if PROFILED[name] == c)
+            for c in ("prepass", "offband", "band")}
+    assert classes == want and total == sum(want.values()) == 28.0
+    for name, cls in PROFILED.items():
+        assert cs.syrk_grad_class(name) == cls
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "csrc" / "mp_syrk.cu").read_text()
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+"
+                         r"(mp_syrk_grad_\w+_kernel)\(", src)
+    assert sorted(kernels) == sorted(cs.SYRK_GRAD_KERNELS)
+    # the build's ptxas keys, one per instantiation, typed
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124mp_"
+           "syrk_grad_fp32_kernelILi128ELi128ELb1EEEvPKfS2_S2_Pviiiii' for "
+           "'sm_90a'\nptxas info    : Function properties for x\n    0 bytes "
+           "stack frame, 0 bytes spill stores, 0 bytes spill loads\nptxas "
+           "info    : Used 243 registers\n")
+    path = tmp_path / "nvcc.log"
+    path.write_text(log)
+    usage = cs.ptxas_usage(path, cs.SYRK_GRAD_KERNELS, typed=True)
+    assert usage == {"mp_syrk_grad_fp32_kernel<128,128,1>": {
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 243}}
+
+
+@pytest.mark.parametrize("case", ["tpu(2)", "full(fp32)", "paper_cpu(2)"])
+def test_chip_smoke_grad_scale_is_the_leaf_scale(case, data32, data64):
+    """10.3 (b)'s scale s_k = sum |G| dSigma/dtheta_k takes G by a hook
+    during the backward, so that Sigma is freed as in the evaluation; it
+    equals, bit for bit, G taken with Sigma held as a leaf."""
+    from repro_torch.core import build_covariance, loglik_from_factor
+    from repro_torch.core import tile_cholesky
+    from repro_torch.kernels.matern_cov import ops as mc_ops
+    make_jp, x64, _ = ENGINE_CASES[case]
+    locs, z = (torch.from_numpy(x) for x in (data64 if x64 else data32))
+    with jax.enable_x64(x64):
+        pol = _port_policy(make_jp())
+    theta = [1.0, 0.1, 0.5]
+    cov = build_covariance(locs, theta, nu_static=0.5, jitter=1e-6,
+                           dtype=pol.hi).requires_grad_(True)
+    (g,) = torch.autograd.grad(
+        loglik_from_factor(tile_cholesky(cov, NB, pol), z), cov)
+    want = mc_ops.matern_cov_grad(locs, locs, theta, g.abs(), nu=0.5).tolist()
+    assert _chip_smoke()._grad_scale(locs, z, pol, theta, NB) == want
