@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # the full run (one card)
     python3 chip_smoke.py --quick    # small shapes: build and check only
-                                     # (phase 9: evaluations and kernels)
+                                     # (phase 9: evaluations and kernels;
+                                     # phase 11 (b) at n = 4,096 and 8,192)
     python3 chip_smoke.py --e2e-ab DIR  # only phases 4, 8.1, 9.1 and 10.1's
                                      # evaluations, the checkout at DIR and
                                      # this one in turns (DIR, this, this, DIR)
@@ -116,6 +117,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      pair's gradient beside dense full(fp64)'s; fit_mle_adam under the
      pair through the tiles at n = 8,192 against fit_mle; and
      geostat_loglik_step refusing a theta that requires grad;
+ 11. accuracy (repro_torch.verify, the fp64 oracles and the tolerance
+     registry): (a) the conformance sweep through the kernels on the card's
+     grid (n in {128, 256, 384} x weak / medium / strong at nb = 64: p in
+     {2, 4, 6}, as the CPU grid at nb = 32): the tile engine under five
+     policies and the paper pair, the panel engine, DST, kriging and the
+     four kernel pairs, 126 records with every kernel launched; then the
+     Cholesky and kriging records again through the plain versions: every
+     registered bound held or passed by the plain twin as well (at n = 384
+     the strong field is harder than the CPU grid's n = 192: three_tier's
+     fp8 far field goes NaN and {fp32, bf16} t = 1 passes its loglik_drift
+     on both paths), the paper's claims (no deterioration, the pair at
+     fp32 scale, coverage, mixed beating DST) and no drift from
+     golden/accuracy_cuda.json; (b) the scale leg at n in {10,240, 40,960}
+     (nb = 1,024, weak and medium): tiled full(fp32), the paper pair,
+     {fp32, bf16} t = 2 and DST t = 2 against the fp64 oracle of the same
+     fp32 Sigma, one line per record with its bound, the predicted and
+     measured peak; full(fp32) and the pair finite, the pair's drift
+     <= 1e-4, DST a magnitude worse than a finite mixed record;
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -221,6 +240,13 @@ GRAD_KERNEL_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-12}
 # those last bits, which the Cholesky of an ill-conditioned Sigma amplifies
 # in fp32 (phase 8.1 holds the log-likelihood to 1e-3 for the same reason)
 GRAD_EVAL_TOL = {"torch.float32": 1e-3, "torch.float64": 1e-8}
+# phase 11 (b): the scale leg's sizes (the paper's estimation size and a
+# quarter of it), regimes and tile; the peak its predicted reckoning may
+# reach before n is cut; the paper pair's loglik_drift limit (phase 9.1's)
+SCALE = dict(sizes=(10_240, 40_960), regimes=("weak", "medium"), nb=1_024,
+             peak_gib=70.0, pair_drift=1e-4)
+SCALE_QUICK = dict(sizes=(4_096, 8_192), regimes=("weak", "medium"), nb=1_024,
+                   peak_gib=70.0, pair_drift=1e-4)
 
 
 def emit(**obj):
@@ -3067,6 +3093,200 @@ def gradient(gcfg, weak, fp64_field, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the accuracy sweep (repro_torch.verify) on the card
+# ---------------------------------------------------------------------------
+
+def scale_peak_bytes(n, nb):
+    """The scale leg's predicted peak at n (bytes): the problem's fp32 Sigma
+    (4 n^2) and the fp64 oracle factor L_ref (8 n^2) live throughout; on
+    top, the larger of the oracle's moment (the fp64 upcast it factors,
+    8 n^2) and the paper pair's factorization, which peaks with its tiles
+    (the 2p - 1 band tiles in fp64, the rest of the lower triangle in
+    fp32), a U of step 0's size (fp64, (n - nb)^2) and its assembled fp64
+    factor (8 n^2) all live (measured on the card: 29.76 n^2 in all at
+    n = 40,960, nb = 1,024).  The pair factors the fp32 Sigma, without an
+    fp64 upcast of its own."""
+    p = n // nb
+    band = 2 * p - 1
+    tiles = (8 * band + 4 * (p * (p + 1) // 2 - band)) * nb * nb
+    pair = tiles + 8 * (n - nb) ** 2 + 8 * n * n
+    return 12 * n * n + max(8 * n * n, pair)
+
+
+def scale_n(n, nb, limit_gib):
+    """n, or the largest multiple of nb below it whose predicted peak
+    (`scale_peak_bytes`) stays under limit_gib."""
+    while n > nb and scale_peak_bytes(n, nb) / 2**30 > limit_gib:
+        n -= nb
+    return n
+
+
+def _finite(rec, names=("factor_rel", "backward_rel", "loglik_drift")):
+    return all(math.isfinite(rec[k]) for k in names)
+
+
+def scale_failures(records, pair_drift):
+    """Phase 11 (b)'s requires over the scale leg's records: full(fp32) and
+    the paper pair finite, the pair's loglik_drift <= pair_drift, and DST's
+    factor_rel above 10x the mixed record's where that one is finite.  A
+    bf16 NaN and a registry bound passed at this n are reported, not
+    gated."""
+    recs = {r["id"]: r for r in records}
+    names = sorted({r["id"].rsplit("/", 1)[1] for r in records})
+    out = []
+    for name in names:
+        full = recs[f"chol/tile/full_f32/{name}"]
+        pair = recs[f"chol/tile/paper_f64f32_t2/{name}"]
+        mixed = recs[f"chol/tile/mixed_f32bf16_t2/{name}"]
+        dst = recs[f"chol/dst/t2/{name}"]
+        for rec in (full, pair):
+            if not _finite(rec):
+                out.append(f"{rec['id']} is not finite: {rec}")
+        if not pair["loglik_drift"] <= pair_drift:
+            out.append(f"{pair['id']}: loglik_drift {pair['loglik_drift']} "
+                       f"> {pair_drift}")
+        if _finite(mixed) and not dst["factor_rel"] > 10 * mixed["factor_rel"]:
+            out.append(f"{name}: DST factor_rel {dst['factor_rel']} not above "
+                       f"10x the mixed record's {mixed['factor_rel']}")
+    return out
+
+
+def _record_line(rec, step):
+    """One JSON line of a record: its metrics, its registered bound and
+    whether it is within it."""
+    import dataclasses
+    from repro_torch.verify.conformance import record_bound
+    bound = record_bound(rec)
+    viol = bound.violations(rec)
+    emit(phase="accuracy", step=step, **rec,
+         bound={k: v for k, v in dataclasses.asdict(bound).items()
+                if v is not None},
+         within_registry=not viol, violations=viol)
+
+
+def unshared_violations(records, plain_records, slack=2.0):
+    """The registry violations of the kernel path that its plain twin (the
+    same record through the plain versions, on the same problem) does not
+    share: (id, metric, value, bound, plain value).  A metric past its
+    bound is shared where the plain record's is non-finite too, or, where
+    it is finite, where the plain record's is at least bound / slack (the
+    golden gate's slack: a rounding flip moves a bf16 metric that far).
+    Such a violation is the policy's on that problem, not the kernels'."""
+    import dataclasses
+    from repro_torch.verify.conformance import record_bound
+    plain = {r["id"]: r for r in plain_records}
+    out = []
+    for rec in records:
+        bound = record_bound(rec)
+        for f in dataclasses.fields(bound):
+            limit, value = getattr(bound, f.name), rec.get(f.name)
+            if limit is None or value is None or value <= limit:
+                continue
+            twin = plain.get(rec["id"], {}).get(f.name)
+            shared = twin is not None and (
+                not math.isfinite(twin) if not math.isfinite(value)
+                else not twin < limit / slack)
+            if not shared:
+                out.append((rec["id"], f.name, value, limit, twin))
+    return out
+
+
+def accuracy_grid(results):
+    """11 (a): the conformance sweep on the card through the kernels, on
+    CARD_SIZES at CARD_NB (p in {2, 4, 6}), then its Cholesky and kriging
+    records again through the plain versions: every registry violation
+    shared by the plain twin (`unshared_violations`), the paper's four
+    claims, no drift from golden/accuracy_cuda.json, and each of the four
+    kernels launched."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.verify import (check_records, claim_failures,
+                                    compare_to_golden, load_golden,
+                                    sweep_cholesky, sweep_kernels,
+                                    sweep_kriging)
+    from repro_torch.verify.golden import device_grid
+    reset_launch_counts()
+    problems = device_grid("cuda")
+    records = sweep_cholesky(problems, device="cuda")
+    records += sweep_kriging(problems, device="cuda")
+    records += sweep_kernels("cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    plain = (sweep_cholesky(problems, impl="plain", device="cuda")
+             + sweep_kriging(problems, impl="plain", device="cuda"))
+    for rec in records:
+        _record_line(rec, "grid")
+    violations = check_records(records)
+    unshared = unshared_violations(records, plain)
+    claims = claim_failures(records, problems)
+    drifts = compare_to_golden(records, load_golden(device="cuda"))
+    kernels = ("matern_cov", "blocked_potrf", "mp_syrk", "mp_attention")
+    emit(phase="accuracy", step="grid summary", records=len(records),
+         problems=[p.name for p in problems], nb=problems[0].nb,
+         launches=counts, violations=violations,
+         plain_violations=check_records(plain), unshared=unshared,
+         claims=claims, drifts=drifts)
+    for k in kernels:
+        results[k]["launches_accuracy"] = counts[k]
+    require(all(counts[k] > 0 for k in kernels),
+            f"phase 11 (a) did not launch every kernel: {counts}")
+    require(len(records) == 126 and not unshared and not claims and not drifts,
+            f"phase 11 (a): {len(records)} records, violations the plain "
+            f"path does not share {unshared}, claims {claims}, drifts {drifts}")
+
+
+def accuracy_scale(scfg):
+    """11 (b): tiled full(fp32), the paper pair, {fp32, bf16} t = 2 and DST
+    t = 2 against the fp64 oracle of the same fp32 Sigma, on
+    matern_problem(n, regime, nb) at the paper's estimation sizes; n cut
+    to a multiple of nb if its predicted peak passes peak_gib."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.verify import matern_problem, sweep_cholesky
+    policies = {"full_f32": PrecisionPolicy.full(torch.float32),
+                "mixed_f32bf16_t2": PrecisionPolicy.tpu(2)}
+    nb, records = scfg["nb"], []
+    for n in scfg["sizes"]:
+        n_run = scale_n(n, nb, scfg["peak_gib"])
+        for regime in scfg["regimes"]:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            prob = matern_problem(n_run, regime, nb=nb, device="cuda")
+            recs = sweep_cholesky([prob], policies, panel=False, device="cuda")
+            torch.cuda.synchronize()
+            del prob
+            for rec in recs:
+                _record_line(rec, "scale")
+            emit(phase="accuracy", step="scale problem", n=n, n_run=n_run,
+                 regime=regime, nb=nb, seconds=time.perf_counter() - t0,
+                 predicted_peak_gib=scale_peak_bytes(n_run, nb) / 2**30,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 limit_gib=scfg["peak_gib"])
+            records += recs
+    drift = {r["id"]: r["loglik_drift"] for r in records
+             if r["id"].startswith("chol/tile/paper_f64f32_t2/")}
+    emit(phase="accuracy", step="paper pair drift by n", loglik_drift=drift,
+         registered=PAPER_LOGLIK_DRIFT, limit=scfg["pair_drift"])
+    failures = scale_failures(records, scfg["pair_drift"])
+    require(not failures, f"phase 11 (b): {failures}")
+
+
+def accuracy(scfg, results):
+    """Phase 11: the port's accuracy harness on the card (see the module
+    docstring), sub-steps timed into one phase line."""
+    import torch
+    secs = {}
+    for name, fn, args in (("11a grid", accuracy_grid, (results,)),
+                           ("11b scale", accuracy_scale, (scfg,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    emit(phase="accuracy", step="seconds", **secs)
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -3297,13 +3517,17 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("10 gradient", gradient, GRAD_QUICK if args.quick else GRAD, weak,
           fp64_field, results)
+    torch.cuda.empty_cache()
+    timed("11 accuracy", accuracy, SCALE_QUICK if args.quick else SCALE,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("launches_fidelity", "launches_paper")
+        {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
+                                  "launches_accuracy")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ def krige_from_factor(l, z_obs, sigma_no, *, sigma_nn_diag=None):
 
 def krige(locs_obs, z_obs, locs_new, theta, policy: PrecisionPolicy, *,
           nb: int = 128, nu_static=None, metric="euclidean", nugget=0.0,
-          jitter=1e-6, use_tiles=None, return_var: bool = False):
+          jitter=1e-6, use_tiles=None, return_var: bool = False,
+          impl: str = "kernel"):
     """Kriging mean (and optionally variance) at locs_new.
 
     theta may be a single (3,) vector or a stacked (..., 3) batch of
@@ -50,7 +51,8 @@ def krige(locs_obs, z_obs, locs_new, theta, policy: PrecisionPolicy, *,
     (one mixed-precision factorization per candidate).  `nugget` is added
     to Sigma_oo's diagonal only (never the cross covariance), matching the
     likelihood's observation model.  `use_tiles` overrides the tiled/dense
-    factor choice exactly like `make_loglik`'s flag (None = auto).
+    factor choice exactly like `make_loglik`'s flag (None = auto), and
+    `impl` picks kernels or plain versions as there.
     """
     theta = _theta(theta, locs_obs, "cpu")
     if policy.mode == "dst":
@@ -59,11 +61,11 @@ def krige(locs_obs, z_obs, locs_new, theta, policy: PrecisionPolicy, *,
         policy, use_tiles = PrecisionPolicy.full(policy.hi), None
     factor = make_factor_fn(locs_obs, policy, nb=nb, nu_static=nu_static,
                             metric=metric, nugget=nugget, jitter=jitter,
-                            use_tiles=use_tiles)
+                            use_tiles=use_tiles, impl=impl)
     l = factor(theta)
     # Sigma_no: one (m, n) block per candidate
     sigma_no = matern_block(locs_new, locs_obs, theta, nu_static=nu_static,
-                            metric=metric, dtype=policy.hi)
+                            metric=metric, dtype=policy.hi, impl=impl)
     if not return_var:
         return krige_from_factor(l, z_obs, sigma_no)
     sigma_nn_diag = theta[..., 0:1].to(l.device, policy.hi) * torch.ones(
@@ -79,7 +81,8 @@ def pmse(mu, y_true):
 
 def krige_pmse(locs_obs, z_obs, locs_new, y_true, theta,
                policy: PrecisionPolicy, *, nb: int = 128, nu_static=None,
-               metric="euclidean", nugget=0.0, jitter=1e-6, use_tiles=None):
+               metric="euclidean", nugget=0.0, jitter=1e-6, use_tiles=None,
+               impl: str = "kernel"):
     """PMSE of the kriging predictor at locs_new against held-out y_true.
 
     Batched over leading axes of theta; this is the per-candidate scoring
@@ -87,7 +90,7 @@ def krige_pmse(locs_obs, z_obs, locs_new, y_true, theta,
     """
     mu = krige(locs_obs, z_obs, locs_new, theta, policy, nb=nb,
                nu_static=nu_static, metric=metric, nugget=nugget,
-               jitter=jitter, use_tiles=use_tiles)
+               jitter=jitter, use_tiles=use_tiles, impl=impl)
     return pmse(mu, y_true)
 
 

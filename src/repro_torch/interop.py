@@ -57,3 +57,18 @@ def lm_params_from_numpy(tree, *, device="cuda", dtype=torch.float32):
                 for k, v in tree.items()}
     return torch.tensor(np.asarray(tree, np.float32), dtype=dtype,
                         device=device)
+
+
+def problem_from_numpy(name: str, n: int, nb: int, regime: str, theta, locs,
+                       z, cov, *, device="cuda"):
+    """A `verify.CholeskyProblem` on `device` from the reference problem's
+    fields (numpy-convertible arrays), bit for bit: locations, z and Sigma
+    in fp32, theta as host floats.  The port's generators draw other bits,
+    so parity runs on carried problems."""
+    from .verify.generators import CholeskyProblem
+
+    def tensor(a):  # a writable copy: the reference's arrays are read-only
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+    return CholeskyProblem(name=name, n=int(n), nb=int(nb), regime=regime,
+                           theta=tuple(float(v) for v in np.asarray(theta)),
+                           locs=tensor(locs), z=tensor(z), cov=tensor(cov))

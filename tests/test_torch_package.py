@@ -17,6 +17,8 @@ from repro_torch.configs.llama3_2_1b import SMOKE
 from repro_torch.covariance import make_dataset
 from repro_torch.models import init_cache, init_lm
 from repro_torch.serve_lm import generate
+from repro_torch import verify
+from repro_torch.verify import golden
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -81,6 +83,21 @@ def test_entry_points_default_to_the_card():
         init_cache(SMOKE, 1, 8)
     with pytest.raises((RuntimeError, AssertionError)):
         interop.lm_params_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+    # the accuracy harness (repro_torch.verify) and its golden CLI
+    with pytest.raises((RuntimeError, AssertionError)):
+        verify.matern_problem(64, "weak")
+    with pytest.raises((RuntimeError, AssertionError)):
+        verify.spd_matrix(0, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        verify.attention_problem(0, 1, 1, 8, 8, 8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        verify.sweep_kernels()
+    with pytest.raises((RuntimeError, AssertionError)):
+        interop.problem_from_numpy("n8_weak", 8, 4, "weak", [1.0, 0.03, 0.5],
+                                   np.zeros((8, 2)), np.zeros(8),
+                                   np.eye(8))
+    with pytest.raises((RuntimeError, AssertionError)):
+        golden.main(["--check"])
 
 
 def test_generate_computes_on_the_device_of_its_inputs():
@@ -116,3 +133,101 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# ----------------------------------------------------------------------
+# chip_smoke.py's phase 11 arithmetic (it runs on the card only)
+# ----------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_scale_peak_reckoning():
+    """11 (b)'s predicted peak at 40,960, nb = 1,024: Sigma (4 n^2) and
+    L_ref (8 n^2), then the pair's tiles (2.25 n^2), a step-0 U in fp64
+    (7.6 n^2) and its fp64 factor (8 n^2): 29.85 n^2 = 46.6 GiB (measured
+    on the card 29.76 n^2, 46.50 GiB); under 70 GiB, so n stays."""
+    cs = _chip_smoke()
+    n, nb = 40_960, 1_024
+    peak = cs.scale_peak_bytes(n, nb)
+    tiles = (8 * 79 + 4 * (820 - 79)) * nb * nb
+    assert peak == 12 * n * n + tiles + 8 * (n - nb) ** 2 + 8 * n * n
+    assert peak / 2**30 == pytest.approx(46.64, abs=0.01)
+    assert cs.scale_n(n, nb, 70.0) == n
+    # the oracle's moment (Sigma, upcast, L_ref: 20 n^2) is below the pair's
+    assert peak > 20 * n * n
+
+
+@pytest.mark.parametrize("limit", [30.0, 45.0, 46.0])
+def test_chip_smoke_scale_cuts_n_to_fit(limit):
+    cs = _chip_smoke()
+    n = cs.scale_n(40_960, 1_024, limit)
+    assert n % 1_024 == 0 and n < 40_960
+    assert cs.scale_peak_bytes(n, 1_024) / 2**30 <= limit
+    assert cs.scale_peak_bytes(n + 1_024, 1_024) / 2**30 > limit
+
+
+def _scale_records(**over):
+    """Synthetic scale-leg records of one problem (the mixed record past
+    its weak bound, as measured at 40,960), metrics overridden by record:
+    pair={...}, mixed={...}, full={...}, dst={...}."""
+    base = {"full": ("chol/tile/full_f32", 3e-6), "pair":
+            ("chol/tile/paper_f64f32_t2", 7e-7), "mixed":
+            ("chol/tile/mixed_f32bf16_t2", 1.2e-2), "dst": ("chol/dst/t2", 0.48)}
+    out = []
+    for key, (prefix, fr) in base.items():
+        rec = {"id": f"{prefix}/n40960_weak", "factor_rel": fr,
+               "backward_rel": fr / 10, "loglik_drift": fr / 100}
+        rec.update(over.get(key, {}))
+        out.append(rec)
+    return out
+
+
+NAN = float("nan")
+
+
+@pytest.mark.parametrize("over,fails", [
+    ({}, False),
+    ({"mixed": {"factor_rel": NAN, "loglik_drift": NAN}}, False),  # C 12: reported
+    ({"pair": {"loglik_drift": 2.4e-6}}, False),  # past its 1e-6: reported
+    ({"full": {"backward_rel": NAN}}, True),
+    ({"pair": {"factor_rel": NAN}}, True),
+    ({"pair": {"loglik_drift": 2e-4}}, True),
+    ({"dst": {"factor_rel": 0.1}}, True),
+])
+def test_chip_smoke_scale_requires(over, fails):
+    """11 (b)'s requires: full(fp32) and the pair finite, the pair's drift
+    <= 1e-4, DST 10x the mixed record's factor_rel where that is finite."""
+    cs = _chip_smoke()
+    assert bool(cs.scale_failures(_scale_records(**over), 1e-4)) == fails
+
+
+def _grid_record(rid, **metrics):
+    return {"id": rid, "kind": "cholesky", "mode": "three_tier",
+            "pair": "f32/bf16/f8e4m3", "diag_thick": 1, "regime": "strong",
+            "n": 384, "factor_rel": 1e-2, "backward_rel": 1e-3,
+            "loglik_drift": 1e-3, **metrics}
+
+
+@pytest.mark.parametrize("kernel,plain,unshared", [
+    ({}, {}, 0),                                               # within bounds
+    ({"factor_rel": NAN}, {"factor_rel": NAN}, 0),             # both NaN
+    ({"factor_rel": NAN}, {"factor_rel": 1e-2}, 1),            # kernels only
+    ({"loglik_drift": 0.2}, {"loglik_drift": 0.06}, 0),        # both near
+    ({"loglik_drift": 0.2}, {"loglik_drift": 0.04}, 1),        # plain < bound/2
+    ({"loglik_drift": 0.2, "factor_rel": NAN}, {"factor_rel": NAN}, 1),
+])
+def test_chip_smoke_unshared_violations(kernel, plain, unshared):
+    """11 (a) gates on registry violations that the plain twin does not
+    share (three_tier's bound: loglik_drift 0.1)."""
+    cs = _chip_smoke()
+    rid = "chol/tile/three_tier_t1_t3/n384_strong"
+    got = cs.unshared_violations([_grid_record(rid, **kernel)],
+                                 [_grid_record(rid, **plain)])
+    assert len(got) == unshared
