@@ -135,6 +135,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      fp32 Sigma, one line per record with its bound, the predicted and
      measured peak; full(fp32) and the pair finite, the pair's drift
      <= 1e-4, DST a magnitude worse than a finite mixed record;
+ 12. the task runtime (repro_torch.sched: the tile DAG out of order, a
+     CUDA stream per worker thread, dependencies as cross-stream events,
+     task times from CUDA events): (a) the tile, panel and DST variants
+     under tpu(2), full(fp32) and paper_cpu(2) at n = 1,024, nb = 128
+     through the kernels: the same bits under fifo W = 1, critical_path
+     W = 4 and panel_first W = 3 (seed 7), and the tile variant's
+     critical_path W = 4 once more through tile_cholesky(schedule=...),
+     exact blocked_potrf launches, a clean happens-before check of the
+     W = 4 report on device times (atol 1 us), the factor within the
+     registry's factor_rel of the sequential engine and of impl="plain";
+     (b) the tile variant at phase 8's and 9's n_obs = 40,960,
+     nb = 1,024 under tpu(2) (weak field, fp32 Sigma) and paper_cpu(2)
+     (fp64 medium field): fifo W = 1 and critical_path W = 4, each warmed
+     up through tile_cholesky(schedule=...) (the same bits as the timed
+     scheduled_tile_cholesky), beside the sequential tile_cholesky
+     (seconds, device makespan, utilization, overlap, tasks per second,
+     peak), the same bits, the log-likelihood within phase 8.1's and
+     9.1's limits and the factor within the registry's factor_rel of the
+     sequential one (or, where the sequential factor itself is past it,
+     no farther from the fp64 oracle than the sequential factor), the
+     peak at most 1.25x the sequential one's, a Chrome trace under
+     chiprun_out/ validated, and tpu(2)'s critical_path W = 4 warm-up
+     under torch.profiler: the device's busy time against the wall time;
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -247,6 +270,16 @@ SCALE = dict(sizes=(10_240, 40_960), regimes=("weak", "medium"), nb=1_024,
              peak_gib=70.0, pair_drift=1e-4)
 SCALE_QUICK = dict(sizes=(4_096, 8_192), regimes=("weak", "medium"), nb=1_024,
                    peak_gib=70.0, pair_drift=1e-4)
+# phase 12: (a)'s tile grid and tile, (b)'s tile (its n is phase 8's and 9's
+# n_obs); the scheduled path's peak against the sequential engine's
+RUNTIME = dict(small_p=8, small_nb=128, nb=1_024, peak_ratio=1.25)
+RUNTIME_QUICK = dict(small_p=8, small_nb=128, nb=128, peak_ratio=1.25)
+# CUDA events resolve to about half a microsecond: the happens-before
+# check's slack on device times, in microseconds
+HB_ATOL_US = 1.0
+# phase 12 (b): the scheduled log-likelihood against the sequential one,
+# relative (phase 8.1's limit for tpu(2), phase 9.1's for the pair)
+RUNTIME_LOGLIK_TOL = {"tpu(2)": 1e-3, "paper_cpu(2)": 1e-5}
 
 
 def emit(**obj):
@@ -3287,6 +3320,345 @@ def accuracy(scfg, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the dynamic task runtime (repro_torch.sched) on CUDA streams
+# ---------------------------------------------------------------------------
+
+RUNTIME_SCHEDULES = (("fifo W=1", dict(priority="fifo", workers=1)),
+                     ("critical_path W=4", dict(priority="critical_path",
+                                                workers=4)),
+                     ("panel_first W=3 seed 7", dict(priority="panel_first",
+                                                     workers=3, seed=7)))
+
+
+def sequential_factor(variant, a, nb, pol):
+    """The port's sequential engine of `variant` on `a`: the dense lower
+    factor (in hi) that the runtime's store of the same variant assembles
+    to."""
+    import torch
+    from repro_torch.core import (assemble_from_banded, dst_assemble,
+                                  dst_cholesky, panel_cholesky_banded,
+                                  tile_cholesky)
+    n = a.shape[-1]
+    if variant == "tile":
+        return tile_cholesky(a, nb, pol)
+    if variant == "dst":
+        return dst_assemble(dst_cholesky(a, nb, pol.diag_thick, hi=pol.hi), n,
+                            pol.hi)
+    p = n // nb
+    t = min(pol.diag_thick, p)
+    lo = pol.lo if pol.mode != "full" else pol.hi
+    band = torch.zeros((p, t, nb, nb), dtype=pol.hi, device=a.device)
+    off = torch.zeros((p, p, nb, nb), dtype=lo, device=a.device)
+    for i in range(p):
+        for j in range(i + 1):
+            x = a[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]
+            if i - j < t:
+                band[i, i - j] = x
+            else:
+                off[i, j] = x
+    band, off, _ = panel_cholesky_banded(band, off, pol)
+    return assemble_from_banded(band, off, t)
+
+
+PROFILE_PAD_S = 0.3   # idle before and after the profiled call
+
+
+def union_ms(spans) -> float:
+    """Total length of the union of (start, end) spans, in ms from us."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(spans):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def stream_profile(fn) -> dict:
+    """fn() under torch.profiler's CUDA activity: wall ms, the device's
+    busy ms (the union of its kernel and copy intervals over every stream),
+    their sum, the host's ms in CUDA runtime calls, the idle share and the
+    top kernels by device time.  Reads the profiler's raw events: building
+    its FunctionEvents for ~10^5 launches takes longer than the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_PAD_S)
+    spans, per_kernel, host_ns = [], {}, 0
+    for e in prof.profiler.kineto_results.events():
+        start, dur = e.start_ns(), e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((start / 1e3, (start + dur) / 1e3))
+            count, ms = per_kernel.get(e.name(), (0, 0.0))
+            per_kernel[e.name()] = (count + 1, ms + dur / 1e6)
+        else:
+            host_ns += dur
+    rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+    busy = union_ms(spans)
+    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                device_kernel_sum_ms=sum(ms for _, (_, ms) in rows),
+                host_cuda_api_ms=host_ns / 1e6, device_events=len(spans),
+                top=[{"name": k[:90], "count": c, "ms": ms}
+                     for k, (c, ms) in rows[:12]])
+
+
+def _same_bits(x, y):
+    import torch
+    return x.dtype == y.dtype and x.shape == y.shape and bool(
+        ((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+def runtime_small(rcfg):
+    """12 (a): the three variants under tpu(2) (weak field), full(fp32) and
+    paper_cpu(2) (medium field) on the accuracy harness's problems
+    (`matern_problem`, fp32 Sigma) at n = small_p * small_nb, through the
+    kernels: the same bits under the three schedules, the exact
+    blocked_potrf launches (one per POTRF task on an fp32 band, none on
+    fp64), a clean happens-before check of the W = 4 report on device
+    times, and the factor within the policy's registered factor_rel of
+    the sequential engine and of the same schedule with impl="plain";
+    the tile variant's critical_path W = 4 run once more through the
+    entry point, tile_cholesky(schedule=...), the same bits and
+    launches."""
+    import torch
+    from repro_torch.analysis.concurrency import verify_sched_report
+    from repro_torch.analysis.dag import check_dag
+    from repro_torch.core import PrecisionPolicy, assemble_lower, tile_cholesky
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sched import SchedConfig, build_graph, scheduled_cholesky
+    from repro_torch.verify import matern_problem
+    from repro_torch.verify.bounds import policy_bound
+    from repro_torch.verify.oracles import rel_frobenius
+    p, nb = rcfg["small_p"], rcfg["small_nb"]
+    n = p * nb
+    cases = (("tpu(2)", PrecisionPolicy.tpu(2), "weak"),
+             ("full(fp32)", PrecisionPolicy.full(torch.float32), "medium"),
+             ("paper_cpu(2)", PrecisionPolicy.paper_cpu(2), "medium"))
+    for label, pol, regime in cases:
+        a = matern_problem(n, regime, nb=nb, device="cuda").cov
+        tol = policy_bound(pol, regime).factor_rel
+        for variant in ("tile", "panel", "dst"):
+            graph = build_graph(variant, p, pol)
+            potrfs = sum(t.kind == "POTRF" for t in graph.tasks)
+            want = potrfs if pol.hi == torch.float32 else 0
+            a0 = a.clone()
+            factors, counts, hb = [], [], None
+            for name, kw in RUNTIME_SCHEDULES:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                store, rep = scheduled_cholesky(a, nb, pol, SchedConfig(**kw),
+                                                variant=variant)
+                counts.append(launch_counts())
+                factors.append(assemble_lower(store, p, nb, pol.hi))
+                check_dag([graph.tasks[i] for i in rep.dispatch_order], p,
+                          pol, variant)
+                if kw["workers"] == 4:
+                    hb = verify_sched_report(rep, atol=HB_ATOL_US)
+            hook = True
+            if variant == "tile":  # the same run through the entry point
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                l_hook = tile_cholesky(a, nb, pol, schedule=SchedConfig(
+                    **RUNTIME_SCHEDULES[1][1]))
+                counts.append(launch_counts())
+                hook = _same_bits(l_hook, factors[1])
+            store, _ = scheduled_cholesky(a, nb, pol, SchedConfig(
+                **RUNTIME_SCHEDULES[1][1]), variant=variant, impl="plain")
+            plain = assemble_lower(store, p, nb, pol.hi)
+            seq = sequential_factor(variant, a, nb, pol)
+            same = all(_same_bits(f, factors[0]) for f in factors[1:])
+            rel_seq = rel_frobenius(factors[0], seq)
+            rel_plain = rel_frobenius(factors[0], plain)
+            emit(phase="runtime", step="small", policy=label, variant=variant,
+                 regime=regime, n=n, nb=nb, tasks=graph.n,
+                 bitwise_across_schedules=same, hook_bitwise=hook,
+                 blocked_potrf=[c["blocked_potrf"] for c in counts],
+                 expected_blocked_potrf=want, hb_ok=hb.ok,
+                 hb_dep_edges=hb.n_dep_edges, factor_rel_sequential=rel_seq,
+                 factor_rel_plain=rel_plain, tol=tol,
+                 a_unmodified=torch.equal(a, a0))
+            others = {k: v for c in counts for k, v in c.items()
+                      if k != "blocked_potrf" and v}
+            require(same and hook and hb.ok and torch.equal(a, a0)
+                    and not others
+                    and all(c["blocked_potrf"] == want for c in counts)
+                    and rel_seq <= tol and rel_plain <= tol,
+                    f"12 (a) {label} {variant}: bitwise {same}, through "
+                    f"tile_cholesky {hook}, hb "
+                    f"{hb.render()[:400]}, launches {counts} (want {want}), "
+                    f"factor_rel {rel_seq} / plain {rel_plain} > {tol}")
+
+
+def runtime_full(label, pol, locs, z, theta, regime, nb, rcfg, trace_path):
+    """12 (b) on one field: the tile variant at n = len(locs) through the
+    kernels, fifo W = 1 and critical_path W = 4 (each after one warm-up)
+    beside the sequential tile_cholesky on the same Sigma: seconds (host
+    clock to a device sync), device makespan, utilization, overlap, tasks
+    per second and peak (Sigma plus what the call allocates); each
+    schedule's warm-up goes through the entry point,
+    tile_cholesky(schedule=...), and must give the timed run's bits and
+    launches; the two schedules the same bits, the log-likelihood within
+    RUNTIME_LOGLIK_TOL and the factor within the registry's factor_rel of
+    the sequential one -- or, where it is not, no farther from the fp64
+    oracle of the same Sigma than the larger of factor_rel and the
+    sequential factor's own distance: no worse than the engine it stands
+    in for --, a clean happens-before check of both reports on device
+    times, the exact blocked_potrf launches; with trace_path the W = 4
+    report as a Chrome trace and the W = 4 warm-up under the profiler
+    (`stream_profile`)."""
+    import torch
+    from repro_torch.analysis.concurrency import verify_sched_report
+    from repro_torch.analysis.dag import check_dag
+    from repro_torch.core import loglik_from_factor, tile_cholesky
+    from repro_torch.core.likelihood import build_covariance
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sched import (SchedConfig, build_graph, load_and_validate,
+                                   scheduled_tile_cholesky, write_trace)
+    from repro_torch.verify.bounds import policy_bound
+    from repro_torch.verify.oracles import exact_factor, rel_frobenius
+    n = locs.shape[0]
+    p = n // nb
+    sigma = build_covariance(locs, list(theta), nu_static=0.5, jitter=1e-6,
+                             dtype=pol.hi)
+    sigma_gib = sigma.numel() * sigma.element_size() / 2**30
+    graph = build_graph("tile", p, pol)
+    want = p if pol.hi == torch.float32 else 0
+
+    def run(fn):  # (out, seconds, peak GiB of Sigma + the call, launches)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        extra = torch.cuda.memory_allocated() / 2**30 - sigma_gib
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (out, secs, torch.cuda.max_memory_allocated() / 2**30 - extra,
+                launch_counts())
+
+    tile_cholesky(sigma, nb, pol)  # warm-up
+    l_seq, s_seq, peak_seq, c_seq = run(lambda: tile_cholesky(sigma, nb, pol))
+    ll_seq = float(loglik_from_factor(l_seq, z))
+    tol = policy_bound(pol, regime).factor_rel
+    out, first, profile = {}, None, None
+    for name, kw in RUNTIME_SCHEDULES[:2]:
+        cfg = SchedConfig(**kw)
+
+        def hook_run():  # the warm-up, through the entry point
+            return tile_cholesky(sigma, nb, pol, schedule=cfg)
+        if kw["workers"] == 4 and trace_path is not None:
+            held = []
+            reset_launch_counts()
+            profile = stream_profile(lambda: held.append(hook_run()))
+            l_hook, c_hook = held.pop(), launch_counts()
+        else:
+            l_hook, _, _, c_hook = run(hook_run)
+        if first is not None:  # one factor less held through the timed run
+            hook, l_hook = _same_bits(l_hook, first), None
+        (l, rep), secs, peak, counts = run(
+            lambda: scheduled_tile_cholesky(sigma, nb, pol, cfg))
+        t0 = time.perf_counter()
+        if l_hook is not None:
+            hook = _same_bits(l_hook, l)
+        del l_hook
+        hook = hook and c_hook == counts
+        ll = float(loglik_from_factor(l, z))
+        hb = verify_sched_report(rep, atol=HB_ATOL_US)
+        check_dag([graph.tasks[i] for i in rep.dispatch_order], p, pol, "tile")
+        rel = rel_frobenius(l, l_seq)
+        if first is None:
+            first, same = l, True
+        else:
+            same = _same_bits(l, first)
+        busy = union_ms([(e.start, e.end) for e in rep.events])
+        out[name] = dict(
+            seconds=secs, tasks=rep.n_tasks, tasks_per_second=rep.n_tasks / secs,
+            makespan_ms=rep.makespan / 1e3, utilization=rep.utilization,
+            overlap_fraction=rep.overlap_fraction,
+            device_task_busy_ms=busy, peak_gib=peak, loglik=ll,
+            loglik_rel=abs(ll - ll_seq) / abs(ll_seq), factor_rel=rel,
+            bitwise_equal_fifo=same, hook_bitwise=hook, hook_launches=c_hook,
+            hb_ok=hb.ok, hb_dep_edges=hb.n_dep_edges,
+            hb_write_pairs=hb.n_write_pairs, launches=counts,
+            check_seconds=time.perf_counter() - t0)
+        require(hb.ok, f"12 (b) {label} {name}: {hb.render()[:600]}")
+        if kw["workers"] == 4 and trace_path is not None:
+            write_trace(rep, trace_path)
+            trace = load_and_validate(trace_path)
+            out[name]["trace"] = str(trace_path.relative_to(ROOT))
+            out[name]["trace_events"] = sum(e["ph"] == "X"
+                                            for e in trace["traceEvents"])
+        del l, rep
+    oracle = None
+    if any(o["factor_rel"] > tol for o in out.values()):
+        exact = exact_factor(sigma)
+        oracle = dict(sequential=rel_frobenius(l_seq, exact),
+                      scheduled=rel_frobenius(first, exact))
+        del exact
+    del first, l_seq
+    ratio = max(o["peak_gib"] for o in out.values()) / peak_seq
+    emit(phase="runtime", step="full", policy=label, n=n, nb=nb, p=p,
+         tasks=graph.n, sigma_gib=sigma_gib, sequential=dict(
+             seconds=s_seq, peak_gib=peak_seq, loglik=ll_seq, launches=c_seq),
+         scheduled=out, peak_ratio=ratio, factor_tol=tol,
+         factor_rel_oracle=oracle, loglik_tol=RUNTIME_LOGLIK_TOL[label],
+         profile_critical_path_w4=profile)
+    w1, w4 = out["fifo W=1"], out["critical_path W=4"]
+    no_worse = oracle is not None and \
+        oracle["scheduled"] <= max(tol, oracle["sequential"])
+    require(w4["bitwise_equal_fifo"] and ratio <= rcfg["peak_ratio"]
+            and all(o["hook_bitwise"] for o in (w1, w4))
+            and all((o["factor_rel"] <= tol or no_worse) and o["loglik_rel"]
+                    <= RUNTIME_LOGLIK_TOL[label]
+                    and o["launches"]["blocked_potrf"] == want
+                    for o in (w1, w4)),
+            f"12 (b) {label}: bitwise {w4['bitwise_equal_fifo']}, through "
+            f"tile_cholesky {[o['hook_bitwise'] for o in (w1, w4)]}, peak ratio "
+            f"{ratio}, against the oracle {oracle}, {out}")
+    return w4["launches"]["blocked_potrf"]
+
+
+def runtime(rcfg, weak, fp64_field, results):
+    """Phase 12: the task runtime on the card (see the module docstring):
+    (a) small, every variant; (b) the tile variant at phase 8's and 9's
+    n_obs under tpu(2) on the weak field (fp32 Sigma) and paper_cpu(2) on
+    the fp64 medium field (fp64 Sigma); sub-steps timed into one line."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    step("12a small", runtime_small, rcfg)
+    (locs, z), (locs64, z64) = weak, fp64_field
+    trace_dir = ROOT / "chiprun_out"
+    trace_dir.mkdir(exist_ok=True)
+    launches = step("12b tpu(2)", runtime_full, "tpu(2)",
+                    PrecisionPolicy.tpu(2), locs, z, WEAK, "weak", rcfg["nb"],
+                    rcfg, trace_dir / "phase12_sched_trace.json")
+    step("12b paper_cpu(2)", runtime_full, "paper_cpu(2)",
+         PrecisionPolicy.paper_cpu(2), locs64, z64, MEDIUM, "medium",
+         rcfg["nb"], rcfg, None)
+    results["blocked_potrf"]["launches_sched"] = launches
+    emit(phase="runtime", step="seconds", **secs)
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -3520,6 +3892,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("11 accuracy", accuracy, SCALE_QUICK if args.quick else SCALE,
           results)
+    torch.cuda.empty_cache()
+    timed("12 runtime", runtime, RUNTIME_QUICK if args.quick else RUNTIME,
+          weak, fp64_field, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -3527,7 +3902,7 @@ def main(argv=None):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
-                                  "launches_accuracy")
+                                  "launches_accuracy", "launches_sched")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

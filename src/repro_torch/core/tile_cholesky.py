@@ -199,15 +199,25 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
     are a batch of independent factorizations (one per candidate theta).
     `a` is not modified.
 
-    `schedule` (the reference's dynamic task runtime) is not ported.
+    `schedule` opts into the dynamic task runtime: pass a
+    `repro_torch.sched.SchedConfig` and the same Algorithm 1 runs as a DAG
+    of per-tile tasks, out of order on a pool of worker threads (each on a
+    CUDA stream of its own on the card); its factor is the same bit for bit
+    under every schedule.  It has no backward: an `a` that requires grad
+    (with grad mode on) raises.
     """
     if policy.mode == "dst":
         raise ValueError("use dst_cholesky for the DST baseline")
-    if schedule is not None:
-        raise NotImplementedError("tile_cholesky(schedule=...): the task "
-                                  "runtime is not ported (ROADMAP A9)")
     _, _, syrk = _impl(impl)
     _check_card(a, nb, impl)
+    if schedule is not None:
+        if a.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "tile_cholesky(schedule=...) has no backward: autograd does "
+                "not follow the runtime's worker threads; call it without "
+                "schedule to differentiate")
+        from ..sched.runtime import scheduled_tile_cholesky
+        return scheduled_tile_cholesky(a, nb, policy, schedule, impl=impl)[0]
     require_ieee_fp32()
     hi, lo = policy.hi, policy.lo
     potrf = _potrf(impl, hi)

@@ -6,13 +6,24 @@ Each kernel package keeps the reference's layout:
   ops.py    -- the public function: on a CPU tensor it runs ref.py, on a
                CUDA tensor it launches the kernel or raises.
 
-`LAUNCHES` counts the kernel launches of each wrapper; a run sets the
-counts to 0 (`reset_launch_counts`) and reads them afterwards to show that
-it went through the kernels.
+`LAUNCHES` counts the kernel launches of each wrapper (`count_launch`,
+under a lock: the task runtime launches from several threads); a run sets
+the counts to 0 (`reset_launch_counts`) and reads them afterwards to show
+that it went through the kernels.
 """
+
+import threading
 
 LAUNCHES = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
             "mp_syrk": 0, "mp_syrk_grad": 0, "mp_attention": 0}
+
+
+_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:

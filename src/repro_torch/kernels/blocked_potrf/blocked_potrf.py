@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, library
 
 MAX_NB = 1024
@@ -61,5 +61,5 @@ def launch(a):
         a.data_ptr(), out.data_ptr(), info.data_ptr(), batch, nb, blocks,
         torch.cuda.current_stream(a.device).cuda_stream)
     check(status, "blocked_potrf")
-    LAUNCHES["blocked_potrf"] += 1
+    count_launch("blocked_potrf")
     return out, info

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, library
 
 BLOCK = 64  # side of the kernels' square blocks (kB)
@@ -170,7 +170,7 @@ def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
         n_cols_j, rows, cols, stride, th1, th2, two_nu, dtypes, int(sym),
         torch.cuda.current_stream(out.device).cuda_stream)
     check(status, "matern_cov")
-    LAUNCHES["matern_cov"] += 1
+    count_launch("matern_cov")
     return out
 
 
@@ -210,5 +210,5 @@ def launch_grad(locs_a, locs_b, theta, grad_out, *, nu, metric="euclidean"):
         float(theta[0]), float(theta[1]), two_nu, int(dtype == torch.float64),
         int(sym), torch.cuda.current_stream(locs_a.device).cuda_stream)
     check(status, "matern_cov_grad")
-    LAUNCHES["matern_cov_grad"] += 1
+    count_launch("matern_cov_grad")
     return out.to(dtype)

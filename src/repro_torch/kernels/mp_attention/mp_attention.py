@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, library
 
 TILE = 64                 # keys per shared-memory tile of the kernel
@@ -97,5 +97,5 @@ def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
         chunk, float(sm_scale), int(q.dtype == torch.bfloat16),
         KV_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     check(status, "mp_attention")
-    LAUNCHES["mp_attention"] += 1
+    count_launch("mp_attention")
     return acc, m, l

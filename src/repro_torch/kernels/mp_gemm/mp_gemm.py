@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, library
 
 KC = 64   # K columns of one pipeline stage of the off-band kernel
@@ -104,7 +104,7 @@ def launch(p, *, tile, round_k, band_blocks, hi, lo, accum):
         pair, block(tile),
         torch.cuda.current_stream(p.device).cuda_stream)
     check(status, "mp_syrk")
-    LAUNCHES["mp_syrk"] += 1
+    count_launch("mp_syrk")
     return out
 
 
@@ -162,5 +162,5 @@ def launch_grad(g, p, *, tile, band_blocks, hi, lo, accum):
         nbytes, m, kdim, tile, band_blocks, pair,
         torch.cuda.current_stream(p.device).cuda_stream)
     check(status, "mp_syrk_grad")
-    LAUNCHES["mp_syrk_grad"] += 1
+    count_launch("mp_syrk_grad")
     return out

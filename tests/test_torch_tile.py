@@ -24,6 +24,7 @@ from repro_torch.core import (PrecisionPolicy, assemble_lower, dst_assemble,
                               dst_cholesky, reference_cholesky, split_tiles,
                               tile_cholesky)
 from repro_torch.core.tile_cholesky import _check_card
+from repro_torch.sched import SchedConfig
 from test_torch_panel import _port_policy
 
 # pytest runs several workers on a few cores: one intra-op thread each
@@ -179,8 +180,13 @@ def test_refusals():
     a = torch.eye(64)
     with pytest.raises(ValueError, match="dst_cholesky"):
         tile_cholesky(a, NB, PrecisionPolicy.dst(2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tile_cholesky(a, NB, PrecisionPolicy.tpu(2), schedule=object())
+    # the schedule hook runs the task runtime's real backend, without grad
+    with pytest.raises(ValueError, match="backend='real'"):
+        tile_cholesky(a, NB, PrecisionPolicy.tpu(2),
+                      schedule=SchedConfig(backend="sim"))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tile_cholesky(a.clone().requires_grad_(True), NB,
+                      PrecisionPolicy.tpu(2), schedule=SchedConfig())
     # what the kernels do not take raises on a CUDA tensor before any work
     # (the paper pair's fp64 band runs on the card: no refusal by dtype)
     card = types.SimpleNamespace(is_cuda=True)
