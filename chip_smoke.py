@@ -115,8 +115,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      no-grad one, gradients kernel vs plain against the scale sum |G|
      dSigma/dtheta, seconds, peak, the profiler's top operations), the
      pair's gradient beside dense full(fp64)'s; fit_mle_adam under the
-     pair through the tiles at n = 8,192 against fit_mle; and
-     geostat_loglik_step refusing a theta that requires grad;
+     pair through the tiles at n = 8,192 against fit_mle;
  11. accuracy (repro_torch.verify, the fp64 oracles and the tolerance
      registry): (a) the conformance sweep through the kernels on the card's
      grid (n in {128, 256, 384} x weak / medium / strong at nb = 64: p in
@@ -158,6 +157,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      peak at most 1.25x the sequential one's, a Chrome trace under
      chiprun_out/ validated, and tpu(2)'s critical_path W = 4 warm-up
      under torch.profiler: the device's busy time against the wall time;
+ 13. the panel engine's gradient and haversine distance in matern_cov:
+     (a) matern_cov_grad's tile-stack forms against their plain versions
+     at phase 4's storage (the zip form over band sub-diagonals 0 and 1
+     with an fp32 / fp64 G, the lower form over the off-band with a bf16 /
+     fp32 G), Euclidean and haversine, every nu, timed beside their bound;
+     the haversine forward (band sub-diagonals 0 and 1, the bf16 off-band,
+     fp64 locations) on phase 4's points mapped onto a lon/lat box against
+     fp64 and the plain version, and the dense 40,960^2 haversine Sigma
+     and its backward; (b) one value-and-gradient evaluation of
+     geostat_loglik_step at phase 4's size (tpu(8), n = 65,536, its field
+     and first request) through the kernels and the plain versions: exact
+     launch counts, the log-likelihood equal to the no-grad one bit for
+     bit, kernel against plain over s_k = sum |G| dSigma/dtheta_k,
+     seconds forward and backward, peak against its prediction, device
+     busy and idle share; then paper_cpu(8) on the field in fp64 at the
+     largest n predicted under 70 GiB; (c) make_loglik with haversine at
+     nu = 0.5 on a lon/lat field of 40,960 points, value and gradient,
+     dense full(fp32) and through the tiles under tpu(2);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -204,6 +221,11 @@ SYRK_GRAD_PREPASS = SYRK_GRAD_KERNELS[:3]
 MATERN_KERNELS = ("matern_cov_kernel", "matern_cov_sym_kernel",
                   "matern_cov_grad_kernel")
 MATERN_SASS_OPS = ("MUFU", "F2F", "DFMA", "FFMA", "STG")
+# its instantiations: the forward's 4 (locations, out) dtype pairs x 3 nu x
+# 2 metrics, general and symmetric (48); the backward's 4 (locations, G)
+# pairs x 3 nu x 2 metrics in the general form (24) and the 2 with G in the
+# locations' precision in the symmetric form (12)
+MATERN_INSTANTIATIONS = 84
 # idle seconds at each end of a profiler trace (device_profile)
 PROFILE_PAD_S = 0.3
 QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
@@ -274,6 +296,11 @@ SCALE_QUICK = dict(sizes=(4_096, 8_192), regimes=("weak", "medium"), nb=1_024,
 # n_obs); the scheduled path's peak against the sequential engine's
 RUNTIME = dict(small_p=8, small_nb=128, nb=1_024, peak_ratio=1.25)
 RUNTIME_QUICK = dict(small_p=8, small_nb=128, nb=128, peak_ratio=1.25)
+# phase 13: the dense haversine Sigma's n (phase 8's n_obs), (c)'s n_obs and
+# nb (phase 8's), and the peak a panel value-and-gradient evaluation may be
+# predicted to reach before its n is cut (phase 10's)
+PANEL = dict(n_dense=40_960, n_obs=40_960, nb=1_024, peak_gib=70.0)
+PANEL_QUICK = dict(n_dense=4_096, n_obs=5_120, nb=128, peak_gib=70.0)
 # CUDA events resolve to about half a microsecond: the happens-before
 # check's slack on device times, in microseconds
 HB_ATOL_US = 1.0
@@ -371,13 +398,18 @@ def _kernel_key(mangled, names, typed=False):
 def ptxas_usage(log_path, names, typed=False):
     """Registers, stack and spill bytes of every kernel instantiation whose
     name holds one of `names`, from ptxas -v's lines in the build's log."""
-    usage, key = {}, None
+    usage, key, entry, props = {}, None, None, None
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
-            key = _kernel_key(line.split("'")[1], names, typed)
+            entry = line.split("'")[1]
+            key = _kernel_key(entry, names, typed)
             if key:
                 usage[key] = {}
-        elif key and "bytes stack frame" in line:
+        elif "Function properties for" in line:
+            # a called (out-of-line) function's properties come between
+            # its caller's lines: only the entry's own count
+            props = line.split("Function properties for", 1)[1].strip()
+        elif key and props == entry and "bytes stack frame" in line:
             stack, stores, loads = (int(x) for x in re.findall(r"(\d+) bytes", line))
             usage[key].update(stack=stack, spill_stores=stores, spill_loads=loads)
         elif key and "Used" in line and "registers" in line:
@@ -2429,7 +2461,7 @@ def check_matern_grad(fields, gcfg, results):
         key = "matern_cov_grad" + ("" if dtype == torch.float32 else "_fp64")
         results.setdefault(key, {}).update(
             name="matern_cov_grad" + ("" if dtype == torch.float32 else " (fp64)"),
-            route="cuda", source="src/repro_torch/csrc/matern_cov.cu",
+            route="cuda", source="src/repro_torch/csrc/matern_cov_grad.cu",
             replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
             max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -2465,8 +2497,7 @@ def gradient_evaluation(label, locs, z, theta, results, key):
     import torch
     from repro_torch.core import PrecisionPolicy, make_loglik
     pol = PrecisionPolicy.full(locs.dtype)
-    expected = {"matern_cov": 1, "matern_cov_grad": 1, "blocked_potrf": 0,
-                "mp_syrk": 0, "mp_syrk_grad": 0, "mp_attention": 0}
+    expected = dense_grad_launches()
     out = {}
     for impl in ("kernel", "plain"):
         fn = make_loglik(locs, z, pol, nu_static=0.5, impl=impl)
@@ -2588,6 +2619,13 @@ def gradient_adam(gcfg, locs, z, t_eval):
 # phase 10.3: the tile engine's gradient (blocked_potrf and mp_syrk under
 # autograd, mp_syrk's backward mp_syrk_grad)
 # ---------------------------------------------------------------------------
+
+def dense_grad_launches():
+    """Launches of one dense value-and-gradient evaluation: matern_cov and
+    matern_cov_grad once each."""
+    return {"matern_cov": 1, "matern_cov_grad": 1, "blocked_potrf": 0,
+            "mp_syrk": 0, "mp_syrk_grad": 0, "mp_attention": 0}
+
 
 def tile_grad_launches(p, fp32_band):
     """Launches of one value-and-gradient evaluation through the tile engine
@@ -2894,7 +2932,7 @@ TILE_GRAD_TOL = {"tpu(2)": (1e-3, 1e-5), "full(fp32)": (1e-5, 1e-8),
                  "paper_cpu(2)": (1e-5, 1e-8)}
 
 
-def _grad_scale(locs, z, pol, theta, nb):
+def _grad_scale(locs, z, pol, theta, nb, metric="euclidean"):
     """s_k = sum |G| dSigma/dtheta_k for k = 1, 2, with G = dl/dSigma of the
     kernel path's tile engine at theta (as make_loglik builds Sigma).  G is
     taken by a hook during the backward, which frees Sigma as the
@@ -2910,10 +2948,10 @@ def _grad_scale(locs, z, pol, theta, nb):
                       dtype=torch.promote_types(locs.dtype, torch.float32))
     th_host = th.tolist()
     scale = []
-    cov = build_covariance(locs, th, nu_static=0.5, jitter=1e-6,
-                           dtype=pol.hi).view(-1, locs.shape[0])
+    cov = build_covariance(locs, th, nu_static=0.5, metric=metric,
+                           jitter=1e-6, dtype=pol.hi).view(-1, locs.shape[0])
     cov.register_hook(lambda g: scale.append(ops.matern_cov_grad(
-        locs, locs, th_host, g.abs(), nu=0.5).tolist()))
+        locs, locs, th_host, g.abs(), nu=0.5, metric=metric).tolist()))
     ll = loglik_from_factor(tile_cholesky(cov, nb, pol), z)
     del cov
     torch.autograd.grad(ll, th)
@@ -3065,30 +3103,6 @@ def tile_grad_adam(gcfg):
          seconds_nm=nm_s, theta2_rel_gap=rel, tol=0.1, launches_adam=counts)
 
 
-def panel_refusal(locs, z):
-    """10.3 (d): geostat_loglik_step (the panel engine) raises for a theta
-    that requires grad, through the kernels and the plain versions, before
-    any kernel runs."""
-    import torch
-    from repro_torch.core import PrecisionPolicy, geostat_loglik_step
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    n, nb, pol = 2_048, 256, PrecisionPolicy.tpu(2)
-    th = torch.tensor(list(WEAK), requires_grad=True)
-    reset_launch_counts()
-    for impl in ("kernel", "plain"):
-        try:
-            geostat_loglik_step(locs[:n], z[:n], th, nb=nb, policy=pol,
-                                nu_static=0.5, impl=impl)
-        except NotImplementedError as e:
-            emit(phase="gradient", step="refused", what="geostat_loglik_step",
-                 impl=impl, error=type(e).__name__, message=str(e)[:160])
-        else:
-            raise AssertionError(f"geostat_loglik_step ({impl}): a theta "
-                                 "that requires grad ran")
-    counts = launch_counts()
-    require(sum(counts.values()) == 0, f"refusal launches {counts}")
-
-
 def gradient(gcfg, weak, fp64_field, results):
     """Phase 10: the gradient path on the card (see the module docstring),
     sub-steps timed into one phase line."""
@@ -3121,7 +3135,6 @@ def gradient(gcfg, weak, fp64_field, results):
     step("10.3b tile gradient", tile_gradient, gcfg, weak, fp64_field, n64,
          results)
     step("10.3c tile Adam", tile_grad_adam, gcfg)
-    step("10.3d panel refusal", panel_refusal, locs, z)
     emit(phase="gradient", step="seconds", **secs)
 
 
@@ -3376,12 +3389,13 @@ def union_ms(spans) -> float:
     return total / 1e3
 
 
-def stream_profile(fn) -> dict:
+def stream_profile(fn, keep_rows=False) -> dict:
     """fn() under torch.profiler's CUDA activity: wall ms, the device's
     busy ms (the union of its kernel and copy intervals over every stream),
     their sum, the host's ms in CUDA runtime calls, the idle share and the
-    top kernels by device time.  Reads the profiler's raw events: building
-    its FunctionEvents for ~10^5 launches takes longer than the run."""
+    top kernels by device time (with keep_rows, every kernel's).  Reads
+    the profiler's raw events: building its FunctionEvents for ~10^5
+    launches takes longer than the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3404,11 +3418,14 @@ def stream_profile(fn) -> dict:
             host_ns += dur
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
     busy = union_ms(spans)
-    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
-                device_kernel_sum_ms=sum(ms for _, (_, ms) in rows),
-                host_cuda_api_ms=host_ns / 1e6, device_events=len(spans),
-                top=[{"name": k[:90], "count": c, "ms": ms}
-                     for k, (c, ms) in rows[:12]])
+    out = dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+               device_kernel_sum_ms=sum(ms for _, (_, ms) in rows),
+               host_cuda_api_ms=host_ns / 1e6, device_events=len(spans),
+               top=[{"name": k[:90], "count": c, "ms": ms}
+                    for k, (c, ms) in rows[:12]])
+    if keep_rows:  # every kernel as device_profile's rows: (name, count, ms)
+        out["rows"] = [(k, c, ms) for k, (c, ms) in rows]
+    return out
 
 
 def _same_bits(x, y):
@@ -3659,6 +3676,559 @@ def runtime(rcfg, weak, fp64_field, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the panel engine's gradient and haversine distance in matern_cov
+# ---------------------------------------------------------------------------
+
+def panel_grad_launches(p, t, fp32_band):
+    """Launches of one value-and-gradient evaluation through the panel engine
+    of p tiles and band t: matern_cov once per band sub-diagonal and once
+    for the off-band (the forward's t + 1), matern_cov_grad as often (the
+    outer form only where a tile lies t or more off the diagonal),
+    blocked_potrf per diagonal tile of an fp32 band (an fp64 band goes to
+    cuSOLVER), mp_syrk and mp_syrk_grad once per step."""
+    return {"matern_cov": t + 1, "matern_cov_grad": t + (p > t),
+            "blocked_potrf": p if fp32_band else 0, "mp_syrk": p - 1,
+            "mp_syrk_grad": p - 1, "mp_attention": 0}
+
+
+def panel_grad_peak_gib(n, nb, t, hi_bytes, lo_bytes):
+    """Predicted peak GiB of one panel value-and-gradient evaluation: the
+    larger of (a) the solve's backward, the factor (band in hi, off in lo),
+    the band's cotangent and the off-band's twice (its tile rows' and
+    their stack), and (b) step 0 of the reverse sweep, the factor and its
+    cotangents, the dense cotangent dU of the trailing (p - 1) nb square
+    in hi and mp_syrk_grad's packed lo tiles of its lower half (in fp32 for
+    an fp64 hi: the kernel's pre-pass writes the paper pair's in fp32)."""
+    p = n // nb
+    band = p * t * nb * nb * hi_bytes
+    off = p * p * nb * nb * lo_bytes
+    m = (p - 1) * nb
+    solve = band + off + band + 2 * off
+    sweep = 2 * (band + off) + m * m * hi_bytes + m * m // 2 * lo_bytes
+    return max(solve, sweep) / 2 ** 30
+
+
+def held_on_card():
+    """What the process holds on the card, allocated and reserved GiB: ~2.7
+    GiB at phase 13's start on an NVIDIA H100 80GB HBM3 (700 W), none of it
+    in a tensor that Python holds (a scan of the live tensors found none
+    over 0.5 MB)."""
+    import torch
+    return dict(allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                reserved_gib=torch.cuda.memory_reserved() / 2 ** 30)
+
+
+def panel_grad_n(n, nb, t, hi_bytes, lo_bytes, limit):
+    """The largest multiple of nb, at most n, whose panel value-and-gradient
+    evaluation is predicted (`panel_grad_peak_gib`) to stay under `limit`."""
+    while n > nb and panel_grad_peak_gib(n, nb, t, hi_bytes, lo_bytes) > limit:
+        n -= nb
+    return n
+
+
+class _ScaleRecorder:
+    """A stand-in for the matern_cov module in `BandedMaternCov`'s backward:
+    each tile-stack backward also runs on |G|, whose sums are the scale
+    s_k = sum |G| dSigma/dtheta_k of the gradient's terms (ROADMAP C 13);
+    dSigma/dtheta_k >= 0 for both k."""
+
+    def __init__(self, impl):
+        self.impl, self.sums = impl, []
+
+    def matern_cov_grad_tiles(self, locs_i, locs_j, theta, g, **kw):
+        self.sums.append(self.impl.matern_cov_grad_tiles(
+            locs_i, locs_j, theta, g.abs(), **kw))
+        return self.impl.matern_cov_grad_tiles(locs_i, locs_j, theta, g, **kw)
+
+    def matern_cov_grad_lower(self, locs_t, theta, g, **kw):
+        self.sums.append(self.impl.matern_cov_grad_lower(
+            locs_t, theta, g.abs(), **kw))
+        return self.impl.matern_cov_grad_lower(locs_t, theta, g, **kw)
+
+
+def panel_grad_scale(locs, z, pol, theta, nb, nu, metric="euclidean",
+                     impl="kernel"):
+    """s_k = sum |G| dSigma/dtheta_k for k = 1, 2, G = dl/d(band, off) of
+    the panel engine at theta (geostat_loglik_step's own pieces, with
+    `_ScaleRecorder` in the covariance's backward)."""
+    import functools
+    import torch
+    from repro_torch.core import panel_cholesky as pc
+    th = torch.tensor([float(v) for v in theta], requires_grad=True,
+                      dtype=torch.promote_types(locs.dtype, torch.float32))
+    rec = _ScaleRecorder(pc._impl(impl)[0])
+    build = functools.partial(pc.build_banded_covariance, locs, nb=nb,
+                              policy=pol, nu_static=nu, metric=metric,
+                              jitter=1e-6, impl=impl)
+    band, off = pc.matern_ops.BandedMaternCov.apply(locs, th, build, nu,
+                                                    metric, rec)
+    band, off, failed = pc.PanelCholesky.apply(band, off, pol, "square", impl)
+    ll = pc.banded_loglik(band, off, z, band.shape[1], failed)
+    del band, off
+    torch.autograd.grad(ll, th)
+    return [float(v) for v in sum(rec.sums).tolist()]
+
+
+def grad_tiles_bound(n_elems, n_locs, loc_bytes, g_bytes, fp32):
+    """(bound ms, bound_by) of a tile-stack matern_cov_grad launch over
+    n_elems G entries: G and the locations read once, against grad_bound's
+    16 operations per element in the locations' precision and 4 fp64."""
+    by_bytes = (n_elems * g_bytes + 2 * n_locs * loc_bytes) / HBM_BYTES_PER_S
+    by_ops = 16 * n_elems / (FP32_FLOPS if fp32 else FP64_FLOPS) \
+        + 4 * n_elems / FP64_FLOPS
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def _grad_ratio(got, want, scale):
+    """max_k |got_k - want_k| / scale_k."""
+    return max(abs(float(a) - float(b)) / float(s)
+               for a, b, s in zip(got, want, scale))
+
+
+def check_grad_tiles(locs_t, t, results):
+    """13 (a): the tile-stack backward forms against their plain versions on
+    the card, G drawn from a seed in each storage dtype: the zip form over
+    band sub-diagonals 0 (symmetric with G in the locations' precision) and
+    1, the lower form over off with min_lag = t, for the four (locations,
+    G) pairs, Euclidean and haversine, every nu; within GRAD_KERNEL_TOL of
+    the scale (the same sums over |G|), a second launch the same bits;
+    at phase 4's p, each pair in the form the engine gives it (hi G: the
+    zip form, lo G: the lower form), timed at nu = 0.5 beside its bound
+    and the plain version (one call, host clock to the copy of its sums
+    that ends it)."""
+    import torch
+    from repro_torch.kernels.matern_cov import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    p, nb, _ = locs_t.shape
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    lonlat = hav_locations(locs_t.reshape(-1, 2)).reshape(p, nb, 2)
+    out = {}
+    for ldt, gdt in ((f32, f32), (f32, bf16), (f64, f64), (f64, f32)):
+        for metric, base in (("euclidean", locs_t), ("haversine", lonlat)):
+            lt = base.to(ldt).contiguous()
+            theta = list(WEAK[:2]) if metric == "euclidean" else list(HAV_THETA[:2])
+            tol = GRAD_KERNEL_TOL[str(ldt)]
+            # zip: a band's cotangent (p, t, nb, nb) in hi; lower: off's in lo
+            zip_form = gdt == ldt
+            if zip_form:
+                g = torch.randn((p, t, nb, nb), generator=gen, device="cuda",
+                                dtype=torch.float32).to(gdt)
+                calls = [(f"zip d={d}", (lt[d:], lt[:p - d]), g[d:, d])
+                         for d in (0, 1)]
+            else:
+                g = torch.randn((p, p, nb, nb), generator=gen, device="cuda",
+                                dtype=torch.float32).to(gdt)
+                calls = [("lower", (lt,), g)]
+            for nu in (0.5, 1.5, 2.5):
+                for what, locs, gg in calls:
+                    fn = "matern_cov_grad_tiles" if what != "lower" else "matern_cov_grad_lower"
+                    kw = dict(nu=nu, metric=metric)
+                    if what == "lower":
+                        kw["min_lag"] = t
+                    got = getattr(ops, fn)(*locs, theta, gg, **kw)
+                    again = getattr(ops, fn)(*locs, theta, gg, **kw)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    want = getattr(ref, fn)(*locs, theta, gg, **kw)
+                    plain_ms = 1e3 * (time.perf_counter() - t0)  # ends in a copy
+                    scale = getattr(ops, fn)(*locs, theta, gg.abs(), **kw)
+                    ratio = _grad_ratio(got, want, scale)
+                    line = dict(form=what, locations=str(ldt), g=str(gdt),
+                                metric=metric, nu=nu, tiles=p, nb=nb,
+                                grad=got.tolist(), grad_plain=want.tolist(),
+                                err_over_scale=ratio, tol=tol,
+                                same_bits_twice=torch.equal(got, again))
+                    require(torch.equal(got, again) and got.dtype == f64
+                            and ratio <= tol,
+                            f"13 (a) grad tiles {line}")
+                    if nu == 0.5 and what != "zip d=0":
+                        elems = gg.shape[0] * nb * nb if what != "lower" else \
+                            (p - t) * (p - t + 1) // 2 * nb * nb
+                        line["ms"] = time_ms(lambda: getattr(ops, fn)(
+                            *locs, theta, gg, **kw))
+                        line["plain_ms"] = plain_ms
+                        line["bound_ms"], line["bound_by"] = grad_tiles_bound(
+                            elems, 2 * p * nb, ldt.itemsize, gdt.itemsize,
+                            ldt == f32)
+                        line["max_abs_err"] = max(abs(a - b) for a, b in zip(
+                            got.tolist(), want.tolist()))
+                        out[(str(ldt), metric, what)] = line
+                    emit(phase="panel_grad", step="kernel",
+                         kernel="matern_cov_grad", **line)
+            del g
+            torch.cuda.empty_cache()
+    return out
+
+
+HAV_BOX = (45.0, 60.0, 22.5, 35.0)   # lon0, lon1, lat0, lat1: wind region R2's box
+# haversine field's theta (theta2 in degrees): as weakly correlated for
+# the points' spacing in the box as WEAK is in the unit square at n_obs
+HAV_THETA = (1.0, 0.4, 0.5)
+# haversine covariance against fp64: the plain fp32 path's bound
+# (tests/test_torch_covariance.py holds the general nu to it)
+HAV_MAX_REL = 1e-4
+
+
+def hav_locations(unit):
+    """Points of the unit square mapped onto HAV_BOX (lon, lat degrees)."""
+    import torch
+    lon0, lon1, lat0, lat1 = HAV_BOX
+    return torch.stack([lon0 + unit[..., 0] * (lon1 - lon0),
+                        lat0 + unit[..., 1] * (lat1 - lat0)], -1)
+
+
+def _rel_to_fp64(got, want64):
+    return float(((got.double() - want64).abs() / want64.abs().clamp_min(
+        1e-300)).max())
+
+
+def check_matern_haversine(locs_t, t, n_dense, results):
+    """13 (a): the haversine forward against fp64 and against its plain
+    version, every nu, on lon/lat points (phase 4's mapped into HAV_BOX):
+    the band's sub-diagonal 1 (general form) and 0 (symmetric form: the
+    same bits as the general form and as its transpose), the off-band's
+    bf16 outer form (1 bf16 ulp of the plain version's), fp64 locations'
+    zip form (1e-12 of the plain version), then the dense Sigma of n_dense
+    points (the symmetric form) by row slabs; each fp32 path within
+    max(HAV_MAX_REL, the plain path's own distance) of fp64; and the
+    one-tile backward on Sigma with G from a seed.  Timed at nu = 0.5."""
+    import torch
+    from repro_torch.kernels.matern_cov import ops, ref
+    p, nb, _ = locs_t.shape
+    lt = hav_locations(locs_t)
+    lt64 = lt.double()
+    th = list(HAV_THETA[:2])
+    kw = dict(metric="haversine")
+    worst, timing = 0.0, {}
+    for nu in (0.5, 1.5, 2.5):
+        rels = {}
+        for d in (1, 0):
+            args = (lt[d:], lt[:p - d], th)
+            got = ops.matern_cov_tiles(*args, nu=nu, **kw)
+            plain = ref.matern_cov_tiles(*args, nu=nu, **kw)
+            want = ref.matern_cov_tiles(lt64[d:], lt64[:p - d], th, nu=nu,
+                                        out_dtype=torch.float64, **kw)
+            rels[d] = (_rel_to_fp64(got, want), _rel_to_fp64(plain, want))
+            worst = max(worst, float((got - plain).abs().max()))
+            if d == 0:
+                general = ops.matern_cov_tiles(lt[:p].clone(), lt[:p], th,
+                                               nu=nu, **kw)
+                require(torch.equal(got, general)
+                        and torch.equal(got, got.mT),
+                        f"13 (a) haversine symmetric nu={nu}: not the "
+                        "general form's bits or not symmetric")
+            del got, plain, want
+        off = ops.matern_cov_lower(lt, th, nu=nu, min_lag=t,
+                                   out_dtype=torch.bfloat16, **kw)
+        off_plain = ref.matern_cov_lower(lt, th, nu=nu, min_lag=t,
+                                         out_dtype=torch.bfloat16, **kw)
+        ulps = 0.0
+        for i in range(p):
+            o, w = off[i].float(), off_plain[i].float()
+            ulps = max(ulps, float(((o - w).abs() / bf16_ulp(
+                torch.maximum(o.abs(), w.abs()))).max()))
+        del off, off_plain
+        b64 = ops.matern_cov_tiles(lt64[1:], lt64[:p - 1], th, nu=nu,
+                                   out_dtype=torch.float64, **kw)
+        b64_plain = ref.matern_cov_tiles(lt64[1:], lt64[:p - 1], th, nu=nu,
+                                         out_dtype=torch.float64, **kw)
+        rel64 = _rel_to_fp64(b64, b64_plain)
+        del b64, b64_plain
+        ok = all(k <= max(HAV_MAX_REL, pl) for k, pl in rels.values())
+        emit(phase="panel_grad", step="haversine forward", nu=nu, tiles=p,
+             nb=nb, band_d1_rel_fp64=rels[1], band_d0_rel_fp64=rels[0],
+             off_bf16_ulps=ulps, fp64_rel_plain=rel64, tol=HAV_MAX_REL)
+        require(ok and ulps <= 1.0 and rel64 <= 1e-12,
+                f"13 (a) haversine forward nu={nu}: {rels} {ulps} {rel64}")
+        if nu == 0.5:
+            def band_d1():
+                return ops.matern_cov_tiles(lt[1:], lt[:p - 1], th, nu=nu, **kw)
+
+            def off_lower():
+                return ops.matern_cov_lower(lt, th, nu=nu, min_lag=t,
+                                            out_dtype=torch.bfloat16, **kw)
+            timing = dict(band_d1_ms=time_ms(band_d1),
+                          band_d1_euclidean_ms=time_ms(
+                              lambda: ops.matern_cov_tiles(
+                                  locs_t[1:], locs_t[:p - 1], th, nu=nu)),
+                          off_ms=time_ms(off_lower),
+                          off_plain_ms=time_ms(lambda: ref.matern_cov_lower(
+                              lt, th, nu=nu, min_lag=t,
+                              out_dtype=torch.bfloat16, **kw), reps=2))
+            torch.cuda.empty_cache()
+    # the dense Sigma of n_dense points: symmetric form, by 4,096-row slabs
+    flat = lt.reshape(-1, 2)[:n_dense].contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    dense = {}
+    for nu in (0.5, 1.5, 2.5):
+        sigma = ops.matern_cov(flat, flat, th, nu=nu, **kw)
+        rel = plain_rel = 0.0
+        for r0 in range(0, n_dense, 4_096):
+            rows = slice(r0, r0 + 4_096)
+            want = ref.matern_cov(flat[rows].double(), flat.double(), th,
+                                  nu=nu, out_dtype=torch.float64, **kw)
+            plain = ref.matern_cov(flat[rows], flat, th, nu=nu, **kw)
+            rel = max(rel, _rel_to_fp64(sigma[rows], want))
+            plain_rel = max(plain_rel, _rel_to_fp64(plain, want))
+            del want, plain
+        g = torch.randn(sigma.shape, generator=gen, device="cuda")
+        got = ops.matern_cov_grad(flat, flat, th, g, nu=nu, **kw)
+        want = ref.matern_cov_grad(flat, flat, th, g, nu=nu, **kw)
+        scale = ref.matern_cov_grad(flat, flat, th, g.abs(), nu=nu, **kw)
+        ratio = _grad_ratio(got, want, scale)
+        line = dict(nu=nu, n=n_dense, sigma_rel_fp64=rel,
+                    plain_rel_fp64=plain_rel, tol=HAV_MAX_REL,
+                    grad=got.tolist(), grad_plain=want.tolist(),
+                    grad_err_over_scale=ratio,
+                    grad_tol=GRAD_KERNEL_TOL["torch.float32"])
+        if nu == 0.5:
+            line.update(
+                sigma_ms=time_ms(lambda: ops.matern_cov(flat, flat, th, nu=nu,
+                                                        **kw)),
+                sigma_plain_ms=time_ms(lambda: ref.matern_cov(
+                    flat, flat, th, nu=nu, **kw), reps=2),
+                grad_ms=time_ms(lambda: ops.matern_cov_grad(
+                    flat, flat, th, g, nu=nu, **kw)),
+                grad_plain_ms=time_ms(lambda: ref.matern_cov_grad(
+                    flat, flat, th, g, nu=nu, **kw), reps=2))
+            dense = line
+        emit(phase="panel_grad", step="haversine dense", **line)
+        require(rel <= max(HAV_MAX_REL, plain_rel)
+                and ratio <= GRAD_KERNEL_TOL["torch.float32"],
+                f"13 (a) haversine dense nu={nu}: {line}")
+        worst = max(worst, float(max(abs(a - b) for a, b in zip(
+            got.tolist(), want.tolist()))))
+        del sigma, g
+        torch.cuda.empty_cache()
+    n2 = n_dense * n_dense
+    by_bytes = 4 * n2 / HBM_BYTES_PER_S
+    # the symmetric form's distinct elements, ~110 fp32 operations each
+    # (the two sines, the arcsine, the square root and the Matern's 20)
+    by_ops = 110 * (n2 / 2) / FP32_FLOPS
+    results["matern_cov_haversine"] = dict(
+        name="matern_cov (haversine)", route="cuda",
+        source="src/repro_torch/csrc/matern_cov.cu",
+        replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
+        max_abs_err=worst, ms=dense["sigma_ms"],
+        plain_ms=dense["sigma_plain_ms"],
+        bound_ms=1e3 * max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        library_ms=None)
+    gb, gby = grad_bound(n_dense, n_dense, torch.float32)
+    results["matern_cov_grad_haversine"] = dict(
+        name="matern_cov_grad (haversine)", route="cuda",
+        source="src/repro_torch/csrc/matern_cov_grad.cu",
+        replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
+        max_abs_err=worst, ms=dense["grad_ms"],
+        plain_ms=dense["grad_plain_ms"], bound_ms=gb, bound_by=gby,
+        library_ms=None)
+    emit(phase="panel_grad", step="haversine timing", nu=0.5, **timing)
+
+
+# a panel value-and-gradient evaluation, kernel path against plain path:
+# (|ll| relative, each gradient component's gap over its scale s_k).  The
+# log-likelihood's are phase 4's; the gradient's are phase 10.3 (b)'s for
+# the same pairs (TILE_GRAD_TOL): a bf16 rounding that flips between the
+# paths moves tpu(t)'s gradient (ROADMAP C 13)
+PANEL_GRAD_TOL = {"tpu": (1e-3, 1e-5), "paper_cpu": (1e-5, 1e-8)}
+
+
+def panel_grad_evaluation(label, locs, z, pol, theta, nb, nu, results,
+                          key=None, metric="euclidean", base_gib=0.0):
+    """13 (b): one value-and-gradient evaluation of geostat_loglik_step at
+    theta through the kernels (after a warm-up) and through the plain
+    versions: exact launch counts, the log-likelihood equal to the no-grad
+    one bit for bit, kernel against plain within PANEL_GRAD_TOL of s_k,
+    seconds forward and backward, peak against its prediction, and the
+    kernel path once more under the profiler (the raw events: busy and
+    idle share, device time by kernel), where s_k is taken.  base_gib:
+    what the process holds on the card before the evaluation, added to
+    the prediction."""
+    import torch
+    from repro_torch.core import geostat_loglik_step
+    n = locs.shape[0]
+    p, t = n // nb, min(pol.diag_thick, n // nb)
+    expected = panel_grad_launches(p, t, pol.hi == torch.float32)
+    lo = pol.lo if pol.mode != "full" else pol.hi
+    predicted = base_gib + panel_grad_peak_gib(n, nb, t, pol.hi.itemsize,
+                                               lo.itemsize)
+
+    def fn_of(impl):
+        return lambda th: geostat_loglik_step(locs, z, th, nb=nb, policy=pol,
+                                              nu_static=nu, metric=metric,
+                                              impl=impl)
+    out = {}
+    for impl in ("kernel", "plain"):
+        out[impl] = _value_and_grad(fn_of(impl), theta)
+        torch.cuda.empty_cache()
+    (a, ga, fa, ba, pa, ca), (b, gb, fb, bb, pb, cb) = out["kernel"], out["plain"]
+    require(ca == expected, f"{label}: launches {ca}, expected {expected}")
+    require(sum(cb.values()) == 0, f"{label}: plain path launched {cb}")
+    with torch.no_grad():  # the same fp32 theta, no autograd
+        no_grad = float(fn_of("kernel")(torch.tensor(theta,
+                                                     dtype=torch.float32)))
+    require(a == no_grad, f"{label}: ll {a} with grad, {no_grad} without")
+    # the profiled evaluation gives the scale s_k as well: its covariance
+    # backward runs once more on |G| (9 launches more, ~1 % of its device
+    # time at phase 4's size)
+    held = []
+    prof = stream_profile(lambda: held.append(panel_grad_scale(
+        locs, z, pol, theta, nb, nu, metric)), keep_rows=True)
+    scale = held.pop()
+    torch.cuda.empty_cache()
+    ll_tol, tol = PANEL_GRAD_TOL[label.split("(")[0]]
+    gap = [abs(x - y) / s for x, y, s in zip(ga, gb, scale)]
+    line = dict(policy=label, n=n, nb=nb, t=t, theta=list(theta),
+                metric=metric, loglik_kernel=a, loglik_plain=b,
+                loglik_no_grad=no_grad, grad_kernel=ga, grad_plain=gb,
+                grad_scale=scale, grad_gap_over_scale=gap, tol=tol,
+                loglik_tol=ll_tol, seconds_forward_kernel=fa,
+                seconds_backward_kernel=ba, seconds_forward_plain=fb,
+                seconds_backward_plain=bb, peak_gib_kernel=pa,
+                peak_gib_plain=pb, predicted_peak_gib=predicted,
+                launches_kernel=ca)
+    require(math.isfinite(a) and all(map(math.isfinite, ga)) and ga[2] == 0.0
+            and abs(a - b) <= ll_tol * abs(b) and max(gap) <= tol,
+            f"{label}: {line}")
+    rows = prof.pop("rows")
+    grad_class_ms, grad_ms = syrk_grad_device_ms(rows)
+    # the covariance backward's launches on G and on |G| alike: half of
+    # them are the evaluation's
+    mc_rows = [(c, ms) for k, c, ms in rows if "matern_cov_grad_kernel" in k]
+    line.update(profile=prof, mp_syrk_grad_device_ms=grad_ms,
+                mp_syrk_grad_class_ms=grad_class_ms,
+                matern_cov_grad_profiled=dict(
+                    launches=sum(c for c, _ in mc_rows),
+                    ms=sum(ms for _, ms in mc_rows)),
+                matern_cov_grad_device_ms=sum(ms for _, ms in mc_rows) / 2)
+    emit(phase="panel_grad", step="evaluation", **line)
+    if key:
+        results.setdefault(key, {})["launches"] = ca["matern_cov_grad"]
+    return line
+
+
+def _hav_field(gen, n, theta):
+    """n lon/lat points in HAV_BOX (phase 4's perturbed grid, Morton order)
+    and a field drawn at theta, nu = 0.5, haversine distance."""
+    from repro_torch.covariance import apply_ordering, random_locations
+    from repro_torch.covariance.generator import ORDERINGS, simulate_field
+    unit = random_locations(gen, n)
+    locs = hav_locations(unit)
+    z = simulate_field(gen, locs, theta, nu_static=0.5, metric="haversine",
+                       jitter=1e-6)
+    return apply_ordering(locs, z, ORDERINGS["morton"](unit))
+
+
+def haversine_loglik(n_obs, nb, results):
+    """13 (c): make_loglik(metric="haversine", nu_static=0.5) value and
+    gradient at n_obs lon/lat points, dense full(fp32) (10.1's check) and
+    through the tiles under tpu(2) (10.3 (b)'s), kernel against plain."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, make_loglik
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    locs, z = _hav_field(gen, n_obs, list(HAV_THETA))
+    p = n_obs // nb
+    for label, pol, tiles in (("full(fp32)", PrecisionPolicy.full(torch.float32),
+                               False),
+                              ("tpu(2)", PrecisionPolicy.tpu(2), True)):
+        expected = tile_grad_launches(p, True) if tiles else dense_grad_launches()
+        out = {}
+        for impl in ("kernel", "plain"):
+            fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5,
+                             metric="haversine", use_tiles=tiles, impl=impl)
+            out[impl] = _value_and_grad(fn, HAV_THETA)
+            torch.cuda.empty_cache()
+        (a, ga, fa, ba, pa, ca), (b, gb, fb, bb, pb, cb) = out["kernel"], out["plain"]
+        fn = make_loglik(locs, z, pol, nb=nb, nu_static=0.5, metric="haversine",
+                         use_tiles=tiles)
+        with torch.no_grad():
+            no_grad = float(fn(torch.tensor(HAV_THETA, dtype=torch.float32)))
+        if tiles:
+            scale = _grad_scale(locs, z, pol, HAV_THETA, nb, metric="haversine")
+            ll_tol, tol = TILE_GRAD_TOL[label]
+            err = max(abs(x - y) / s for x, y, s in zip(ga, gb, scale))
+        else:
+            ll_tol = tol = GRAD_EVAL_TOL["torch.float32"]
+            err = max(abs(x - y) for x, y in zip(ga, gb)) / max(map(abs, gb))
+        line = dict(policy=label, metric="haversine", nu=0.5, n=n_obs, nb=nb,
+                    theta=list(HAV_THETA), loglik_kernel=a, loglik_plain=b,
+                    loglik_no_grad=no_grad, grad_kernel=ga, grad_plain=gb,
+                    grad_err=err, tol=tol, loglik_tol=ll_tol,
+                    seconds_forward_kernel=fa, seconds_backward_kernel=ba,
+                    seconds_forward_plain=fb, seconds_backward_plain=bb,
+                    peak_gib_kernel=pa, launches_kernel=ca)
+        emit(phase="panel_grad", step="haversine make_loglik", **line)
+        require(ca == expected and sum(cb.values()) == 0 and a == no_grad
+                and math.isfinite(a) and all(map(math.isfinite, ga))
+                and abs(a - b) <= ll_tol * abs(b) and err <= tol,
+                f"13 (c) {label}: {line}, launches expected {expected}")
+        results.setdefault("matern_cov_haversine", {})[
+            "launches" if not tiles else "launches_tiles"] = ca["matern_cov"]
+        results.setdefault("matern_cov_grad_haversine", {})[
+            "launches" if not tiles else "launches_tiles"] = ca["matern_cov_grad"]
+
+
+def panel_grad(ds, cfg, hcfg, results):
+    """Phase 13: the panel engine's gradient and haversine matern_cov on the
+    card (see the module docstring), sub-steps timed into one line."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
+    p = n // nb
+    locs_t = ds.locs.reshape(p, nb, 2)
+    base = held_on_card()
+    emit(phase="panel_grad", step="held at the start", **base)
+    base = base["allocated_gib"]
+    lines = step("13a grad tiles", check_grad_tiles, locs_t, t, results)
+    step("13a haversine", check_matern_haversine, locs_t, t, hcfg["n_dense"],
+         results)
+    th0 = [float(v) for v in ds.theta0.tolist()]
+    main = step("13b tpu", panel_grad_evaluation, f"tpu({t})", ds.locs, ds.z,
+                PrecisionPolicy.tpu(t), th0, nb, cfg["nu"], results,
+                "matern_cov_grad_tiles", "euclidean", base)
+    n_pair = panel_grad_n(n, nb, t, 8, 4, hcfg["peak_gib"] - base)
+    emit(phase="panel_grad", step="paper pair size", n=n, n_pair=n_pair,
+         held_gib=base,
+         predicted_peak_gib=base + panel_grad_peak_gib(n_pair, nb, t, 8, 4),
+         predicted_peak_gib_uncut=base + panel_grad_peak_gib(n, nb, t, 8, 4),
+         limit_gib=hcfg["peak_gib"])
+    pair = step("13b paper_cpu", panel_grad_evaluation, f"paper_cpu({t})",
+                ds.locs[:n_pair].double().contiguous(),
+                ds.z[:n_pair].double().contiguous(), PrecisionPolicy.paper_cpu(t),
+                th0, nb, cfg["nu"], results, "matern_cov_grad_tiles_fp64",
+                "euclidean", base)
+    require(pair["peak_gib_kernel"] <= hcfg["peak_gib"] + 1,
+            f"paper_cpu({t}) peak {pair['peak_gib_kernel']} GiB")
+    step("13c haversine", haversine_loglik, hcfg["n_obs"], hcfg["nb"], results)
+    for key, dt, ms_key in (("matern_cov_grad_tiles", "torch.float32", main),
+                            ("matern_cov_grad_tiles_fp64", "torch.float64", pair)):
+        z_line = lines[(dt, "euclidean", "zip d=1")]
+        l_line = lines[(dt, "euclidean", "lower")]
+        results[key].update(
+            name="matern_cov_grad (tile stacks" + (")" if dt.endswith("32")
+                                                  else ", fp64)"),
+            route="cuda", source="src/repro_torch/csrc/matern_cov_grad.cu",
+            replaces="src/repro/kernels/matern_cov/matern_cov.py:44",
+            max_abs_err=max(z_line["max_abs_err"], l_line["max_abs_err"]),
+            ms=l_line["ms"], plain_ms=l_line["plain_ms"],
+            bound_ms=l_line["bound_ms"], bound_by=l_line["bound_by"],
+            library_ms=None, zip_ms=z_line["ms"], zip_plain_ms=z_line["plain_ms"],
+            zip_bound_ms=z_line["bound_ms"],
+            device_ms_per_evaluation=ms_key["matern_cov_grad_device_ms"])
+    emit(phase="panel_grad", step="seconds", **secs)
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -3825,12 +4395,10 @@ def main(argv=None):
     require(len(dmma) == 2 and all(v["DMMA"] > 0 and v["DFMA"] == 0 for v in dmma.values()),
             f"the fp64 band kernel is not on the fp64 tensor cores: {dmma}")
     check_syrk_grad_build(lib)
-    # matern_cov: 4 dtype pairs x 3 nu, general and symmetric; the backward
-    # 2 dtypes x 3 nu x (general, symmetric)
     musage = ptxas_usage(lib.parent / _build.LOG_NAME, MATERN_KERNELS, typed=True)
     msass = sass_counts(lib, MATERN_KERNELS, MATERN_SASS_OPS, typed=True)
     emit(phase="build", kernel="matern_cov", ptxas=musage, sass=msass)
-    require(len(musage) == len(msass) == 36,
+    require(len(musage) == len(msass) == MATERN_INSTANTIATIONS,
             f"matern_cov kernels: {len(musage)} in ptxas, {len(msass)} in SASS")
 
     main_cfg = GEOSTAT_CONFIGS["geostat_65k"]  # geostat_500k with n cut
@@ -3873,7 +4441,7 @@ def main(argv=None):
     timed("4 main path", main_path, ds, cfg, results)
     torch.cuda.empty_cache()
     timed("4 paper pair", main_path_paper, ds, cfg, results)
-    del ds, locs_t
+    del locs_t  # ds stays for phase 13 (its field is 0.8 MB)
     torch.cuda.empty_cache()
     timed("5 likelihood vs CPU", small_vs_cpu)
     timed("5 SMOKE LM vs CPU", smoke_lm_vs_cpu)
@@ -3895,6 +4463,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("12 runtime", runtime, RUNTIME_QUICK if args.quick else RUNTIME,
           weak, fp64_field, results)
+    torch.cuda.empty_cache()
+    del weak, fp64_field
+    timed("13 panel gradient", panel_grad, ds, cfg,
+          PANEL_QUICK if args.quick else PANEL, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -3902,7 +4474,8 @@ def main(argv=None):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
-                                  "launches_accuracy", "launches_sched")
+                                  "launches_accuracy", "launches_sched",
+                                  "launches_tiles")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,18 @@ Unlike the reference, the factorization works in place on (band, off): at
 the main path's size a second copy would cost 10.7 GB.  A tile that is not
 positive definite raises a flag on the device (no host sync per step), and
 `banded_loglik` returns NaN where it is set.
+
+The engine is differentiable in theta (and z) as the reference's is:
+`geostat_loglik_step` with a theta tensor that requires grad builds the
+storage through `BandedMaternCov` (its backward the `matern_cov_grad`
+kernel's tile-stack forms on the card) and factors it through
+`PanelCholesky`, whose backward is the reverse sweep
+`panel_cholesky_backward`: per step, from the last, the trailing update's
+cotangent through `mp_syrk_grad` (the kernel on the card), the two panel
+TRSMs' and the diagonal tile's Cholesky backward, reading every value it
+needs from the final factor and working in place on the cotangents of
+(band, off), which stay in the storage dtypes.  It does not differentiate
+in the locations.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import math
 
 import torch
 
+from ..covariance.matern import HALF_INTEGER_NUS, matern_covariance
 from ..kernels.blocked_potrf import ops as potrf_ops, ref as potrf_ref
 from ..kernels.matern_cov import ops as matern_ops, ref as matern_ref
 from ..kernels.mp_gemm import ops as syrk_ops
@@ -127,6 +140,60 @@ def build_banded_covariance(locs, theta, *, nb: int, policy: PrecisionPolicy,
     off = matern.matern_cov_lower(locs_t, theta, nu=nu, min_lag=t,
                                   out_dtype=lo, metric=metric)
     return band, off
+
+
+def _banded_covariance_plain_grad(locs, theta, *, nb, policy, nu, metric,
+                                  jitter):
+    """(band, off) as `build_banded_covariance` builds them for a nu with no
+    closed form, through the plain covariance (covariance/matern.py) under
+    autograd, as the reference builds its storage: differentiable in theta,
+    nu = theta[2] (or `nu` where given) taking the general Bessel path, the
+    same tiles and bits as the plain build."""
+    n = locs.shape[0]
+    if n % nb:
+        raise ValueError(f"n={n} is not a multiple of nb={nb}")
+    p = n // nb
+    t = min(policy.diag_thick, p)
+    hi, lo = policy.hi, (policy.lo if policy.mode != "full" else policy.hi)
+    th = theta.reshape(-1).to(torch.promote_types(locs.dtype, torch.float32))
+    if nu is not None:
+        th = torch.cat([th[:2], th.new_tensor([float(nu)])])
+    locs_t = locs.reshape(p, nb, locs.shape[-1])
+    cols = []
+    for d in range(t):
+        blk = matern_covariance(locs_t[d:], locs_t[:p - d], th,
+                                metric=metric).to(hi)
+        cols.append(torch.cat([blk.new_zeros((d, nb, nb)), blk]))
+    band = torch.stack(cols, dim=1)
+    band[:, 0].diagonal(dim1=-2, dim2=-1).add_(jitter)
+    rows = []
+    for i in range(p):
+        j = max(0, i - t + 1)
+        tiles = [torch.zeros((p - j, nb, nb), dtype=lo, device=locs.device)]
+        if j:
+            cols_j = locs_t[:j].reshape(-1, locs.shape[-1])
+            row = matern_covariance(locs_t[i], cols_j, th, metric=metric)
+            tiles.insert(0, row.reshape(nb, j, nb).transpose(0, 1).to(lo))
+        rows.append(torch.cat(tiles))
+    return band, torch.stack(rows)
+
+
+def _banded_covariance_grad(locs, theta, *, nb, policy, nu_static, metric,
+                            jitter, impl):
+    """(band, off) differentiable in the theta tensor: a half-integer
+    nu_static through `BandedMaternCov` (the forward the plain build's, the
+    backward the matern_cov_grad kernel's tile-stack forms, or their plain
+    versions with impl="plain"), any other nu through the plain covariance
+    under autograd."""
+    if nu_static not in HALF_INTEGER_NUS:
+        return _banded_covariance_plain_grad(locs, theta, nb=nb, policy=policy,
+                                             nu=nu_static, metric=metric,
+                                             jitter=jitter)
+    build = functools.partial(build_banded_covariance, locs, nb=nb,
+                              policy=policy, nu_static=nu_static,
+                              metric=metric, jitter=jitter, impl=impl)
+    return matern_ops.BandedMaternCov.apply(locs, theta, build, nu_static,
+                                            metric, _impl(impl)[0])
 
 
 def assemble_from_banded(band, off, t: int, dtype=None):
@@ -229,6 +296,131 @@ def panel_cholesky_banded(band, off, policy: PrecisionPolicy, *,
     return band, off, failed
 
 
+def _trailing_cotangent(g_band, g_off, k, t, buf):
+    """The cotangent of step k's trailing product U = C C^T (m_t nb square
+    in hi) from those of the storage after step k, written into the front
+    of `buf` (the sweep's one buffer of step 0's size in hi: a dU per step
+    would strand the allocator's smaller blocks as dU grows, 21 GiB of the
+    paper pair's at n = 59,392 on an NVIDIA H100 80GB HBM3, 700 W): U's
+    band tiles (i, i - d) are g_band's
+    sub-diagonals, its off-band tiles (i, j), i - j >= t, g_off's; U's
+    strictly upper tiles are left unset (mp_syrk_grad reads only the lower
+    ones).  The forward subtracts U, so U's cotangent is this one
+    negated."""
+    p, _, nb, _ = g_band.shape
+    m_t = p - k - 1
+    du = buf[:(m_t * nb) ** 2].view(m_t, nb, m_t, nb)
+    for d in range(min(t, m_t)):    # du[a + d, :, a, :] = g_band[k+1+a+d, d]
+        torch.diagonal(du, offset=-d, dim1=0, dim2=2).copy_(
+            g_band[k + 1 + d:, d].permute(1, 2, 0))
+    for i in range(t, m_t):
+        du[i, :, :i - t + 1] = g_off[k + 1 + i,
+                                     k + 1:k + 2 + i - t].transpose(0, 1)
+    return du.view(m_t * nb, m_t * nb)
+
+
+def panel_cholesky_backward(band, off, g_band, g_off, policy: PrecisionPolicy,
+                            *, impl: str = "kernel"):
+    """The reverse sweep of `panel_cholesky_banded`: from the factored
+    storage (band, off) and the cotangents (g_band, g_off) of the factor,
+    the cotangents of the storage it factored, written in place into
+    g_band (hi) and g_off (lo) and returned.
+
+    Step k, from the last, reads only the final factor: L_kk = band[k, 0],
+    the band panel X = band[k+d, d] and the lo panel Y = off[k+t:, k].
+      * the trailing update U = C C^T of C = [X; Y in hi]: its cotangent
+        (`_trailing_cotangent`) through mp_syrk_grad (the kernel on a CUDA
+        tensor with impl="kernel", its plain version otherwise), with the
+        forward's band / off-band precision split, gives C's, added to X's
+        and Y's own (Y's rounded to lo, as the cast to hi passes it back);
+      * the hi TRSM X = B L^-T: B's cotangent X_bar L^-1, and -B_bar^T X
+        into L_kk's;
+      * the lo TRSM, solved in solve_dtype with L_kk rounded to lo: the
+        same in solve_dtype, B's cotangent stored in lo and L_kk's share
+        rounded to lo and back to hi, as the casts pass it;
+      * L_kk = chol(A_kk): A_kk's cotangent by `cholesky_backward` (torch's
+        own formula, in torch ops, for either band dtype).
+    A NaN factor (a tile that was not positive definite) gives NaN
+    cotangents.  The backward uses the forward's "square" SYRK for either
+    off_update: both compute the same lower products."""
+    require_ieee_fp32()
+    plain = _impl(impl) is _IMPLS["plain"]
+    p, t, nb, _ = band.shape
+    hi, lo, sd = policy.hi, off.dtype, policy.solve_dtype
+    du_buf = torch.empty(((p - 1) * nb) ** 2, dtype=hi, device=band.device)
+    for k in reversed(range(p)):
+        lkk = band[k, 0]
+        gl = g_band[k, 0]
+        m_t = p - k - 1
+        if m_t:
+            n_bp = min(t - 1, m_t)
+            d_idx = torch.arange(1, n_bp + 1, device=band.device)
+            x = band[k + d_idx, d_idx]
+            y = off[k + t:, k]
+            c_hi = torch.cat([x, y.to(hi)])
+            du = _trailing_cotangent(g_band, g_off, k, t, du_buf)
+            g_c = -syrk_ops.mp_syrk_grad(
+                du, c_hi.reshape(m_t * nb, nb), tile=nb, band_blocks=t,
+                hi=hi, lo=lo, accum=policy.accum_dtype, plain=plain)
+            del du, c_hi
+            g_c = g_c.view(m_t, nb, nb)
+            g_b = torch.linalg.solve_triangular(
+                lkk, g_band[k + d_idx, d_idx] + g_c[:n_bp], upper=False,
+                left=False)
+            gl = gl - g_b.reshape(-1, nb).mT @ x.reshape(-1, nb)
+            g_band[k + d_idx, d_idx] = g_b
+            if k + t <= p - 1:
+                g_y = (g_off[k + t:, k] + g_c[n_bp:].to(lo)).to(sd)
+                g_o = torch.linalg.solve_triangular(
+                    lkk.to(lo).to(sd), g_y.reshape(-1, nb), upper=False,
+                    left=False)
+                gl = gl - (g_o.mT @ y.to(sd).reshape(-1, nb)).to(lo).to(hi)
+                g_off[k + t:, k] = g_o.view(-1, nb, nb).to(lo)
+            del g_c
+        g_band[k, 0] = potrf_ops.cholesky_backward(gl, lkk)
+    return g_band, g_off
+
+
+class PanelCholesky(torch.autograd.Function):
+    """(band, off, failed) = panel_cholesky_banded(band, off), in place,
+    differentiable in (band, off): the forward marks both dirty and saves
+    the factored storage only; the backward is `panel_cholesky_backward`,
+    which works in place on the cotangents autograd hands it (the engine's
+    own, from `banded_loglik`): no second copy of the storage or of its
+    cotangent.  failed has no gradient.
+
+    On the card the forward ends by returning the caching allocator's free
+    blocks to the device: they are its per-step U products, one of step 0's
+    size and smaller ones, and the cotangents of (band, off) allocated into
+    them in the backward stranded the rest of each (22 GiB of the paper
+    pair's at n = 59,392 on an NVIDIA H100 80GB HBM3, 700 W, where the
+    sweep's dU then found no room).
+
+        PanelCholesky.apply(band, off, policy, off_update, impl)
+    """
+
+    @staticmethod
+    def forward(ctx, band, off, policy, off_update, impl):
+        band, off, failed = panel_cholesky_banded(band, off, policy,
+                                                  off_update=off_update,
+                                                  impl=impl)
+        if band.is_cuda:
+            torch.cuda.empty_cache()
+        ctx.mark_dirty(band, off)
+        ctx.mark_non_differentiable(failed)
+        ctx.save_for_backward(band, off)
+        ctx.policy, ctx.impl = policy, impl
+        return band, off, failed
+
+    @staticmethod
+    def backward(ctx, g_band, g_off, _):
+        band, off = ctx.saved_tensors
+        g_band, g_off = panel_cholesky_backward(
+            band, off, g_band.contiguous(), g_off.contiguous(), ctx.policy,
+            impl=ctx.impl)
+        return g_band, g_off, None, None, None
+
+
 # ----------------------------------------------------------------------
 # solve / likelihood on banded storage
 # ----------------------------------------------------------------------
@@ -239,17 +431,21 @@ def banded_forward_solve(band, off, z, t: int):
     p, _, nb, _ = band.shape
     hi = band.dtype
     z_t = z.to(hi).reshape(p, nb)
+    # tile rows by unbind, not an index per tile: under autograd an index's
+    # backward is a zero tensor of the whole storage (8 GiB of off at the
+    # main path's size), an unbound row's one row of it
+    band_rows, off_rows = band.unbind(0), off.unbind(0)
     ws = []
     for i in range(p):
         acc = z_t[i]
         for d in range(1, min(i + 1, t)):
-            acc = acc - band[i, d] @ ws[i - d]
+            acc = acc - band_rows[i][d] @ ws[i - d]
         if i - t >= 0:
             w_mat = torch.stack(ws[:i - t + 1])            # (i-t+1, nb)
-            acc = acc - torch.einsum("jab,jb->a", off[i, :i - t + 1].to(hi),
-                                     w_mat)
+            acc = acc - torch.einsum("jab,jb->a",
+                                     off_rows[i][:i - t + 1].to(hi), w_mat)
         ws.append(torch.linalg.solve_triangular(
-            band[i, 0], acc[:, None], upper=False)[:, 0])
+            band_rows[i][0], acc[:, None], upper=False)[:, 0])
     return torch.cat(ws)
 
 
@@ -275,23 +471,34 @@ def geostat_loglik_step(locs, z, theta, *, nb: int, policy: PrecisionPolicy,
     """One full likelihood evaluation: cov-gen -> factor -> solve -> ll.
 
     Computes on the device of `locs` and returns a 0-d tensor there.  This
-    is the unit the paper benchmarks ("time per iteration").  It is not
-    differentiable, on either device and for either impl: it builds Sigma
-    from theta as host numbers and factors in place, so a theta (or locs,
-    z) that requires grad raises rather than return a log-likelihood
-    without its graph.  `make_loglik` differentiates (dense or through the
-    tile engine).
+    is the unit the paper benchmarks ("time per iteration").  A theta
+    tensor that requires grad (with grad mode on) makes it differentiable,
+    on either device and for either impl: the storage is built through
+    `BandedMaternCov` (a general nu through the plain covariance under
+    autograd) and factored in place through `PanelCholesky`, whose
+    backward is the reverse sweep (`panel_cholesky_backward`); z that
+    requires grad differentiates through the solve.  theta3 gets a zero
+    gradient under a half-integer nu_static.  Locations that require grad
+    raise: no path of the port differentiates in them.  The value is the
+    same bit for bit with and without autograd.
     """
-    if _requires_grad(locs, z, theta):
+    if _requires_grad(locs):
         raise NotImplementedError(
-            "geostat_loglik_step has no backward: it builds Sigma from theta "
-            "as host numbers and factors in place; use make_loglik, dense or "
-            "through the tiles (ROADMAP A 12: the panel engine's gradient)")
+            "geostat_loglik_step does not differentiate in the locations: "
+            "the covariance's backward gives theta's gradient only")
     require_ieee_fp32()
-    band, off = build_banded_covariance(locs, theta, nb=nb, policy=policy,
-                                        nu_static=nu_static, metric=metric,
-                                        jitter=jitter, impl=impl)
+    if _requires_grad(theta):
+        band, off = _banded_covariance_grad(
+            locs, theta, nb=nb, policy=policy, nu_static=nu_static,
+            metric=metric, jitter=jitter, impl=impl)
+        band, off, failed = PanelCholesky.apply(band, off, policy,
+                                                off_update, impl)
+    else:
+        band, off = build_banded_covariance(locs, theta, nb=nb, policy=policy,
+                                            nu_static=nu_static, metric=metric,
+                                            jitter=jitter, impl=impl)
+        band, off, failed = panel_cholesky_banded(band, off, policy,
+                                                  off_update=off_update,
+                                                  impl=impl)
     t = min(policy.diag_thick, band.shape[0])
-    band, off, failed = panel_cholesky_banded(band, off, policy,
-                                              off_update=off_update, impl=impl)
     return banded_loglik(band, off, z, t, failed)

@@ -8,7 +8,8 @@ library goes to `build/repro_torch_kernels/<hash>/` at the repository root,
 keyed by a hash of the sources and flags, so a changed source is rebuilt
 and an unchanged one is loaded as it is.  The compilers' output, with
 `ptxas -v`'s registers, shared memory and spills of every kernel, is kept
-beside it in `nvcc.log`.
+beside it in `nvcc.log`, each source's part headed by the seconds its
+nvcc took from the common start.
 
 Nothing here runs when the module is imported: the first kernel launch
 calls `library()`.
@@ -24,6 +25,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -41,13 +43,15 @@ _D = ctypes.c_double
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 SIGNATURES = {
     # locs_i, locs_j, out, plan, n_pairs, n_cols_j, rows, cols,
-    # out_tile_stride, th1, th2, two_nu, dtypes, sym, stream
+    # out_tile_stride, th1, th2, two_nu, dtypes, sym, hav, stream
     "matern_cov_launch": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
-                          _D, _D, _I, _I, _I, _P],
-    # locs_a, locs_b, grad, partials, n_partials, out, rows, cols, th1, th2,
-    # two_nu, fp64, sym, stream
+                          _D, _D, _I, _I, _I, _I, _P],
+    # locs_a, locs_b, grad, partials, n_partials, out, rows, cols, n_tiles,
+    # lag, g_stride_i, g_stride_j, th1, th2, two_nu, dtypes, sym, hav,
+    # stream
     "matern_cov_grad_launch": [_P, _P, _P, _P, ctypes.c_longlong, _P, _I, _I,
-                               _D, _D, _I, _I, _I, _P],
+                               _I, _I, ctypes.c_longlong, ctypes.c_longlong,
+                               _D, _D, _I, _I, _I, _I, _P],
     # a, out, info, batch, nb, max_blocks, stream
     "blocked_potrf_launch": [_P, _P, _P, _I, _I, _I, _P],
     # p, scratch, out, m, kdim, tile, round_k, band_blocks, pair, bm,
@@ -97,17 +101,25 @@ def build(verbose: bool = False) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        t0 = time.perf_counter()
         procs = []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
+            out = open(Path(tmp) / (src.stem + ".log"), "w+")  # no pipe to fill
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            procs.append((src, obj, out, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT, text=True)))
+        done = {}  # source -> seconds from the common start until nvcc exited
+        while len(done) < len(procs):
+            for src, _, _, proc in procs:
+                if src not in done and proc.poll() is not None:
+                    done[src] = time.perf_counter() - t0
+            time.sleep(0.05)
         failed, logs = [], []
-        for src, _, proc in procs:
-            log, _ = proc.communicate()
-            logs.append(f"[nvcc {src.name}]\n{log}")
+        for src, _, out, proc in procs:
+            with out:
+                out.seek(0)
+                logs.append(f"[nvcc {src.name}] {done[src]:.1f} s\n{out.read()}")
             if verbose or proc.returncode:
                 print(logs[-1], file=sys.stderr, flush=True)
             if proc.returncode:
@@ -117,7 +129,7 @@ def build(verbose: bool = False) -> Path:
         (out_dir / LOG_NAME).write_text("\n".join(logs))
         tmp_lib = Path(tmp) / LIB_NAME
         subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
-                        *(str(obj) for _, obj, _ in procs), "-lcudart",
+                        *(str(obj) for _, obj, _, _ in procs), "-lcudart",
                         "-lcuda"],
                        check=True)
         os.replace(tmp_lib, lib)  # atomic: a reader never sees half a file

@@ -1,12 +1,16 @@
-"""Launch wrapper of the CUDA Matern covariance kernel (csrc/matern_cov.cu).
+"""Launch wrappers of the CUDA Matern covariance kernel (csrc/matern_cov.cu)
+and its backward (csrc/matern_cov_grad.cu).
 
 Replaces the Pallas TPU kernel `repro.kernels.matern_cov.matern_cov`.
-Euclidean distance with nu in {0.5, 1.5, 2.5}, written directly by the
-kernel in one of two precisions: fp32 locations give fp32 or bf16 output
-computed in fp32; fp64 locations give fp64 output computed in fp64, or
-that value rounded once to fp32 (the panel path's fp32 off-band of the
-paper pair).  `launch_grad` runs its backward: the gradient in theta of
-sum G * C for one tile, G in the locations' precision.
+nu in {0.5, 1.5, 2.5}, Euclidean or haversine distance (lon/lat degrees,
+the great circle in degrees, as `covariance/matern.py: pairwise_distance`
+computes both), written directly by the kernel in one of two precisions:
+fp32 locations give fp32 or bf16 output computed in fp32; fp64 locations
+give fp64 output computed in fp64, or that value rounded once to fp32 (the
+panel path's fp32 off-band of the paper pair).  The `launch_grad*`
+functions run its backward: the gradient in theta of sum G * C for one
+tile, a zip stack of tiles (a band sub-diagonal) or the lower tiles of the
+off-band storage, each G in the storage dtype of its tiles.
 
 Both kernels work in BLOCK x BLOCK blocks of a tile.  Where a call's row
 and column tiles are the same tiles (`symmetric`), each tile is
@@ -110,15 +114,19 @@ def _check_locs(locs, name):
         raise ValueError(f"{name} must be a contiguous (tiles, rows, 2) tensor")
 
 
-def _two_nu(nu, metric):
-    if metric != "euclidean":
-        raise NotImplementedError(
-            "matern_cov kernel: haversine distance is not ported (ROADMAP A 5)")
+def _two_nu(nu):
     if nu not in (0.5, 1.5, 2.5):
         raise NotImplementedError(
             f"matern_cov kernel: nu={nu} has no closed form; a general nu "
             "goes to the plain Bessel path (matern_cov.ops)")
     return int(round(2 * nu))
+
+
+def _hav(metric):
+    """The C entries' `hav` flag of a distance metric."""
+    if metric not in ("euclidean", "haversine"):
+        raise ValueError(f"unknown metric {metric!r}")
+    return int(metric == "haversine")
 
 
 def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
@@ -133,8 +141,9 @@ def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
     symmetric form, with the same bits.
     theta: host floats (theta1, theta2, ...); theta[2] is not read.  The
     kernel computes in the locations' precision, theta rounded to it.
+    metric: "euclidean" or "haversine" (lon/lat in degrees).
     """
-    two_nu = _two_nu(nu, metric)
+    two_nu, hav = _two_nu(nu), _hav(metric)
     dtypes = _DTYPES.get((locs_i.dtype, out.dtype))
     if locs_j.dtype != locs_i.dtype or dtypes is None:
         raise ValueError(
@@ -167,48 +176,103 @@ def launch(locs_i, locs_j, theta, *, nu, out, outer, min_lag=0,
             else None)
     status = library().matern_cov_launch(
         locs_i.data_ptr(), locs_j.data_ptr(), out.data_ptr(), plan, n_pairs,
-        n_cols_j, rows, cols, stride, th1, th2, two_nu, dtypes, int(sym),
+        n_cols_j, rows, cols, stride, th1, th2, two_nu, dtypes, int(sym), hav,
         torch.cuda.current_stream(out.device).cuda_stream)
     check(status, "matern_cov")
     count_launch("matern_cov")
     return out
 
 
+def _launch_grad(locs_a, locs_b, theta, grad, *, nu, metric, n_tiles, lag,
+                 strides, sym):
+    """One backward launch (and its one-block second pass) over n_tiles G
+    tiles (rows, cols) from `grad`'s data pointer, G tile z of the zip form
+    (lag < 0) at z strides[0], tile (ti, tj) of the lower form at ti
+    strides[0] + tj strides[1] elements; the locations (tiles, rows, 2) and
+    (tiles, cols, 2).  Returns the (2,) fp64 sums, zeros for no tile."""
+    two_nu, hav = _two_nu(nu), _hav(metric)
+    dtypes = _DTYPES.get((locs_a.dtype, grad.dtype))
+    if locs_b.dtype != locs_a.dtype or dtypes is None:
+        raise ValueError(
+            f"matern_cov_grad kernel: locations {locs_a.dtype}/{locs_b.dtype}"
+            f" with G {grad.dtype}; it takes fp32 locations with fp32 or bf16 "
+            "G and fp64 locations with fp64 or fp32 G")
+    _check_locs(locs_a, "locs_a")
+    _check_locs(locs_b, "locs_b")
+    if locs_b.device != locs_a.device or grad.device != locs_a.device:
+        raise ValueError("the locations and G must be on one device")
+    out = torch.zeros(2, dtype=torch.float64, device=locs_a.device)
+    if n_tiles == 0:
+        return out
+    rows, cols = locs_a.shape[1], locs_b.shape[1]
+    n_blocks, _ = grad_plan(rows, cols, sym)
+    n_partials = 2 * min(n_blocks * n_tiles, GRAD_MAX_GRID)
+    partials = torch.empty(n_partials, dtype=torch.float64,
+                           device=locs_a.device)
+    status = library().matern_cov_grad_launch(
+        locs_a.data_ptr(), locs_b.data_ptr(), grad.data_ptr(),
+        partials.data_ptr(), n_partials, out.data_ptr(), rows, cols, n_tiles,
+        lag, strides[0], strides[1], float(theta[0]), float(theta[1]), two_nu,
+        dtypes, int(sym), hav,
+        torch.cuda.current_stream(locs_a.device).cuda_stream)
+    check(status, "matern_cov_grad")
+    count_launch("matern_cov_grad")
+    return out
+
+
+def _check_g_tiles(grad, shape):
+    if tuple(grad.shape) != tuple(shape) or grad.stride()[-2:] != (shape[-1], 1):
+        raise ValueError(f"matern_cov_grad kernel: G must be {tuple(shape)} "
+                         f"with contiguous tiles, got {tuple(grad.shape)} "
+                         f"strides {grad.stride()}")
+
+
 def launch_grad(locs_a, locs_b, theta, grad_out, *, nu, metric="euclidean"):
     """sum_ij G_ij dC_ij/dtheta_k for k = 1, 2, C = C(locs_a, locs_b): one
     backward launch (and its one-block second pass) for the (m, n) tile
-    G = grad_out, fp32 or fp64 as the locations are.  theta: host floats
-    (theta1, theta2, ...), rounded to the locations' precision as `launch`
-    rounds them.  Returns a (2,) tensor in that precision on the device.
-    `symmetric` locations launch the symmetric form (G need not be
+    G = grad_out, in the locations' precision (or a storage dtype the
+    tile forms take).  theta: host floats (theta1, theta2, ...), rounded to
+    the locations' precision as `launch` rounds them.  Returns a (2,)
+    tensor in that precision on the device.  `symmetric` locations with G
+    in their precision launch the symmetric form (G need not be
     symmetric); its sums differ from the general form's in their order.
-    Haversine distance raises here (`_two_nu`), before any build, until
-    ROADMAP A 5; the plain version (ref.matern_cov_grad) takes it."""
-    two_nu = _two_nu(nu, metric)
-    dtype = locs_a.dtype
-    if (dtype not in (torch.float32, torch.float64) or locs_b.dtype != dtype
-            or grad_out.dtype != dtype):
-        raise ValueError(
-            f"matern_cov_grad kernel: locations {locs_a.dtype}/{locs_b.dtype}"
-            f" with G {grad_out.dtype}; it takes all fp32 or all fp64")
-    _check_locs(locs_a[None], "locs_a")
-    _check_locs(locs_b[None], "locs_b")
-    rows, cols = locs_a.shape[0], locs_b.shape[0]
-    if grad_out.shape != (rows, cols) or not grad_out.is_contiguous():
+    A general nu raises here (`_two_nu`), before any build."""
+    return launch_grad_tiles(locs_a[None], locs_b[None], theta, grad_out[None],
+                             nu=nu, metric=metric).to(locs_a.dtype)
+
+
+def launch_grad_tiles(locs_i, locs_j, theta, grad_tiles, *, nu,
+                      metric="euclidean"):
+    """The backward of `launch`'s zip form in one launch: sum over b of
+    sum G_b dC(locs_i[b], locs_j[b])/dtheta_k, G = grad_tiles (B, rows,
+    cols) with contiguous tiles and any tile stride (a band sub-diagonal's
+    cotangent band_grad[d:, d]), in the storage dtype of its tiles.
+    `symmetric` locations with G in their precision launch the symmetric
+    form.  A (2,) fp64 tensor on the device."""
+    _two_nu(nu)
+    b, rows, _ = locs_i.shape
+    _check_g_tiles(grad_tiles, (b, rows, locs_j.shape[1]))
+    sym = symmetric(locs_i, locs_j) and grad_tiles.dtype == locs_i.dtype
+    return _launch_grad(locs_i, locs_j, theta, grad_tiles, nu=nu,
+                        metric=metric, n_tiles=b, lag=-1,
+                        strides=(grad_tiles.stride(0), 0), sym=sym)
+
+
+def launch_grad_lower(locs_t, theta, grad_off, *, nu, min_lag,
+                      metric="euclidean"):
+    """The backward of `launch`'s outer form with `min_lag` in one launch:
+    the sum over the computed tiles (i, j), i - j >= min_lag, of sum G_ij
+    dC(locs_t[i], locs_t[j])/dtheta_k, G = grad_off contiguous (p, p, nb,
+    nb) in the off-band's storage dtype; the zero tiles are not read, and
+    none computed launches nothing.  A (2,) fp64 tensor on the device."""
+    _two_nu(nu)
+    p, nb, _ = locs_t.shape
+    if min_lag < 0:
+        raise ValueError(f"lower: min_lag must be >= 0, got {min_lag}")
+    if tuple(grad_off.shape) != (p, p, nb, nb) or not grad_off.is_contiguous():
         raise ValueError(f"matern_cov_grad kernel: G must be contiguous "
-                         f"({rows}, {cols}), got {tuple(grad_out.shape)}")
-    if locs_b.device != locs_a.device or grad_out.device != locs_a.device:
-        raise ValueError("locs_a, locs_b and G must be on one device")
-    sym = symmetric(locs_a, locs_b)
-    _, n_partials = grad_plan(rows, cols, sym)
-    partials = torch.empty(n_partials, dtype=torch.float64,
-                           device=locs_a.device)
-    out = torch.empty(2, dtype=torch.float64, device=locs_a.device)
-    status = library().matern_cov_grad_launch(
-        locs_a.data_ptr(), locs_b.data_ptr(), grad_out.data_ptr(),
-        partials.data_ptr(), n_partials, out.data_ptr(), rows, cols,
-        float(theta[0]), float(theta[1]), two_nu, int(dtype == torch.float64),
-        int(sym), torch.cuda.current_stream(locs_a.device).cuda_stream)
-    check(status, "matern_cov_grad")
-    count_launch("matern_cov_grad")
-    return out.to(dtype)
+                         f"{(p, p, nb, nb)}, got {tuple(grad_off.shape)}")
+    n = max(0, p - min_lag)
+    return _launch_grad(locs_t, locs_t, theta, grad_off, nu=nu, metric=metric,
+                        n_tiles=n * (n + 1) // 2, lag=min_lag,
+                        strides=(p * nb * nb, nb * nb), sym=False)

@@ -255,7 +255,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         attn_kernel.launch(q, kv, kv, torch.ones((2, 1, 2)),
                            torch.full((2,), 128, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="haversine"):
+    # haversine passes the smoothness check and meets the device check
+    with pytest.raises(ValueError, match="CUDA"):
         matern_kernel.launch(locs, locs, [1.0, 0.1], nu=0.5, out=out,
                              outer=False, metric="haversine")
     with pytest.raises(NotImplementedError, match="nu=1.3"):

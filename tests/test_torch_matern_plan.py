@@ -1,6 +1,6 @@
 """The block plan of the symmetric Matern kernels and the facts it rests on.
 
-The CUDA forward and backward (csrc/matern_cov.cu) compute a tile whose row
+The CUDA forward and backward (csrc/matern_cov.cu, _grad.cu) compute a tile whose row
 and column locations are the same locations only on its lower BLOCK x
 BLOCK blocks: the forward writes each with its mirror, the backward reads
 G's two mirrored blocks against one evaluation.  Here, without a card:
@@ -229,7 +229,7 @@ def _rn32(x):
                                     int(v.view(np.int32)) & 1))
 
 
-# x = r / theta2 in the kernels (csrc/matern_cov.cu: div_by): q = RN(r y)
+# x = r / theta2 in the kernels (csrc/matern_cov.cuh: div_by): q = RN(r y)
 # with y = RN(1 / theta2), the remainder r - q theta2 exact in one FMA,
 # then RN(q + remainder y) in one more
 @pytest.mark.parametrize("theta2", [0.03, 0.07, 0.1, 0.3, 1.3, 3.0])

@@ -520,15 +520,24 @@ def test_haversine_matern_cov_grad_matches_autograd():
 
 
 def test_haversine_grad_kernel_refuses_before_any_build(monkeypatch):
-    """On a CUDA tensor the backward kernel still refuses haversine (ROADMAP
-    A 5), in _two_nu, before its checks and before the library is built."""
+    """The backward kernel's wrapper takes haversine distance: past _two_nu
+    and its checks (the CUDA-device check stubbed here, where there is no
+    card) a haversine call reaches the library's build; a general nu (1.3)
+    still refuses in _two_nu, before its checks and before any build."""
     from repro_torch.kernels.matern_cov import matern_cov as mc_kernel
 
-    def no_build():
-        raise AssertionError("the library was asked for")
+    class Built(Exception):
+        pass
 
-    monkeypatch.setattr(mc_kernel, "library", no_build)
+    def build():
+        raise Built
+
+    monkeypatch.setattr(mc_kernel, "library", build)
+    monkeypatch.setattr(mc_kernel, "_check_locs", lambda locs, name: None)
     la, lb, g = _grad_inputs(torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A 5"):
+    with pytest.raises(Built):
         mc_kernel.launch_grad(la, lb, [1.0, 2.0], g, nu=0.5,
+                              metric="haversine")
+    with pytest.raises(NotImplementedError, match="nu=1.3"):
+        mc_kernel.launch_grad(la, lb, [1.0, 2.0], g, nu=1.3,
                               metric="haversine")

@@ -4,8 +4,8 @@
 backward against autograd through the plain `potrf`, the tile engine with
 impl="kernel" (on the CPU: the plain forwards and backwards through both
 Functions) against `jax.value_and_grad` of the JAX `make_loglik`, the
-panel engine's refusal of a theta that requires grad, and chip_smoke.py's
-phase 10.3 arithmetic.
+panel engine's gradient against JAX's (and its refusal of locations that
+require grad), and chip_smoke.py's phase 10.3 arithmetic.
 
 The engine cases reuse tests/test_torch_mle_adam.py's inputs: n = 128
 uniform points from a numpy seed, a field drawn at (1, 0.1), nu = 0.5,
@@ -308,29 +308,43 @@ def test_tile_engine_launches_nothing_on_the_cpu(data32):
 
 
 # ----------------------------------------------------------------------
-# the panel engine refuses a theta that requires grad
+# the panel engine's gradient in theta; it refuses locations that require
+# grad
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_geostat_loglik_step_refuses_grad(impl):
-    """n = 256, nb = 64, tpu(2): a theta that requires grad raised only on
-    the card with impl="kernel"; on the CPU the same call came back as a
-    number without a graph (requires_grad False).  Now a theta, locs or z
-    that requires grad raises on every device and for both impls; without
-    grad mode the same call runs."""
+    """n = 256, nb = 64, tpu(2): a theta that requires grad gives a finite
+    gradient (theta3's 0) within 1e-4 of the scale s_k of JAX's through its
+    panel engine (measured 5.2e-6: the bf16 cotangent roundings of C 13;
+    tests/test_torch_panel_grad.py holds every policy), and ll equal to
+    the no-grad one bit for bit; locations that require grad raise on
+    every device and for both impls; without grad mode that call runs."""
+    from repro.core.panel_cholesky import geostat_loglik_step as j_step
     locs, z = (torch.from_numpy(x) for x in _field(2, 256, np.float32))
     th = torch.tensor([1.0, 0.1, 0.5])
-    call = functools.partial(geostat_loglik_step, nb=64,
-                             policy=PrecisionPolicy.tpu(2), nu_static=0.5,
-                             impl=impl)
+    pol = PrecisionPolicy.tpu(2)
+    call = functools.partial(geostat_loglik_step, nb=64, policy=pol,
+                             nu_static=0.5, impl=impl)
     grad = lambda x: x.clone().requires_grad_(True)  # noqa: E731
-    for args in ((locs, z, grad(th)), (grad(locs), z, th),
-                 (locs, grad(z), th)):
-        with pytest.raises(NotImplementedError,
-                           match="panel engine's gradient"):
-            call(*args)
-        with torch.no_grad():
-            assert torch.isfinite(call(*args))
+    t = grad(th)
+    ll = call(locs, z, t)
+    (g,) = torch.autograd.grad(ll, t)
+    with torch.no_grad():
+        assert torch.equal(ll.detach(), call(locs, z, th))
+    v, g_j = jax.jit(jax.value_and_grad(lambda x: j_step(
+        jnp.asarray(locs.numpy()), jnp.asarray(z.numpy()), x, nb=64,
+        policy=JP.tpu(2), nu_static=0.5)))(jnp.asarray(th.numpy()))
+    scale = np.array(_chip_smoke().panel_grad_scale(locs, z, pol, th.tolist(),
+                                                    64, 0.5, impl="plain"))
+    assert torch.isfinite(g).all() and g[2] == 0.0
+    assert abs(float(ll.detach()) - float(v)) <= 1e-6 * abs(float(v))
+    assert (np.abs(g[:2].double().numpy() - np.asarray(g_j, np.float64)[:2])
+            / scale).max() <= 1e-4
+    with pytest.raises(NotImplementedError, match="locations"):
+        call(grad(locs), z, th)
+    with torch.no_grad():
+        assert torch.isfinite(call(grad(locs), z, th))
 
 
 # ----------------------------------------------------------------------
@@ -418,12 +432,16 @@ def test_chip_smoke_syrk_grad_kernel_names(tmp_path):
     kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+"
                          r"(mp_syrk_grad_\w+_kernel)\(", src)
     assert sorted(kernels) == sorted(cs.SYRK_GRAD_KERNELS)
-    # the build's ptxas keys, one per instantiation, typed
-    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124mp_"
-           "syrk_grad_fp32_kernelILi128ELi128ELb1EEEvPKfS2_S2_Pviiiii' for "
-           "'sm_90a'\nptxas info    : Function properties for x\n    0 bytes "
-           "stack frame, 0 bytes spill stores, 0 bytes spill loads\nptxas "
-           "info    : Used 243 registers\n")
+    # the build's ptxas keys, one per instantiation, typed; a called
+    # function's properties between the entry's lines are not the entry's
+    entry = ("_ZN12_GLOBAL__N_124mp_syrk_grad_fp32_kernelILi128ELi128ELb1EEEv"
+             "PKfS2_S2_Pviiiii")
+    log = (f"ptxas info    : Compiling entry function '{entry}' for "
+           f"'sm_90a'\nptxas info    : Function properties for {entry}\n    0 "
+           "bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_1callee\n"
+           "    48 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\nptxas info    : Used 243 registers\n")
     path = tmp_path / "nvcc.log"
     path.write_text(log)
     usage = cs.ptxas_usage(path, cs.SYRK_GRAD_KERNELS, typed=True)
