@@ -175,6 +175,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      largest n predicted under 70 GiB; (c) make_loglik with haversine at
      nu = 0.5 on a lon/lat field of 40,960 points, value and gradient,
      dense full(fp32) and through the tiles under tpu(2);
+ 14. the distributed panel engine (core/distributed.py) on a 1 x 1 NCCL
+     grid (torch.distributed, one rank, a HashStore): (a) the bf16 lo
+     product against the fp32-upcast one at (b)'s row chunk of U (one bf16
+     ulp), then tpu(2), full(fp32) and paper_cpu(2) at n = 1,024, nb = 128
+     through masked_full, aligned and fori: the NCCL grid's factor and ll
+     the no-group call's bits, masked_full and fori the same bits, aligned
+     within phase 8.1's (9.1's) limit, kernels against plain within phase
+     4's, exact launch counts, and a CUDA tensor under a 1-rank gloo group
+     refused; (b) geostat_65k (phase 4's field and first request) through
+     the three versions, kernels after one warm-up and plain: exact
+     matern_cov (1 + t) and blocked_potrf (p) launches, kernel against
+     plain within 1e-3 |ll|, ll beside the panel engine's (phase 4's;
+     reported, the reference's lo-rounded band panel makes them differ),
+     seconds, the peak against its prediction, the device's busy and idle
+     share of a masked_full evaluation; (c) the pair at DP(10%) on phase
+     9's fp64 medium field through aligned and masked_full, kernels and
+     plain: within 1e-5 of each other and 1e-4 |ll| of 9.1's full(fp64);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -301,6 +318,10 @@ RUNTIME_QUICK = dict(small_p=8, small_nb=128, nb=128, peak_ratio=1.25)
 # predicted to reach before its n is cut (phase 10's)
 PANEL = dict(n_dense=40_960, n_obs=40_960, nb=1_024, peak_gib=70.0)
 PANEL_QUICK = dict(n_dense=4_096, n_obs=5_120, nb=128, peak_gib=70.0)
+# phase 14: (a)'s n, nb and t; the peak an evaluation may be predicted to
+# reach before its n is cut (phase 10's); (b) runs at phase 4's size, (c)
+# at phase 9's
+DIST = dict(small_n=1_024, small_nb=128, small_t=2, peak_gib=70.0)
 # CUDA events resolve to about half a microsecond: the happens-before
 # check's slack on device times, in microseconds
 HB_ATOL_US = 1.0
@@ -1127,7 +1148,7 @@ def main_path(ds, cfg, results):
     requests = [th0, [th0[0], th0[1] * 0.8, th0[2]],
                 [th0[0], th0[1] * 1.25, th0[2]]]
     total = {k: 0 for k, count in expected.items() if count}
-    n_finite = 0
+    n_finite, first = 0, None
     for theta in requests:
         lls, secs, peaks, launched = {}, {}, {}, {}
         for impl in ("kernel", "plain"):
@@ -1155,6 +1176,7 @@ def main_path(ds, cfg, results):
                  and abs(a - b) <= 1e-3 * abs(b))
         require(both_nan or close, f"theta {theta}: kernel {a} vs plain {b}")
         n_finite += close
+        first = a if first is None else first
         emit(phase="main", n=n, nb=nb, t=t, theta=theta, loglik_kernel=a,
              loglik_plain=b, rel_diff=abs(a - b) / abs(b) if close else None,
              seconds_kernel=secs["kernel"], seconds_plain=secs["plain"],
@@ -1164,6 +1186,7 @@ def main_path(ds, cfg, results):
     for k in total:
         results[k]["launches"] = total[k]
     profile_evaluation(ds, cfg, policy, th0)
+    return first
 
 
 def main_path_paper(ds, cfg, results):
@@ -2196,6 +2219,7 @@ def paper_evaluations(locs, z, fcfg, total):
          mode=pol.mode, diag_thick=2, tiles=True, theta=theta,
          loglik_kernel=ll, finite=math.isfinite(ll), seconds_kernel=secs,
          peak_gib_kernel=peak, launches_kernel=counts)
+    return dense
 
 
 def paper_estimation(locs, z, fcfg):
@@ -2362,7 +2386,7 @@ def paper(fcfg, results):
         return out
 
     total = {"matern_cov": 0, "blocked_potrf": 0, "mp_syrk": 0}
-    step("9.1 evaluations", paper_evaluations, locs, z, fcfg, total)
+    dense = step("9.1 evaluations", paper_evaluations, locs, z, fcfg, total)
     require(total["mp_syrk"] > 0 and total["matern_cov"] > 0,
             f"the paper pair launched {total}")
     results.setdefault("mp_syrk_fp64", {})["launches_paper"] = total["mp_syrk"]
@@ -2373,7 +2397,7 @@ def paper(fcfg, results):
              fits, fcfg)
     step("9.4 kernels", paper_kernels, locs, locs_new, fcfg, results)
     emit(phase="paper", step="seconds", **secs)
-    return locs, z
+    return (locs, z), dense
 
 
 # ---------------------------------------------------------------------------
@@ -4229,6 +4253,285 @@ def panel_grad(ds, cfg, hcfg, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the distributed panel engine (core/distributed.py) on NCCL
+# ---------------------------------------------------------------------------
+
+def distributed_launches(p, t, fp32_band):
+    """Kernel launches of one distributed evaluation: matern_cov once over
+    the off slab and once per band sub-diagonal, blocked_potrf once per step
+    for an fp32 band (an fp64 band's diagonal tiles go to cuSOLVER)."""
+    return {"matern_cov": 1 + t, "blocked_potrf": p if fp32_band else 0,
+            "mp_syrk": 0, "matern_cov_grad": 0, "mp_syrk_grad": 0,
+            "mp_attention": 0}
+
+
+def distributed_peak_gib(n, nb, t, hi_bytes, lo_bytes, u_bytes):
+    """The memory one distributed evaluation on one rank adds at its peak,
+    predicted: off (n^2 lo) and the band (p t nb^2 hi), one row chunk of U
+    in its product's dtype (u_bytes) and, where that is not lo, rounded to
+    lo, three n x nb lo buffers of the panel column (the rank's piece, the
+    gathered pieces, c_lo) and two in hi (c_t, the lo TRSM)."""
+    from repro_torch.core.distributed import U_CHUNK_ELEMS
+    p = n // nb
+    rows = min(max(1, U_CHUNK_ELEMS // (nb * nb * p)), p) * nb
+    u = rows * n * (u_bytes + (lo_bytes if u_bytes != lo_bytes else 0))
+    total = (n * n * lo_bytes + p * t * nb * nb * hi_bytes + u
+             + 3 * n * nb * lo_bytes + 2 * n * nb * hi_bytes)
+    return total / 2 ** 30
+
+
+def _close(a, b, tol):
+    """Both NaN, or both finite and within tol |b|."""
+    return (math.isnan(a) and math.isnan(b)) or (
+        math.isfinite(a) and math.isfinite(b) and abs(a - b) <= tol * abs(b))
+
+
+def check_lo_product(n, nb):
+    """The bf16-operand lo product (fp32 sums, rounded once) against the
+    fp32-upcast one at the row chunk of U that geostat_65k's evaluation
+    computes, on N(0, 1) operands: the two fp32 sums differ only in their
+    order, so each element within one bf16 ulp of its value plus twice
+    1e-6 of sum |a_i b_i| (phase 10.3's off-band bound, SYRK_GRAD_TOL;
+    where the sum cancels, its order moves it by many bf16 ulps of the
+    small result); both timed."""
+    import torch
+    from repro_torch.core import PrecisionPolicy, lo_matmul
+    from repro_torch.core import distributed as dd
+    rows = min(max(1, dd.U_CHUNK_ELEMS // (nb * nb * (n // nb))), n // nb) * nb
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    a = torch.randn(rows, nb, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(n, nb, generator=gen, device="cuda").bfloat16()
+    pol = PrecisionPolicy.tpu(8)
+    with dd._fp32_reductions():
+        got = dd.lo_product(a, b, pol).float()
+        ms = time_ms(lambda: dd.lo_product(a, b, pol))
+    want = lo_matmul(a, b.T, pol).float()
+    ms_up = time_ms(lambda: lo_matmul(a, b.T, pol))
+    scale = a.float().abs() @ b.float().abs().T
+    err = (got - want).abs()
+    ulp = bf16_ulp(want)
+    ratio = float((err / (ulp + 2 * SYRK_GRAD_TOL["torch.float32"] * scale)).max())
+    flops = 2 * rows * n * nb
+    emit(phase="distributed", step="lo product", m=rows, n=n, k=nb,
+         max_err_over_bound=ratio, max_bf16_ulps=float((err / ulp).max()),
+         within_one_ulp=float((err <= ulp).float().mean()),
+         ms_bf16=ms, ms_fp32_upcast=ms_up,
+         tflops_bf16=flops / ms / 1e9, tflops_fp32_upcast=flops / ms_up / 1e9,
+         bound_ms=1e3 * flops / BF16_FLOPS)
+    require(ratio <= 1.0, f"bf16 lo product {ratio} of its bound from the "
+            "upcast one")
+    del a, b, got, want, scale, err, ulp
+
+
+def distributed_small(dcfg, grid):
+    """14 (a): tpu(2), full(fp32) and the pair at n = small_n through every
+    version: the 1 x 1 NCCL grid gives the no-group call's bits, masked_full
+    and fori one factor, aligned within phase 8.1's (9.1's) limit, kernels
+    against plain within phase 4's, exact launches; a CUDA tensor under a
+    gloo group refused."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import PrecisionPolicy as P
+    from repro_torch.core import distributed as dd
+    from repro_torch.covariance import make_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_grid
+    n, nb, t = dcfg["small_n"], dcfg["small_nb"], dcfg["small_t"]
+    p = n // nb
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ds = make_dataset(gen, n, WEAK, nu_static=0.5)
+    th = list(WEAK)
+    cases = (("tpu(2)", P.tpu(t), ds.locs, ds.z, 1e-3),
+             ("full(fp32)", P.full(torch.float32), ds.locs, ds.z, 1e-3),
+             ("paper_cpu(2)", P.paper_cpu(t), ds.locs.double(), ds.z.double(),
+              1e-5))
+    for label, pol, locs, z, tol in cases:
+        want = distributed_launches(p, min(pol.diag_thick, p),
+                                    pol.hi == torch.float32)
+        out = {}
+        for version in dd.VERSIONS:
+            runs = {}
+            for key, g in (("no group", None), ("nccl 1x1", grid)):
+                reset_launch_counts()
+                off, band = dd.build_covariance_distributed(
+                    locs, th, nb=nb, policy=pol, grid=g, version=version)
+                off, band = dd.panel_cholesky_distributed(
+                    off, band, pol, version=version, grid=g, n=n)
+                ll = dd.loglik_distributed(off, band, z, band.shape[1],
+                                           grid=g, version=version, n=n)
+                counts = launch_counts()
+                require(counts == want, f"{label} {version} {key}: launches "
+                        f"{counts}, expected {want}")
+                runs[key] = (off, band, ll)
+            require(all(_same_bits(x, y) for x, y in zip(*runs.values())),
+                    f"{label} {version}: the NCCL grid's factor or ll is not "
+                    "the no-group call's")
+            reset_launch_counts()
+            plain = float(dd.geostat_loglik_distributed(
+                locs, z, th, nb=nb, policy=pol, version=version, grid=grid,
+                impl="plain"))
+            require(sum(launch_counts().values()) == 0,
+                    f"{label} {version}: the plain path launched")
+            a = float(runs["nccl 1x1"][2])
+            require(_close(a, plain, tol), f"{label} {version}: kernel {a} "
+                    f"vs plain {plain}")
+            out[version] = runs["nccl 1x1"]
+            emit(phase="distributed", step="small", policy=label, n=n, nb=nb,
+                 t=min(pol.diag_thick, p), version=version, loglik_kernel=a,
+                 loglik_plain=plain, tol=tol, launches_kernel=want,
+                 nccl_equals_no_group=True)
+        require(all(_same_bits(x, y) for x, y in zip(out["masked_full"],
+                                                    out["fori"])),
+                f"{label}: masked_full and fori differ")
+        a, b = float(out["aligned"][2]), float(out["masked_full"][2])
+        require(_close(a, b, tol), f"{label}: aligned {a} vs masked_full {b}")
+        emit(phase="distributed", step="small versions", policy=label,
+             masked_full_equals_fori=True, aligned=a, masked_full=b,
+             rel=abs(a - b) / abs(b) if math.isfinite(b) else None, tol=tol)
+    gloo = dist.new_group([0], backend="gloo")
+    try:
+        dd.geostat_loglik_distributed(ds.locs, ds.z, th, nb=nb,
+                                      policy=P.tpu(t),
+                                      grid=make_grid(1, 1, group=gloo))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None, "a CUDA tensor under a gloo grid ran")
+    emit(phase="distributed", step="gloo refusal", refused=refused)
+
+
+def distributed_cell(ds, cfg, grid, ll_panel, dcfg, results):
+    """14 (b): geostat_65k (phase 4's field and first request) through the
+    three versions on the 1 x 1 NCCL grid, kernels (after one warm-up) and
+    plain: exact launches, kernel against plain within phase 4's limit, ll
+    beside the panel engine's, seconds, the peak against its prediction;
+    masked_full under the profiler."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.core import distributed as dd
+    n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
+    base = held_on_card()["allocated_gib"]
+    while base + distributed_peak_gib(n, nb, t, 4, 2, 2) > dcfg["peak_gib"]:
+        n -= nb
+    p = n // nb
+    predicted = base + distributed_peak_gib(n, nb, t, 4, 2, 2)
+    emit(phase="distributed", step="65k prediction", n=n, held_gib=base,
+         predicted_peak_gib=predicted, limit_gib=dcfg["peak_gib"],
+         lo_flops_masked_full=(p - 1) * 2 * n * n * nb,
+         lo_flops_aligned=sum(2 * n * nb * nb * (p - max(
+             min(-(-(k + 1) // 16) * 16, p) - 16, 0)) for k in range(p - 1)),
+         band_flops=sum(2 * nb ** 3 * (p - k - 1 - d) for k in range(p - 1)
+                        for d in range(min(t, p - k - 1))))
+    pol = PrecisionPolicy.tpu(t)
+    locs, z = ds.locs[:n], ds.z[:n]
+    th0 = [float(v) for v in ds.theta0.tolist()]
+    want = distributed_launches(p, t, True)
+    for version in dd.VERSIONS:
+        def run(th, impl="kernel"):
+            return dd.geostat_loglik_distributed(
+                locs, z, th, nb=nb, policy=pol, nu_static=cfg["nu"],
+                version=version, grid=grid, impl=impl)
+        warm = _evaluate(run, th0)
+        a, secs, peak, counts = _evaluate(run, th0)
+        require(counts == want and warm[3] == want,
+                f"{version}: launches {counts}, expected {want}")
+        require(a == warm[0] or (math.isnan(a) and math.isnan(warm[0])),
+                f"{version}: {a} then {warm[0]}")
+        b, sb, pb, cb = _evaluate(lambda th: run(th, "plain"), th0)
+        require(sum(cb.values()) == 0, f"{version}: plain path launched {cb}")
+        require(_close(a, b, 1e-3), f"{version}: kernel {a} vs plain {b}")
+        require(peak <= dcfg["peak_gib"] + 1, f"{version}: peak {peak} GiB")
+        emit(phase="distributed", step="65k", version=version, n=n, nb=nb,
+             t=t, theta=th0, loglik_kernel=a, loglik_plain=b,
+             rel_diff=abs(a - b) / abs(b) if math.isfinite(b) else None,
+             tol=1e-3, loglik_panel=ll_panel,
+             diff_to_panel=a - ll_panel if ll_panel is not None else None,
+             seconds_kernel=secs, seconds_kernel_warmup=warm[1],
+             seconds_plain=sb, peak_gib_kernel=peak, peak_gib_plain=pb,
+             predicted_peak_gib=predicted, launches_kernel=counts)
+        torch.cuda.empty_cache()
+    prof = stream_profile(lambda: float(dd.geostat_loglik_distributed(
+        locs, z, th0, nb=nb, policy=pol, nu_static=cfg["nu"], grid=grid)))
+    emit(phase="distributed", step="65k profile", version="masked_full", **prof)
+    for k in ("matern_cov", "blocked_potrf"):
+        results[k]["launches_distributed"] = want[k]
+
+
+def distributed_pair(fp64_field, full64_ll, pcfg, grid, dcfg):
+    """14 (c): the pair at DP(10%) on phase 9's fp64 medium field through
+    aligned and masked_full, kernels and plain: exact launches, kernel
+    against plain within 1e-5 |ll|, ll within 1e-4 |ll| of phase 9.1's
+    full(fp64), seconds, peak."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.core import distributed as dd
+    locs, z = fp64_field
+    nb = pcfg["nb"]
+    n = locs.shape[0]
+    p = n // nb
+    pol = PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu")
+    t = min(pol.diag_thick, p)
+    base = held_on_card()["allocated_gib"]
+    predicted = base + distributed_peak_gib(n, nb, t, 8, 4, 4)
+    require(predicted <= dcfg["peak_gib"], f"the pair's predicted {predicted} GiB")
+    want = distributed_launches(p, t, False)
+    theta = list(MEDIUM)
+    for version in ("aligned", "masked_full"):
+        def run(th, impl="kernel"):
+            return dd.geostat_loglik_distributed(
+                locs, z, th, nb=nb, policy=pol, version=version, grid=grid,
+                impl=impl)
+        a, secs, peak, counts = _evaluate(run, theta)
+        b, sb, pb, cb = _evaluate(lambda th: run(th, "plain"), theta)
+        require(counts == want, f"the pair {version}: launches {counts}")
+        require(sum(cb.values()) == 0, f"the pair {version}: plain launched")
+        require(_close(a, b, 1e-5), f"the pair {version}: kernel {a} vs plain {b}")
+        drift = abs(a - full64_ll) / abs(full64_ll)
+        require(drift <= 1e-4, f"the pair {version}: {a} vs full(fp64) {full64_ll}")
+        emit(phase="distributed", step="pair", version=version, n=n, nb=nb,
+             t=t, theta=theta, loglik_kernel=a, loglik_plain=b,
+             rel_diff=abs(a - b) / abs(b), tol=1e-5, loglik_full_fp64=full64_ll,
+             drift_vs_full_fp64=drift, drift_tol=1e-4, seconds_kernel=secs,
+             seconds_plain=sb, peak_gib_kernel=peak, peak_gib_plain=pb,
+             predicted_peak_gib=predicted, launches_kernel=counts)
+        torch.cuda.empty_cache()
+
+
+def distributed(ds, cfg, fp64_field, full64_ll, ll_panel, dcfg, pcfg, results):
+    """Phase 14: the distributed panel engine on a 1 x 1 NCCL grid (see the
+    module docstring), sub-steps timed into one line; the process group is
+    destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_grid
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        grid = make_grid(1, 1)
+        secs["init"] = time.perf_counter() - t0
+        step("14a lo product", check_lo_product, cfg["n"], cfg["nb"])
+        step("14a small", distributed_small, dcfg, grid)
+        step("14b 65k", distributed_cell, ds, cfg, grid, ll_panel, dcfg,
+             results)
+        step("14c pair", distributed_pair, fp64_field, full64_ll, pcfg, grid,
+             dcfg)
+    finally:
+        dist.destroy_process_group()
+    emit(phase="distributed", step="seconds", **secs)
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -4438,7 +4741,7 @@ def main(argv=None):
     timed("3b mp_attention", check_attention, gen, results)
     torch.cuda.empty_cache()
 
-    timed("4 main path", main_path, ds, cfg, results)
+    ll_panel = timed("4 main path", main_path, ds, cfg, results)
     torch.cuda.empty_cache()
     timed("4 paper pair", main_path_paper, ds, cfg, results)
     del locs_t  # ds stays for phase 13 (its field is 0.8 MB)
@@ -4452,7 +4755,7 @@ def main(argv=None):
     weak = timed("8 fidelity", fidelity,
                  FIDELITY_QUICK if args.quick else FIDELITY, results)
     torch.cuda.empty_cache()
-    fp64_field = timed("9 paper pair", paper,
+    fp64_field, full64_ll = timed("9 paper pair", paper,
                        PAPER_QUICK if args.quick else PAPER, results)
     torch.cuda.empty_cache()
     timed("10 gradient", gradient, GRAD_QUICK if args.quick else GRAD, weak,
@@ -4464,9 +4767,12 @@ def main(argv=None):
     timed("12 runtime", runtime, RUNTIME_QUICK if args.quick else RUNTIME,
           weak, fp64_field, results)
     torch.cuda.empty_cache()
-    del weak, fp64_field
+    del weak
     timed("13 panel gradient", panel_grad, ds, cfg,
           PANEL_QUICK if args.quick else PANEL, results)
+    torch.cuda.empty_cache()
+    timed("14 distributed", distributed, ds, cfg, fp64_field, full64_ll,
+          ll_panel, DIST, PAPER_QUICK if args.quick else PAPER, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -4475,7 +4781,7 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
                                   "launches_accuracy", "launches_sched",
-                                  "launches_tiles")
+                                  "launches_tiles", "launches_distributed")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

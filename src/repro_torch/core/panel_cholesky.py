@@ -103,8 +103,11 @@ def _requires_grad(*values):
 
 
 def _host_theta(theta):
-    """theta as host floats: the kernels take it as launch arguments."""
-    return [float(v) for v in torch.as_tensor(theta).reshape(-1).tolist()]
+    """theta as host floats: the kernels take it as launch arguments.  A
+    list goes through fp64, not torch's default dtype: through fp32 it
+    moved an fp64 build's theta2 = 0.1 by 1.5e-8 (ROADMAP C 17)."""
+    return [float(v) for v in torch.as_tensor(
+        theta, dtype=torch.float64).reshape(-1).tolist()]
 
 
 # ----------------------------------------------------------------------
