@@ -192,6 +192,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      share of a masked_full evaluation; (c) the pair at DP(10%) on phase
      9's fp64 medium field through aligned and masked_full, kernels and
      plain: within 1e-5 of each other and 1e-4 |ll| of 9.1's full(fp64);
+ 15. telemetry (repro_torch.obs) on the card: (a) the calibrator's task
+     times (CUDA events behind a spin) of the tile DAG at p = 6, nb =
+     1,024 under tpu(2): exactly the DAG's (kind, tier) keys, one
+     blocked_potrf launch per POTRF task of each replay, each key beside
+     the committed table (launch/calibration.json) and their ratio,
+     written to chiprun_out/ (never over the committed file); (b) the
+     demo trace (the eager tile engine, then the runtime, critical_path
+     W = 4) at p = 16, nb = 1,024 with telemetry on: the merged trace
+     validates, sched.tasks.{kind} and each sched.task.{kind}.{tier}
+     histogram count the DAG's tasks and sum the report's times, every
+     task inside the sched.execute span widened by the measured skew of
+     sched.t0 (the launch latency, printed), the simulated makespan under
+     the committed table beside the measured one; (c) phase 4's
+     geostat_65k evaluation off and on: one core.panel_loglik_step and
+     one core.panel_cholesky span, the span within 10 % of the host
+     clock around a sync, ll the same bits, no device synchronization
+     with telemetry off, exact launches, both seconds, the summary table
+     and the Prometheus text; then BatchEngine.loglik of 4 candidates at
+     n_obs = 8,192: batch.candidates = 4 and no engine span inside;
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -200,6 +219,7 @@ result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -322,6 +342,14 @@ PANEL_QUICK = dict(n_dense=4_096, n_obs=5_120, nb=128, peak_gib=70.0)
 # reach before its n is cut (phase 10's); (b) runs at phase 4's size, (c)
 # at phase 9's
 DIST = dict(small_n=1_024, small_nb=128, small_t=2, peak_gib=70.0)
+# phase 15: (a)'s calibration cell (the committed table's), (b)'s trace
+# cell, (c)'s batch of candidates and its n_obs; a span against the host
+# clock around a sync, relative; --quick runs p = 6 at nb = 256
+OBS = dict(cal_p=6, cal_nb=1_024, cal_reps=3, trace_p=16, trace_nb=1_024,
+           workers=4, batch=4, batch_n=8_192, batch_nb=1_024, span_tol=0.1,
+           skew_reps=20)
+OBS_QUICK = dict(OBS, cal_nb=256, trace_p=6, trace_nb=256, batch_n=2_048,
+                 batch_nb=256)
 # CUDA events resolve to about half a microsecond: the happens-before
 # check's slack on device times, in microseconds
 HB_ATOL_US = 1.0
@@ -4532,6 +4560,301 @@ def distributed(ds, cfg, fp64_field, full64_ll, ll_panel, dcfg, pcfg, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: telemetry (repro_torch.obs) and the card's calibration table
+# ---------------------------------------------------------------------------
+
+def dag_pairs(graph):
+    """(kind, tier) -> tasks of the DAG, and kind -> tasks."""
+    pairs, kinds = {}, {}
+    for t in graph.tasks:
+        pairs[(t.kind, t.tier)] = pairs.get((t.kind, t.tier), 0) + 1
+        kinds[t.kind] = kinds.get(t.kind, 0) + 1
+    return pairs, kinds
+
+
+def task_metric_failures(snap, report, graph):
+    """Where the runtime's task metrics in a recorder snapshot miss the DAG
+    and the report: sched.tasks.{kind} the DAG's count of the kind; each
+    sched.task.{kind}.{tier} histogram the DAG's count of the pair, its
+    total the report's durations of the pair summed (within 1e-9 s a
+    task)."""
+    pairs, kinds = dag_pairs(graph)
+    out = []
+    counters = {k[len("sched.tasks."):]: v for k, v in snap["counters"].items()
+                if k.startswith("sched.tasks.")}
+    if counters != kinds:
+        out.append(f"sched.tasks: {counters}, the DAG's {kinds}")
+    sums = {}
+    for ev in report.events:
+        sums[(ev.kind, ev.tier)] = sums.get((ev.kind, ev.tier), 0.0) + (
+            ev.end - ev.start) * 1e-6
+    hists = {tuple(k.split(".")[2:]): h for k, h in snap["histograms"].items()
+             if k.startswith("sched.task.")}
+    if set(hists) != set(pairs):
+        out.append(f"sched.task pairs {sorted(hists)}, the DAG's {sorted(pairs)}")
+    for pair, count in pairs.items():
+        h = hists.get(pair)
+        if h is None:
+            continue
+        if h["count"] != count:
+            out.append(f"sched.task.{'.'.join(pair)}: {h['count']} samples, "
+                       f"{count} tasks")
+        if abs(h["total"] - sums[pair]) > 1e-9 * count:
+            out.append(f"sched.task.{'.'.join(pair)}: total {h['total']} s, "
+                       f"the report's {sums[pair]} s")
+    return out
+
+
+def tasks_outside_execute(trace, skew_us):
+    """Scheduler tasks (pid 0) of a merged trace that do not lie inside the
+    sched.execute span (pid 1) widened by skew_us at each end."""
+    xs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    (ex,) = [e for e in xs if e["pid"] == 1 and e["name"] == "sched.execute"]
+    lo, hi = ex["ts"] - skew_us, ex["ts"] + ex["dur"] + skew_us
+    return [e["name"] for e in xs
+            if e["pid"] == 0 and not (lo <= e["ts"] and e["ts"] + e["dur"] <= hi)]
+
+
+def t0_skew_us(reps):
+    """How far the host clock taken just before an event is recorded on an
+    idle stream can be from the event's device time: the host's wait from
+    taking the clock to that event's completion (the launch latency), in
+    us, over `reps` tries (median, max)."""
+    import torch
+    out = []
+    for _ in range(reps):
+        ev = torch.cuda.Event(enable_timing=True)
+        torch.cuda.current_stream().synchronize()
+        h0 = time.perf_counter()
+        ev.record()
+        ev.synchronize()
+        out.append((time.perf_counter() - h0) * 1e6)
+    return statistics.median(out), max(out)
+
+
+def obs_calibration(ocfg, results):
+    """15 (a): the calibrator on the card against the committed table."""
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.costmodel import CALIBRATION_PATH
+    from repro_torch.obs.calibrate import (cost_key, measure_kernel_times,
+                                           write_calibration)
+    from repro_torch.sched.runtime import build_graph
+    p, nb, reps = ocfg["cal_p"], ocfg["cal_nb"], ocfg["cal_reps"]
+    graph = build_graph("tile", p, PrecisionPolicy.tpu(2))
+    keys = {cost_key(t) for t in graph.tasks}
+    n_potrf = sum(t.kind == "POTRF" for t in graph.tasks)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    costs, meta = measure_kernel_times(nb=nb, p=p, reps=reps, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    require(set(costs) == keys, f"calibration keys {sorted(costs)}, the "
+            f"DAG's {sorted(keys)}")
+    want = {k: 0 for k in counts}
+    want["blocked_potrf"] = n_potrf * (reps + 1)      # a warm-up + reps
+    require(counts == want, f"calibration launches {counts}, expected {want}")
+    require(meta["max_enqueue_us"] < meta["spin_us"],
+            f"a task took {meta['max_enqueue_us']} us to enqueue, longer "
+            f"than the {meta['spin_us']} us spin it hides behind")
+    committed = json.loads(CALIBRATION_PATH.read_text())
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = write_calibration(costs, meta, out_dir / "phase15_calibration.json")
+    require(path.resolve() != CALIBRATION_PATH.resolve(), "wrote over the "
+            "committed table")
+    for key in sorted(costs):
+        was = committed["costs"].get(key)
+        emit(phase="obs", step="calibration", key=key, us=costs[key],
+             committed_us=was, ratio=costs[key] / was if was else None)
+    emit(phase="obs", step="calibration", p=p, nb=nb, reps=reps,
+         seconds=seconds, launches=counts, meta=meta,
+         committed_meta=committed["meta"])
+    return counts["blocked_potrf"]
+
+
+def obs_trace(ocfg):
+    """15 (b): the demo trace on the card with telemetry on."""
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs.__main__ import demo_trace
+    from repro_torch.obs.export import summary_table
+    from repro_torch.sched.config import SchedConfig
+    from repro_torch.sched.runtime import build_graph, simulate
+    p, nb, workers = ocfg["trace_p"], ocfg["trace_nb"], ocfg["workers"]
+    graph = build_graph("tile", p, PrecisionPolicy.tpu(2))
+    skew_med, skew_max = t0_skew_us(ocfg["skew_reps"])
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec, report, trace = demo_trace(p=p, nb=nb, workers=workers,
+                                    out=out_dir / "phase15_merged_trace.json",
+                                    device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(blocked_potrf=2 * p, mp_syrk=p - 1)   # eager, then scheduled
+    require(counts == want, f"demo trace launches {counts}, expected {want}")
+    snap = rec.snapshot()
+    bad = task_metric_failures(snap, report, graph)
+    require(not bad, "; ".join(bad))
+    outside = tasks_outside_execute(trace, skew_max)
+    require(not outside, f"{len(outside)} tasks outside sched.execute, e.g. "
+            f"{outside[:3]}")
+    names = sorted(s.name for s in snap["spans"])
+    require(names == ["core.tile_cholesky", "demo.engine_pass",
+                      "demo.scheduled_pass", "sched.execute"],
+            f"demo trace spans {names}")
+    sim = simulate(graph, SchedConfig(backend="sim", workers=workers,
+                                      priority="critical_path",
+                                      calibrated=True))
+    print(summary_table(rec), flush=True)
+    emit(phase="obs", step="trace", p=p, nb=nb, workers=workers,
+         tasks=report.n_tasks, seconds=seconds, launches=counts,
+         skew_us_median=skew_med, skew_us_max=skew_max,
+         measured_makespan_us=report.makespan, simulated_makespan_us=sim.makespan,
+         measured_over_simulated=report.makespan / sim.makespan,
+         utilization=report.utilization, trace_events=len(trace["traceEvents"]))
+    return counts
+
+
+def _count_syncs():
+    """A counter of torch.cuda.synchronize calls; restore with the returned
+    function."""
+    import torch
+    real = torch.cuda.synchronize
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    torch.cuda.synchronize = counted
+
+    def restore():
+        torch.cuda.synchronize = real
+    return calls, restore
+
+
+def obs_main_path(ds, cfg, ocfg):
+    """15 (c): phase 4's evaluation with telemetry off and on, then one
+    batched loglik under recording."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import (BatchEngine, BatchPlan, PrecisionPolicy,
+                                  geostat_loglik_step)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
+    p = n // nb
+    policy = PrecisionPolicy.tpu(t)
+    th0 = [float(v) for v in ds.theta0.tolist()]
+    expected = {"blocked_potrf": p, "mp_syrk": p - 1, "matern_cov": t + 1,
+                "matern_cov_grad": 0, "mp_syrk_grad": 0, "mp_attention": 0}
+
+    def evaluate():
+        return geostat_loglik_step(ds.locs, ds.z, th0, nb=nb, policy=policy,
+                                   nu_static=cfg["nu"],
+                                   off_update=cfg["off_update"])
+
+    lls, secs, returned, syncs = {}, {}, {}, {}
+    total = {k: 0 for k in expected}
+    for mode in ("off", "on"):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rec = obs.Recorder()
+        calls, restore = _count_syncs()
+        try:
+            with obs.recording(rec) if mode == "on" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                ll = evaluate()
+                returned[mode] = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                secs[mode] = time.perf_counter() - t0
+        finally:
+            restore()
+        syncs[mode] = len(calls) - 1        # less the host clock's own
+        lls[mode] = ll
+        counts = launch_counts()
+        require(counts == expected, f"telemetry {mode}: launches {counts}, "
+                f"expected {expected}")
+        if mode == "on":
+            for k in total:
+                total[k] += counts[k]
+    require(syncs["off"] == 0, f"telemetry off synchronized the device "
+            f"{syncs['off']} times")
+    require(torch.equal(lls["on"], lls["off"]) or (
+        torch.isnan(lls["on"]) and torch.isnan(lls["off"])),
+        f"ll with telemetry {lls['on'].item()} != without {lls['off'].item()}")
+    names = sorted(s.name for s in rec.spans)
+    require(names == ["core.panel_cholesky", "core.panel_loglik_step"],
+            f"spans of one evaluation: {names}")
+    step = next(s for s in rec.spans if s.name == "core.panel_loglik_step")
+    rel = abs(step.duration - secs["on"]) / secs["on"]
+    require(rel <= ocfg["span_tol"], f"core.panel_loglik_step {step.duration} "
+            f"s against {secs['on']} s on the host clock")
+    print(obs.summary_table(rec), flush=True)
+    print(obs.prometheus_text(rec), end="", flush=True)
+    emit(phase="obs", step="main path", n=n, nb=nb, t=t,
+         loglik=lls["on"].item(), seconds_off=secs["off"],
+         seconds_on=secs["on"], returned_off=returned["off"],
+         returned_on=returned["on"], syncs_on=syncs["on"],
+         span_s=step.duration, span_rel_to_host=rel,
+         panel_cholesky_s=next(s.duration for s in rec.spans
+                               if s.name == "core.panel_cholesky"))
+
+    # the batch engine's evaluation: no engine span inside it (the
+    # reference jits it)
+    m = ocfg["batch_n"]
+    engine = BatchEngine(ds.locs[:m], ds.z[:m],
+                         BatchPlan(policy=PrecisionPolicy.tpu(2),
+                                   nb=ocfg["batch_nb"], nu_static=cfg["nu"]))
+    thetas = [[th0[0], th0[1] * f, th0[2]]
+              for f in (1.0, 0.8, 1.25, 1.5)][:ocfg["batch"]]
+    reset_launch_counts()
+    with obs.recording() as rec:
+        t0 = time.perf_counter()
+        out = engine.loglik(thetas)
+        seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    names = [s.name for s in rec.spans]
+    require(names == ["batch.loglik"], f"batch spans {names}")
+    require(rec.counters == {"batch.candidates": ocfg["batch"]},
+            f"batch counters {rec.counters}")
+    # a bf16 policy may be NaN at a candidate (PERF.md: the medium field's
+    # bf16 policies at theta0); the batch must give B values, one finite
+    require(out.shape == (ocfg["batch"],) and bool(torch.isfinite(out).any()),
+            f"batch logliks {out.tolist()}")
+    for k in total:
+        total[k] += counts[k]
+    emit(phase="obs", step="batch", b=ocfg["batch"], n_obs=m,
+         nb=ocfg["batch_nb"], seconds=seconds, span_s=rec.spans[0].duration,
+         launches=counts, logliks=out.tolist())
+    return total
+
+
+def observability(ds, cfg, ocfg, results):
+    """Phase 15: telemetry and the calibration table (see the module
+    docstring), sub-steps timed into one line."""
+    import torch
+    secs = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    potrf_a = step("15a calibration", obs_calibration, ocfg, results)
+    trace = step("15b trace", obs_trace, ocfg)
+    main = step("15c main path", obs_main_path, ds, cfg, ocfg)
+    results["blocked_potrf"]["launches_obs"] = potrf_a + trace["blocked_potrf"]
+    results["matern_cov"]["launches_obs"] = main["matern_cov"]
+    results["mp_syrk"]["launches_obs"] = main["mp_syrk"]
+    emit(phase="obs", step="seconds", **secs)
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -4773,6 +5096,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("14 distributed", distributed, ds, cfg, fp64_field, full64_ll,
           ll_panel, DIST, PAPER_QUICK if args.quick else PAPER, results)
+    torch.cuda.empty_cache()
+    timed("15 telemetry", observability, ds, cfg,
+          OBS_QUICK if args.quick else OBS, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -4781,7 +5107,8 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
                                   "launches_accuracy", "launches_sched",
-                                  "launches_tiles", "launches_distributed")
+                                  "launches_tiles", "launches_distributed",
+                                  "launches_obs")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

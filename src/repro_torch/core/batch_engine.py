@@ -20,6 +20,12 @@ The tile path uses the native leading-batch support of
 `covariance/matern.py`, `core/tile_cholesky.py`, `core/likelihood.py` and
 `core/kriging.py`; the panel path evaluates `geostat_loglik_step` once per
 candidate, since its banded storage is factored in place.
+
+Telemetry (`obs`): each public entry point is a `batch.*` span, and
+`batch.candidates` counts the candidates evaluated.  The reference jits
+its evaluations, so the engines record no span inside them; the port runs
+them in `obs.traced()` regions to the same effect.  A live span
+synchronizes the device before it closes.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import torch
 from .kriging import krige_from_factor, krige_pmse, pmse
 from .likelihood import _theta, loglik_from_factor, make_factor_fn, \
     make_loglik, matern_block
-from .mle import _host
+from .. import obs
+from .mle import _host, _traced
 from .panel_cholesky import geostat_loglik_step
 from .precision import PrecisionPolicy
 
@@ -156,9 +163,11 @@ class BatchEngine:
         self.locs_new = locs_new
         self.y_true = y_true
 
+        # the reference's jitted evaluations: no engine span inside
         single = self._build_single_loglik()
-        self._loglik_single = single
-        self._loglik_batch = chunked(self._batch(single), plan.chunk_size)
+        self._loglik_single = _traced(single)
+        self._loglik_batch = _traced(chunked(self._batch(single),
+                                             plan.chunk_size))
 
         self._pmse_batch = None
         self._eval_batch = None
@@ -187,12 +196,13 @@ class BatchEngine:
                                   nugget=p.nugget, jitter=p.jitter,
                                   use_tiles=pmse_use_tiles)
 
-            self._pmse_batch = chunked(self._batch(single_pmse), p.chunk_size)
+            self._pmse_batch = _traced(
+                chunked(self._batch(single_pmse), p.chunk_size))
             if p.path == "tile" and p.policy.mode != "dst":
                 # the loglik factorization is reused for the kriging
                 # solves: one factorization per candidate instead of two
-                self._eval_batch = chunked(self._build_single_eval(),
-                                           p.chunk_size)
+                self._eval_batch = _traced(
+                    chunked(self._build_single_eval(), p.chunk_size))
 
     # ---- plumbing ------------------------------------------------------
     def _build_single_loglik(self) -> Callable:
@@ -255,22 +265,38 @@ class BatchEngine:
         return thetas
 
     # ---- public API ----------------------------------------------------
+    # Every public entry point is a dispatch boundary (the host hands a
+    # candidate batch to the device and waits for the answer), so each gets
+    # a telemetry span + a candidates-evaluated counter when obs is on.
     def loglik(self, thetas) -> torch.Tensor:
         """(B, d) candidate thetas -> (B,) log-likelihoods."""
-        return self._loglik_batch(self._prepare(thetas))
+        thetas = self._prepare(thetas)
+        with obs.span("batch.loglik", b=int(thetas.shape[0]),
+                      path=self.plan.path) as sp:
+            out = self._loglik_batch(thetas)
+            if sp is not obs.NULL_SPAN:
+                obs.inc("batch.candidates", int(thetas.shape[0]))
+                _sync(out)
+            return out
 
     def loglik_sequential(self, thetas) -> np.ndarray:
         """Reference path: one evaluation per candidate with a host sync
         after each, like an optimizer loop calling `float(fn(p))` per
         candidate.  Kept for benchmarks and parity tests."""
-        return np.array([float(self._loglik_single(t))
-                         for t in self._prepare(thetas)])
+        thetas = self._prepare(thetas)
+        with obs.span("batch.loglik_sequential", b=int(thetas.shape[0])):
+            return np.array([float(self._loglik_single(t)) for t in thetas])
 
     def krige_pmse(self, thetas) -> torch.Tensor:
         """(B, d) candidate thetas -> (B,) held-out kriging PMSE."""
         if self._pmse_batch is None:
             raise ValueError("engine was built without locs_new/y_true")
-        return self._pmse_batch(self._prepare(thetas))
+        thetas = self._prepare(thetas)
+        with obs.span("batch.krige_pmse", b=int(thetas.shape[0])) as sp:
+            out = self._pmse_batch(thetas)
+            if sp is not obs.NULL_SPAN:
+                _sync(out)
+            return out
 
     def evaluate(self, thetas, *, with_pmse: Optional[bool] = None) -> BatchResult:
         """One planned batch: log-likelihoods (+ PMSE when available).
@@ -281,13 +307,23 @@ class BatchEngine:
         thetas = self._prepare(thetas)
         if with_pmse is None:
             with_pmse = self._pmse_batch is not None
-        if with_pmse and self._eval_batch is not None:
-            ll, scores = self._eval_batch(thetas)
-            return BatchResult(thetas=_host(thetas), logliks=_host(ll),
-                               pmse=_host(scores))
-        ll = _host(self._loglik_batch(thetas))
-        scores = _host(self.krige_pmse(thetas)) if with_pmse else None
-        return BatchResult(thetas=_host(thetas), logliks=ll, pmse=scores)
+        with obs.span("batch.evaluate", b=int(thetas.shape[0]),
+                      fused=bool(with_pmse and self._eval_batch is not None)):
+            if with_pmse and self._eval_batch is not None:
+                obs.inc("batch.candidates", int(thetas.shape[0]))
+                ll, scores = self._eval_batch(thetas)
+                return BatchResult(thetas=_host(thetas), logliks=_host(ll),
+                                   pmse=_host(scores))
+            ll = _host(self.loglik(thetas))
+            scores = _host(self.krige_pmse(thetas)) if with_pmse else None
+            return BatchResult(thetas=_host(thetas), logliks=ll, pmse=scores)
+
+
+def _sync(out):
+    """Wait for a live span's result on the card (time the math, not the
+    launches)."""
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
 
 
 def evaluate_batch(locs, z, thetas, plan: BatchPlan, *, locs_new=None,

@@ -16,34 +16,48 @@ slabs a tile larger where the grid does not divide p:
   masked_full, aligned : off[rows_r, cols_c] at grid position (r, c)
                          (rows over "data", columns over "model");
   fori                 : off[rows_q, :] at rank q (rows over both);
-  band                 : the tile rows of the rank's off rows, replicated
-                         across grid columns (the reference's
-                         constrain(band, "geo_rows . geo_cols ."));
+  band                 : the tile rows of the rank's off rows; under
+                         masked_full and aligned, of each of their tiles
+                         only the rank's share of the nb rows, split over
+                         the grid columns as `slab_bounds` splits tiles
+                         (the reference's constrain(band,
+                         "geo_rows . geo_cols .")): a local band of
+                         (rb - ra, t, nb_c, nb).  Under fori the rows
+                         already go over every rank and there is one
+                         column slab: each rank holds whole tiles, 1/(r m)
+                         of the band;
   locations, z         : whole on every rank.
 
 Per step k (the reference's numerics, `version` picks the lo rows):
-  1. the owner of tile row k factors band[k, 0] in hi (the blocked_potrf
-     kernel for an fp32 band, cuSOLVER for fp64) and broadcasts L_kk;
-  2. the owners of band rows k+1 .. k+t-1 solve their band panel tiles in
-     hi; the ranks holding off's column k solve their rows >= k+t of it in
-     solve_dtype with L_kk rounded to lo;
+  1. the ranks of tile row k's row slab gather band[k, 0]'s row shares
+     along their grid row (nb^2 hi); the slab's owner factors it in hi (the
+     blocked_potrf kernel for an fp32 band, cuSOLVER for fp64) and
+     broadcasts L_kk;
+  2. the ranks of band rows k+1 .. k+t-1 solve their rows of the band panel
+     tiles in hi (X L_kk^T = A row by row); the ranks holding off's column
+     k solve their rows >= k+t of it in solve_dtype with L_kk rounded to lo;
   3. the panel column c_lo (n, nb) in lo -- the band panel tiles rounded to
      lo (a reference quirk: the hi band updates below see them through lo),
-     the off rows, zero elsewhere -- reaches every rank: each row slab's
-     piece is broadcast along its grid row from the holder of column k,
-     then the pieces are gathered along each grid column;
-  4. each rank subtracts c_t[i] c_t[i-d]^T (c_t = c_lo in hi) from its band
-     rows, and U = c_lo c_lo^T (`lo_product`: fp32 sums rounded once to
-     lo) from its off slab, under the mask (i - j >= t) & (j > k) & (i > k)
-     on tile indices, as a subtract in lo.  masked_full and fori compute U
-     for every row of the slab, aligned from the 16-tile boundary at or
-     above k less a 16-tile fringe (the rows it skips are all masked).
-     U is computed in row chunks: no (n, n) temporary exists.
+     the off rows, zero elsewhere -- reaches every rank: the band panel
+     tiles' row shares are gathered along each grid row (up to t - 1 tiles
+     of nb^2), each row slab's piece is broadcast along its grid row from
+     the holder of column k, then the pieces are gathered along each grid
+     column;
+  4. each rank subtracts c_t[i][its rows] c_t[i-d]^T (c_t = c_lo in hi)
+     from its band rows, and U = c_lo c_lo^T (`lo_product`: fp32 sums
+     rounded once to lo) from its off slab, under the mask (i - j >= t) &
+     (j > k) & (i > k) on tile indices, as a subtract in lo.  masked_full
+     and fori compute U for every row of the slab, aligned from the 16-tile
+     boundary at or above k less a 16-tile fringe (the rows it skips are
+     all masked).  U is computed in row chunks: no (n, n) temporary exists.
 
 The solve stays in the factor's layout: per block j, the ranks of its row
-slab reduce their partial residuals to the slab's owner, which solves w_j;
-w_j and its log-determinant share are broadcast, and each rank pushes its
-off slab's column j into its partial residual.
+slab gather band row j's row shares along their grid row (up to t tiles of
+nb^2 hi a block, the whole band once over the solve; nothing is kept from
+the factorization, which would hold p nb^2 hi a rank) and reduce their
+partial residuals to the slab's owner, which solves w_j; w_j and its
+log-determinant share are broadcast, and each rank pushes its off slab's
+column j into its partial residual.
 
 Collectives run over the grid's groups: NCCL for CUDA tensors, gloo for CPU
 ones; a tensor whose device does not match the backend raises.  `impl`
@@ -124,6 +138,10 @@ class Layout:
     def col_part(self, j: int) -> int:
         return next(s for s, (a, b) in enumerate(self.col_bounds) if a <= j < b)
 
+    def band_rows(self, nb: int) -> tuple:
+        """(a, b): this rank's share of the nb rows of each band tile."""
+        return slab_bounds(nb, len(self.col_bounds))[self.ic]
+
     def owner(self, ir: int, ic: int = 0) -> int:
         """The global rank of the first grid position holding slab (ir, ic)."""
         return self.grid.ranks[self.parts.index((ir, ic))]
@@ -148,6 +166,13 @@ class Layout:
         """The group of the ranks holding this rank's row slab."""
         return self._group([q for q, s in enumerate(self.parts)
                             if s[0] == self.ir])
+
+    def row_members(self):
+        """(group, column slab of each member in group order) of the ranks
+        holding this rank's row slab."""
+        pos = [q for q, s in enumerate(self.parts) if s[0] == self.ir]
+        order = sorted(pos, key=lambda q: self.grid.ranks[q])
+        return self._group(pos), [self.parts[q][1] for q in order]
 
     def col_members(self):
         """(group, row slab of each member in group order) of the ranks
@@ -196,7 +221,7 @@ def _order(band, grid, n):
     process."""
     if n is None and grid is not None and grid.size > 1:
         raise ValueError("n (the whole matrix's order) is needed with a grid")
-    return n if n is not None else band.shape[0] * band.shape[2]
+    return n if n is not None else band.shape[0] * band.shape[-1]
 
 
 def _refuse_grad(*values):
@@ -224,7 +249,7 @@ def build_covariance_distributed(locs, theta, *, nb: int,
     call over the slab (the symmetric form where its rows and columns are
     the same locations), rounded once to lo, then its band region and
     upper triangle set to 0; the band one call per sub-diagonal d over the
-    rank's tile rows, jitter added to d = 0.
+    rank's tile rows and its share of their nb rows, jitter added to d = 0.
     """
     _refuse_grad(locs, theta)
     nu = _half_integer_nu(nu_static)
@@ -251,13 +276,15 @@ def build_covariance_distributed(locs, theta, *, nb: int,
             off[(i - ra) * nb:(i - ra + 1) * nb, (j0 - ca) * nb:] = 0
 
     locs_t = locs_hi.view(p, nb, locs.shape[-1])
-    band = torch.zeros((rb - ra, t, nb, nb), dtype=hi, device=locs.device)
+    s0, s1 = lay.band_rows(nb)
+    band = torch.zeros((rb - ra, t, s1 - s0, nb), dtype=hi, device=locs.device)
     for d in range(t):
         i0 = max(ra, d)
         if i0 < rb:
-            matern.matern_cov_tiles(locs_t[i0:rb], locs_t[i0 - d:rb - d], theta,
-                                    nu=nu, out_dtype=hi, out=band[i0 - ra:, d])
-    band[:, 0].diagonal(dim1=-2, dim2=-1).add_(jitter)
+            matern.matern_cov_tiles(locs_t[i0:rb, s0:s1].contiguous(),
+                                    locs_t[i0 - d:rb - d], theta, nu=nu,
+                                    out_dtype=hi, out=band[i0 - ra:, d])
+    band[:, 0, :, s0:s1].diagonal(dim1=-2, dim2=-1).add_(jitter)
     return off, band
 
 
@@ -293,6 +320,26 @@ def _fp32_reductions():
 def _bcast(group, tensor, src):
     if group is not None:
         dist.broadcast(tensor, src=src, group=group)
+
+
+def _gather_rows(lay: Layout, x, nb):
+    """Whole band tiles (..., nb, nb) from this rank's row shares x (...,
+    nb_c, nb): gathered along the grid row (x itself where the rows are
+    not split).  Every rank of the row slab calls it."""
+    bounds = slab_bounds(nb, len(lay.col_bounds))
+    if len(bounds) == 1:
+        return x
+    group, members = lay.row_members()
+    share = bounds[0][1] - bounds[0][0]     # the first share is the largest
+    buf = x.new_zeros(x.shape[:-2] + (share, x.shape[-1]))
+    buf[..., :x.shape[-2], :] = x
+    pieces = [torch.empty_like(buf) for _ in members]
+    dist.all_gather(pieces, buf, group=group)
+    out = x.new_empty(x.shape[:-2] + (nb, x.shape[-1]))
+    for c, got in zip(members, pieces):
+        a, b = bounds[c]
+        out[..., a:b, :] = got[..., :b - a, :]
+    return out
 
 
 def _panel_column(lay: Layout, piece, p, nb):
@@ -337,16 +384,19 @@ def panel_cholesky_distributed(off, band, policy: PrecisionPolicy, *,
                     over every rank, columns whole).
     """
     require_ieee_fp32()
-    _, t, nb, _ = band.shape
+    _, t, _, nb = band.shape
     p = _order(band, grid, n) // nb
     lay = layout(p, grid, version)
     g = lay.grid
     g.check_device(off, "off")
     (ra, rb), (ca, cb) = lay.rows, lay.cols
-    if band.shape[0] != rb - ra or off.shape != ((rb - ra) * nb, (cb - ca) * nb):
+    s0, s1 = lay.band_rows(nb)
+    if (band.shape[:3] != (rb - ra, t, s1 - s0)
+            or off.shape != ((rb - ra) * nb, (cb - ca) * nb)):
         raise ValueError(
             f"band {tuple(band.shape)} and off {tuple(off.shape)} are not the "
-            f"slabs of rows {lay.rows} and columns {lay.cols} of {p} tiles")
+            f"slabs of rows {lay.rows} and columns {lay.cols} of {p} tiles "
+            f"(band rows {s0}:{s1} of each tile)")
     hi, lo, sd = policy.hi, off.dtype, policy.solve_dtype
     potrf = _potrf(impl, hi)
     row_group = lay.row_group()
@@ -357,18 +407,23 @@ def panel_cholesky_distributed(off, band, policy: PrecisionPolicy, *,
     with guard:
         for k in range(p):
             owner = lay.owner(lay.row_part(k))
-            if g.ranks[g.rank] == owner:
-                lkk.copy_(potrf(band[k - ra, 0])[0])
+            if ra <= k < rb:
+                akk = _gather_rows(lay, band[k - ra, 0], nb)
+                if g.ranks[g.rank] == owner:
+                    lkk.copy_(potrf(akk)[0])
+                del akk
             _bcast(g.group, lkk, owner)
             if ra <= k < rb:
-                band[k - ra, 0] = lkk
+                band[k - ra, 0] = lkk[s0:s1]
             m_t = p - k - 1
             if m_t == 0:
                 break
             n_bp = min(t - 1, m_t)
 
-            # panel TRSMs: the hi band tiles, the lo column (rows >= k+t)
-            for i in range(max(ra, k + 1), min(rb, k + n_bp + 1)):
+            # panel TRSMs: this rank's rows of the hi band tiles, the lo
+            # column (rows >= k+t)
+            bp_rows = range(max(ra, k + 1), min(rb, k + n_bp + 1))
+            for i in bp_rows:
                 band[i - ra, i - k] = _trsm_right_lt(lkk, band[i - ra, i - k],
                                                      hi, hi)
             holds_k = ca <= k < cb
@@ -379,23 +434,27 @@ def panel_cholesky_distributed(off, band, policy: PrecisionPolicy, *,
                     lkk.to(lo), off[(r0 - ra) * nb:, kc], sd, lo)
 
             # the panel column in lo on every rank
+            bp = (_gather_rows(lay, torch.stack(
+                [band[i - ra, i - k] for i in bp_rows]), nb)
+                  if bp_rows else None)
             piece = torch.zeros((pad, nb), dtype=lo, device=off.device)
             if holds_k:
-                for i in range(max(ra, k + 1), min(rb, k + n_bp + 1)):
-                    piece[(i - ra) * nb:(i - ra + 1) * nb] = band[i - ra, i - k]
+                for i in bp_rows:
+                    piece[(i - ra) * nb:(i - ra + 1) * nb] = bp[i - bp_rows[0]]
                 if r0 < rb:
                     piece[(r0 - ra) * nb:(rb - ra) * nb] = off[(r0 - ra) * nb:, kc]
             _bcast(row_group, piece, lay.owner(lay.ir, lay.col_part(k)))
             c_lo = _panel_column(lay, piece, p, nb)
-            del piece
+            del piece, bp
 
-            # hi sub-diagonal updates from the lo-rounded panel
+            # hi sub-diagonal updates of this rank's band rows from the
+            # lo-rounded panel
             lo_t = max(k + 1, ra - t + 1)
             c_t = c_lo[lo_t * nb:rb * nb].view(-1, nb, nb).to(hi)
             for d in range(min(t, m_t)):
                 i0 = max(ra, k + 1 + d)
                 if i0 < rb:
-                    band[i0 - ra:, d] -= (c_t[i0 - lo_t:rb - lo_t]
+                    band[i0 - ra:, d] -= (c_t[i0 - lo_t:rb - lo_t, s0:s1]
                                           @ c_t[i0 - d - lo_t:rb - d - lo_t].mT)
             del c_t
 
@@ -426,13 +485,14 @@ def loglik_distributed(off, band, z, t: int, *, grid: Grid | None = None,
 
     Column-wise substitution, as the reference's: block j's residual (the
     sum of its row slab's partial residuals, z on the slab's first column
-    rank), less band[j, d] w_{j-d}, is solved with L_jj = band[j, 0]; w_j
-    and log det L_jj go to every rank, which push their off slab's column j
-    into their partial residuals (off read into hi).  The log-determinant
-    sums in block order on every rank: all ranks return the same value.
+    rank), less band[j, d] w_{j-d}, is solved with L_jj = band[j, 0]; band
+    row j's row shares are gathered along the grid row for it; w_j and log
+    det L_jj go to every rank, which push their off slab's column j into
+    their partial residuals (off read into hi).  The log-determinant sums in
+    block order on every rank: all ranks return the same value.
     """
     require_ieee_fp32()
-    nb = band.shape[2]
+    nb = band.shape[-1]
     n = _order(band, grid, n)
     p = n // nb
     lay = layout(p, grid, version)
@@ -451,14 +511,15 @@ def loglik_distributed(off, band, z, t: int, *, grid: Grid | None = None,
         ir_j = lay.row_part(j)
         owner = lay.owner(ir_j)
         if lay.ir == ir_j:
+            bj = _gather_rows(lay, band[j - ra, :min(j + 1, t)], nb)
             rhs = part[(j - ra) * nb:(j - ra + 1) * nb].clone()
             if row_group is not None:
                 dist.reduce(rhs, dst=owner, op=dist.ReduceOp.SUM,
                             group=row_group)
         if g.ranks[g.rank] == owner:
             for d in range(1, min(j + 1, t)):
-                rhs = rhs - band[j - ra, d] @ w[(j - d) * nb:(j - d + 1) * nb]
-            ljj = band[j - ra, 0]
+                rhs = rhs - bj[d] @ w[(j - d) * nb:(j - d + 1) * nb]
+            ljj = bj[0]
             buf[:nb] = torch.linalg.solve_triangular(ljj, rhs[:, None],
                                                      upper=False)[:, 0]
             buf[nb] = torch.sum(torch.log(torch.diagonal(ljj)))

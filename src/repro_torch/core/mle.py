@@ -12,15 +12,26 @@ the initial simplex, the speculative reflection/expansion/contraction
 triple and shrink steps in single calls; `fit_mle_grid` is the batched
 iterative grid search.  A batched function may return a tensor on any
 device.
+
+Telemetry (`obs`): each fit is an `mle.fit` span and counts in
+`mle.fits`; with telemetry on, each evaluation lands one sample in the
+`mle.eval_seconds` (`mle.eval_batch_seconds` for a batched call)
+histogram and its `.calls` counter.  Where the reference jits the
+evaluation (`fit_mle(jit=True)`, `fit_mle_adam`'s step), the port runs it
+in an `obs.traced()` region: the engines record no span inside it.
 """
 
 from __future__ import annotations
 
+import functools
+import time
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 def _host(values) -> np.ndarray:
@@ -29,6 +40,33 @@ def _host(values) -> np.ndarray:
     if isinstance(values, torch.Tensor):
         values = values.detach().to("cpu", torch.float64)
     return np.asarray(values, dtype=np.float64)
+
+
+def _traced(fn: Callable) -> Callable:
+    """fn run in an `obs.traced()` region: where the reference calls its
+    jitted counterpart, which records no engine span."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with obs.traced():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _timed_eval(fn: Callable | None, metric: str) -> Callable | None:
+    """Wrap an optimizer's (host-side, blocking) evaluation function so each
+    call lands one latency sample in the `metric` histogram.  Identity when
+    telemetry is off -- the optimizer hot loop pays nothing."""
+    if fn is None or not obs.enabled():
+        return fn
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        obs.observe(metric, time.perf_counter() - t0)
+        obs.inc(metric + ".calls")
+        return out
+
+    return timed
 
 
 @dataclass
@@ -57,6 +95,11 @@ def neldermead(fn: Callable, x0, *, xtol: float = 1e-3, ftol: float = 1e-6,
     algorithm's either way.
     """
     x0 = np.asarray(x0, dtype=np.float64)
+    # per-evaluation latency histograms (mle.eval_seconds /
+    # mle.eval_batch_seconds): each fn call returns a host value, the
+    # paper's "time per iteration" unit
+    fn = _timed_eval(fn, "mle.eval_seconds")
+    fn_batch = _timed_eval(fn_batch, "mle.eval_batch_seconds")
     d = x0.size
     pts = [x0] + [x0 + scale * np.eye(d)[i] for i in range(d)]
     simplex = np.stack(pts)
@@ -118,7 +161,7 @@ def neldermead(fn: Callable, x0, *, xtol: float = 1e-3, ftol: float = 1e-6,
 
 
 def fit_mle(loglik_fn: Callable | None, theta0, *, xtol: float = 1e-3,
-            max_iters: int = 200,
+            max_iters: int = 200, jit: bool = True,
             batched_loglik_fn: Callable | None = None) -> MLEResult:
     """Derivative-free MLE: maximize loglik over positive theta.
 
@@ -126,6 +169,10 @@ def fit_mle(loglik_fn: Callable | None, theta0, *, xtol: float = 1e-3,
     0-d tensor on any device).  theta0: initial (theta1, theta2, theta3).
     Optimization runs on log(theta) so positivity is free; a non-finite
     log-likelihood (a factorization that failed) counts as 1e10.
+
+    jit: the reference's flag for jitting loglik_fn; here each evaluation
+    runs in an `obs.traced()` region, so telemetry records the engine spans
+    the reference records (none) -- the values are the same either way.
 
     batched_loglik_fn: optional (B, d) thetas -> (B,) log-likelihoods; it
     enables the speculative batched Nelder-Mead (see `neldermead`), and then
@@ -146,13 +193,18 @@ def fit_mle(loglik_fn: Callable | None, theta0, *, xtol: float = 1e-3,
         def neg_ll_log(x):  # scalar evaluation through the batched fn
             return float(neg_batch(np.asarray(x)[None])[0])
     else:
+        ll = _traced(loglik_fn) if jit else loglik_fn
+
         def neg_ll_log(x):
-            v = float(loglik_fn(np.exp(np.asarray(x))))
+            v = float(ll(np.exp(np.asarray(x))))
             return 1e10 if not np.isfinite(v) else -v
 
-    x, f, n_evals, n_iters, conv, hist = neldermead(
-        neg_ll_log, np.log(theta0), xtol=xtol, max_iters=max_iters,
-        fn_batch=neg_batch)
+    with obs.span("mle.fit", driver="neldermead",
+                  batched=neg_batch is not None):
+        x, f, n_evals, n_iters, conv, hist = neldermead(
+            neg_ll_log, np.log(theta0), xtol=xtol, max_iters=max_iters,
+            fn_batch=neg_batch)
+    obs.inc("mle.fits")
     return MLEResult(theta=np.exp(x), loglik=-f, n_evals=n_evals,
                      n_iters=n_iters, converged=conv,
                      history=[(np.exp(h[0]), -h[1]) for h in hist])
@@ -173,35 +225,39 @@ def fit_mle_grid(batched_loglik_fn: Callable, bounds, *, num: int = 12,
     bounds = np.asarray(bounds, dtype=np.float64)
     if bounds.ndim != 2 or bounds.shape[1] != 2 or np.any(bounds <= 0.0):
         raise ValueError("bounds must be (d, 2) with positive entries")
+    batched_loglik_fn = _timed_eval(batched_loglik_fn,
+                                    "mle.eval_batch_seconds")
     d = bounds.shape[0]
     lo0, hi0 = np.log(bounds[:, 0]), np.log(bounds[:, 1])
     lo, hi = lo0.copy(), hi0.copy()
     best_x, best_f = None, -np.inf
     n_evals = 0
     history = []
-    for _ in range(refine):
-        axes = [np.linspace(lo[i], hi[i], num) for i in range(d)]
-        mesh = np.stack(np.meshgrid(*axes, indexing="ij"),
-                        axis=-1).reshape(-1, d)
-        # the reference hands the engine float32 candidates
-        ll = _host(batched_loglik_fn(np.exp(mesh).astype(np.float32)))
-        ll = np.where(np.isfinite(ll), ll, -np.inf)
-        n_evals += mesh.shape[0]
-        k = int(np.argmax(ll))
-        if ll[k] > best_f:
-            best_f, best_x = float(ll[k]), mesh[k].copy()
-        if best_x is None:
-            raise ValueError(
-                "fit_mle_grid: every candidate log-likelihood in the "
-                f"first {mesh.shape[0]}-point grid level was non-finite; "
-                "widen or shift `bounds` (the covariance is likely not "
-                "SPD there)")
-        history.append((np.exp(best_x), best_f))
-        # recenter on the incumbent, clamped so refined grids (and hence
-        # the returned theta) never leave the caller's bounds box
-        span = (hi - lo) * shrink
-        lo = np.clip(best_x - span / 2.0, lo0, hi0)
-        hi = np.clip(best_x + span / 2.0, lo0, hi0)
+    with obs.span("mle.fit", driver="grid", levels=refine):
+        for _ in range(refine):
+            axes = [np.linspace(lo[i], hi[i], num) for i in range(d)]
+            mesh = np.stack(np.meshgrid(*axes, indexing="ij"),
+                            axis=-1).reshape(-1, d)
+            # the reference hands the engine float32 candidates
+            ll = _host(batched_loglik_fn(np.exp(mesh).astype(np.float32)))
+            ll = np.where(np.isfinite(ll), ll, -np.inf)
+            n_evals += mesh.shape[0]
+            k = int(np.argmax(ll))
+            if ll[k] > best_f:
+                best_f, best_x = float(ll[k]), mesh[k].copy()
+            if best_x is None:
+                raise ValueError(
+                    "fit_mle_grid: every candidate log-likelihood in the "
+                    f"first {mesh.shape[0]}-point grid level was non-finite; "
+                    "widen or shift `bounds` (the covariance is likely not "
+                    "SPD there)")
+            history.append((np.exp(best_x), best_f))
+            # recenter on the incumbent, clamped so refined grids (and
+            # hence the returned theta) never leave the caller's bounds box
+            span = (hi - lo) * shrink
+            lo = np.clip(best_x - span / 2.0, lo0, hi0)
+            hi = np.clip(best_x + span / 2.0, lo0, hi0)
+    obs.inc("mle.fits")
     return MLEResult(theta=np.exp(best_x), loglik=best_f, n_evals=n_evals,
                      n_iters=refine, converged=True, history=history)
 
@@ -219,7 +275,15 @@ def fit_mle_adam(loglik_fn: Callable, theta0, *, steps: int = 150,
     correction), the history every 10 steps (theta after the step, the
     log-likelihood before it) and the final value evaluation are the
     reference's.
+
+    The whole fit runs in an `obs.traced()` region: the reference jits its
+    step and its final evaluation, which record no engine span.
     """
+    with obs.traced():
+        return _fit_mle_adam(loglik_fn, theta0, steps=steps, lr=lr)
+
+
+def _fit_mle_adam(loglik_fn, theta0, *, steps, lr):
     x = torch.log(torch.as_tensor(np.asarray(theta0), dtype=torch.float32))
 
     def value_and_grad(x):

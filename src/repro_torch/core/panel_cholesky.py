@@ -47,6 +47,7 @@ import math
 
 import torch
 
+from .. import obs
 from ..covariance.matern import HALF_INTEGER_NUS, matern_covariance
 from ..kernels.blocked_potrf import ops as potrf_ops, ref as potrf_ref
 from ..kernels.matern_cov import ops as matern_ops, ref as matern_ref
@@ -237,6 +238,18 @@ def panel_cholesky_banded(band, off, policy: PrecisionPolicy, *,
                 "chunked" -- per-column-block lo GEMMs over the lower
                              trapezoid only (plain PyTorch).
     """
+    # dispatch-boundary telemetry: none where the reference's call is
+    # traced (obs.traced(): the batch engine's evaluations, a gradient)
+    with obs.maybe_span("core.panel_cholesky", band, p=band.shape[0],
+                        nb=band.shape[-1], off_update=off_update) as sp:
+        band, off, failed = _panel_cholesky_banded(
+            band, off, policy, off_update=off_update, impl=impl)
+        if sp is not obs.NULL_SPAN and band.is_cuda:
+            torch.cuda.synchronize(band.device)
+        return band, off, failed
+
+
+def _panel_cholesky_banded(band, off, policy, *, off_update, impl):
     if off_update not in ("square", "chunked"):
         raise ValueError(off_update)
     require_ieee_fp32()
@@ -490,18 +503,26 @@ def geostat_loglik_step(locs, z, theta, *, nb: int, policy: PrecisionPolicy,
             "geostat_loglik_step does not differentiate in the locations: "
             "the covariance's backward gives theta's gradient only")
     require_ieee_fp32()
-    if _requires_grad(theta):
-        band, off = _banded_covariance_grad(
-            locs, theta, nb=nb, policy=policy, nu_static=nu_static,
-            metric=metric, jitter=jitter, impl=impl)
-        band, off, failed = PanelCholesky.apply(band, off, policy,
-                                                off_update, impl)
-    else:
-        band, off = build_banded_covariance(locs, theta, nb=nb, policy=policy,
-                                            nu_static=nu_static, metric=metric,
-                                            jitter=jitter, impl=impl)
-        band, off, failed = panel_cholesky_banded(band, off, policy,
-                                                  off_update=off_update,
-                                                  impl=impl)
-    t = min(policy.diag_thick, band.shape[0])
-    return banded_loglik(band, off, z, t, failed)
+    with obs.maybe_span("core.panel_loglik_step", locs, theta,
+                        n=locs.shape[0] if hasattr(locs, "shape") else None,
+                        nb=nb, mode=policy.mode) as sp:
+        if _requires_grad(theta):
+            # the reference's gradient traces this whole call
+            with obs.traced():
+                band, off = _banded_covariance_grad(
+                    locs, theta, nb=nb, policy=policy, nu_static=nu_static,
+                    metric=metric, jitter=jitter, impl=impl)
+                band, off, failed = PanelCholesky.apply(band, off, policy,
+                                                        off_update, impl)
+        else:
+            band, off = build_banded_covariance(
+                locs, theta, nb=nb, policy=policy, nu_static=nu_static,
+                metric=metric, jitter=jitter, impl=impl)
+            band, off, failed = panel_cholesky_banded(band, off, policy,
+                                                      off_update=off_update,
+                                                      impl=impl)
+        t = min(policy.diag_thick, band.shape[0])
+        ll = banded_loglik(band, off, z, t, failed)
+        if sp is not obs.NULL_SPAN and ll.is_cuda:
+            torch.cuda.synchronize(ll.device)
+        return ll

@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from .panel_cholesky import _cholesky, _impl, _potrf
 from .precision import PrecisionPolicy, require_ieee_fp32
 
@@ -218,6 +219,17 @@ def tile_cholesky(a, nb: int, policy: PrecisionPolicy, *, schedule=None,
                 "schedule to differentiate")
         from ..sched.runtime import scheduled_tile_cholesky
         return scheduled_tile_cholesky(a, nb, policy, schedule, impl=impl)[0]
+    # telemetry at the dispatch boundary only: none where the reference's
+    # call is traced (obs.traced(), or an `a` that requires grad)
+    with obs.maybe_span("core.tile_cholesky", a, n=a.shape[-1], nb=nb,
+                        mode=policy.mode) as sp:
+        l = _tile_cholesky_eager(a, nb, policy, syrk, impl)
+        if sp is not obs.NULL_SPAN and l.is_cuda:
+            torch.cuda.synchronize(l.device)  # time the math, not the launches
+        return l
+
+
+def _tile_cholesky_eager(a, nb, policy, syrk, impl):
     require_ieee_fp32()
     hi, lo = policy.hi, policy.lo
     potrf = _potrf(impl, hi)

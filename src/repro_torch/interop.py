@@ -52,18 +52,22 @@ def distributed_from_numpy(off, band, *, lo, grid=None, version="masked_full",
                            device="cuda"):
     """The reference distributed engine's (off (n, n), band (p, t, nb,
     nb)) storage as the port's, or this rank's slabs of it on `grid` (see
-    `core.distributed.layout`): off in `lo` through float32 (which holds a
-    bf16 value exactly), band in its own dtype."""
+    `core.distributed.layout`: off's row and column slab, the band tiles of
+    the row slab and of each the rank's share of the nb rows): off in `lo`
+    through float32 (which holds a bf16 value exactly), band in its own
+    dtype."""
     from .core.distributed import layout
     band = np.asarray(band)
     p, _, nb, _ = band.shape
     lay = layout(p, grid, version)
     (ra, rb), (ca, cb) = lay.rows, lay.cols
+    s0, s1 = lay.band_rows(nb)
     # copies: the engine factors in place, and a JAX array's numpy view is
     # its own buffer
     off_s = np.array(np.asarray(off, np.float32)[ra * nb:rb * nb, ca * nb:cb * nb])
     off_t = torch.tensor(off_s, device=device)
-    return off_t.to(as_dtype(lo)), torch.tensor(band[ra:rb], device=device)
+    return off_t.to(as_dtype(lo)), torch.tensor(band[ra:rb, :, s0:s1],
+                                                device=device)
 
 
 def lm_params_from_numpy(tree, *, device="cuda", dtype=torch.float32):

@@ -7,11 +7,13 @@ critical_path priority price every task with `task_virtual_cost`.
 The analytic weights are the reference's model units -- tile-op FLOPs in
 nb^3 units scaled by a per-tier throughput weight (fp32 ~6x bf16, fp8
 ~0.5x) of a TPU's matrix unit -- not a measurement of the H100.  They only
-order the ready queue and drive the simulated backend; nothing here is a
-time of the card.  A measured table ("KIND/tier" -> microseconds) is read
-from CALIBRATION_PATH when `calibrated=True`; the port ships none (the
-card's own table comes with the calibrator), so that raises
-FileNotFoundError unless a table was injected with `set_calibration`.
+order the ready queue and drive the simulated backend.  A measured table
+("KIND/tier" -> microseconds) is read from CALIBRATION_PATH when
+`calibrated=True`: the committed one holds the card's task times, measured
+with CUDA events by `python -m repro_torch.obs calibrate --nb 1024 --p 6`
+(its `meta` names the card and its power limit).  Without a table (a
+missing file and none injected with `set_calibration`) that raises
+FileNotFoundError.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from ..analysis.dag import _FLOP_UNITS
 # the reference's matrix-unit throughput weights relative to bf16
 TIER_WEIGHT = {"hi": 6.0, "lo": 1.0, "lo2": 0.5}
 
-# measured per-(kind, tier) task times of the card, written by a calibrator
-# (not shipped: see the module docstring)
+# measured per-(kind, tier) task times of the card, written by
+# `repro_torch.obs.calibrate`
 CALIBRATION_PATH = Path(__file__).resolve().parent / "calibration.json"
 
 _UNSET = object()

@@ -45,6 +45,7 @@ import time
 
 import torch
 
+from .. import obs
 from ..analysis.dag import (
     Task,
     build_dag,
@@ -210,6 +211,13 @@ def simulate(graph: TaskGraph, config: SchedConfig) -> SchedReport:
     heap, and task durations come from the cost model -- the same config
     always yields the same makespan, bit for bit.
     """
+    with obs.span("sched.simulate", variant=graph.variant, p=graph.p,
+                  workers=config.workers, priority=config.priority,
+                  calibrated=config.calibrated):
+        return _simulate(graph, config)
+
+
+def _simulate(graph: TaskGraph, config: SchedConfig) -> SchedReport:
     keys = priority_keys(graph, config)
     costs = [task_virtual_cost(t, convert_cost=config.convert_cost,
                                calibrated=config.calibrated)
@@ -321,6 +329,17 @@ def execute(graph: TaskGraph, config: SchedConfig, kernels) -> tuple[dict, Sched
     before the first launch, read after a final synchronisation.  On a CPU
     matrix there are no streams and times are host microseconds.
 
+    With telemetry on (`obs`), the gauge `sched.t0` is the host clock
+    (`time.perf_counter()`) at the start of the report's timebase: on the
+    card taken after a synchronization of the caller's stream, just before
+    its t0 event is recorded there, so host spans and device task times
+    share one timebase up to the launch latency.  Each task then lands in
+    the histogram `sched.task.{kind}.{tier}` (seconds) and the counter
+    `sched.tasks.{kind}`, fed from the report's times after the final
+    synchronization: a read inside a worker would wait for the device per
+    task and change the schedule.  With telemetry off nothing here
+    synchronizes.
+
     Returns (final tile store, report).  The final store maps each tile to
     its last writer's output (its factored value).  A worker's exception
     stops the others and is raised here.
@@ -329,15 +348,23 @@ def execute(graph: TaskGraph, config: SchedConfig, kernels) -> tuple[dict, Sched
     state = _ExecState(graph, keys)
     n = graph.n
     cuda = kernels.device.type == "cuda"
+    telemetry = obs.enabled()
     if cuda:
         caller = torch.cuda.current_stream(kernels.device)
         streams = [torch.cuda.Stream(kernels.device)
                    for _ in range(config.workers)]
         t0 = torch.cuda.Event(enable_timing=True)
+        if telemetry:   # t0 on an idle stream: it runs as it is recorded
+            caller.synchronize()
+            clock0 = time.perf_counter()
         t0.record(caller)
         last_end = [None] * config.workers   # each worker's last end event
     else:
         clock0 = time.perf_counter()
+    if telemetry:
+        # anchor for obs.export.merged_chrome_trace: host spans and the
+        # report's per-task events share this perf_counter origin
+        obs.gauge("sched.t0", clock0)
 
     def fetch(idx: int) -> tuple[list, list]:
         """Operands of task idx and, for each, the (stream, event) that
@@ -483,6 +510,12 @@ def execute(graph: TaskGraph, config: SchedConfig, kernels) -> tuple[dict, Sched
         events.append(TaskEvent(
             index=idx, name=str(task), kind=task.kind, tier=task.tier,
             k=task.k, worker=w, start=start, end=end, worker_name=names[w]))
+        if telemetry:
+            # per-(kind, tier) task times -- the per-task profile the
+            # summary and the Prometheus exposition report
+            obs.observe(f"sched.task.{task.kind}.{task.tier}",
+                        (end - start) * 1e-6)
+            obs.inc(f"sched.tasks.{task.kind}")
     makespan = max((ev.end for ev in events), default=0.0)
     busy = [0.0] * config.workers
     for ev in events:
@@ -531,7 +564,9 @@ def scheduled_cholesky(a, nb: int, policy, config: SchedConfig, *,
     p = n // nb
     graph = build_graph(variant, p, policy)
     kernels = make_kernels(variant, a, nb, policy, impl=impl)
-    store, report = execute(graph, config, kernels)
+    with obs.span("sched.execute", variant=variant, p=p,
+                  workers=config.workers, priority=config.priority):
+        store, report = execute(graph, config, kernels)
     _maybe_trace(report, config)
     return store, report
 

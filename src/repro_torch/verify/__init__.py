@@ -22,8 +22,9 @@ card:
   golden.py       committed golden accuracy artifacts, one per device type,
                   and the --update flow, so accuracy drift fails loudly.
 
-Entry points that make tensors take `device=` (the card by default).  No
-tracing spans yet: the port has no `obs` package.
+Entry points that make tensors take `device=` (the card by default).  Each
+sweep record's computation is a `verify.cell` span of `repro_torch.obs`
+(with telemetry on), with the reference's `id` and `kind`.
 """
 
 from .generators import (

@@ -25,7 +25,9 @@ On a CUDA tensor `ops` launches each kernel; on a CPU tensor it runs the
 plain version, so the CPU's kernel records compare the plain version with
 itself (0, or the rounding of the attention oracle's one-pass softmax).
 The oracle is computed once per problem (the reference recomputes it per
-record).  `impl` ("kernel" by default) goes through to the engines.
+record).  `impl` ("kernel" by default) goes through to the engines.  Each
+record's computation is a `verify.cell` telemetry span (`obs`) with the
+record's `id` and `kind`, as the reference's.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import statistics
 
 import torch
 
+from .. import obs
 from ..core.likelihood import build_covariance, dst_loglik, loglik_from_factor
 from ..core.panel_cholesky import (
     assemble_from_banded,
@@ -125,28 +128,31 @@ def _tile_record(rid, prob, pol, ref, impl):
     # fp32 Sigma where the reference passes its fp64 upcast: the band tiles
     # are upcast, the off-band's exact fp32 values kept, the same bits
     # without an n^2 fp64 copy (13.4 GB at n = 40,960)
-    l = tile_cholesky(prob.cov, prob.nb, pol, impl=impl)
-    ll = float(loglik_from_factor(l, prob.z))
+    with obs.span("verify.cell", id=rid, kind="cholesky"):
+        l = tile_cholesky(prob.cov, prob.nb, pol, impl=impl)
+        ll = float(loglik_from_factor(l, prob.z))
     return _chol_record(rid, prob, pol.mode, dtype_pair(pol), pol.diag_thick,
                         l, ll, ref)
 
 
 def _panel_record(rid, prob, pol, ref, impl):
-    band, off = build_banded_covariance(
-        prob.locs, prob.theta, nb=prob.nb, policy=pol, nu_static=0.5,
-        jitter=1e-6, impl=impl)
-    t = min(pol.diag_thick, prob.p)
-    band, off, failed = panel_cholesky_banded(band, off, pol, impl=impl)
-    l_panel = assemble_from_banded(band, off, t)
-    ll_panel = float(banded_loglik(band, off, prob.z, t, failed))
+    with obs.span("verify.cell", id=rid, kind="cholesky"):
+        band, off = build_banded_covariance(
+            prob.locs, prob.theta, nb=prob.nb, policy=pol, nu_static=0.5,
+            jitter=1e-6, impl=impl)
+        t = min(pol.diag_thick, prob.p)
+        band, off, failed = panel_cholesky_banded(band, off, pol, impl=impl)
+        l_panel = assemble_from_banded(band, off, t)
+        ll_panel = float(banded_loglik(band, off, prob.z, t, failed))
     return _chol_record(rid, prob, pol.mode, dtype_pair(pol), pol.diag_thick,
                         l_panel, ll_panel, ref)
 
 
 def _dst_record(rid, prob, ref):
-    blocks = dst_cholesky(prob.cov, prob.nb, diag_thick=_DST_THICK)
-    l_dst = dst_assemble(blocks, prob.n)
-    ll_dst = float(dst_loglik(blocks, prob.z))
+    with obs.span("verify.cell", id=rid, kind="cholesky"):
+        blocks = dst_cholesky(prob.cov, prob.nb, diag_thick=_DST_THICK)
+        l_dst = dst_assemble(blocks, prob.n)
+        ll_dst = float(dst_loglik(blocks, prob.z))
     return _chol_record(rid, prob, "dst",
                         dtype_pair(PrecisionPolicy.dst(_DST_THICK)),
                         _DST_THICK, l_dst, ll_dst, ref)
@@ -204,9 +210,11 @@ def sweep_kriging(problems=None, policies=None, *, impl: str = "kernel",
             prob.theta, device=locs_o.device), nu_static=0.5)
         ref = exact_kriging_pmse(cov_oo, z_o, sigma_no, y)
         for label, pol in policies.items():
-            score = float(krige_pmse(locs_o, z_o, locs_n, y, prob.theta, pol,
-                                     nb=prob.nb, nu_static=0.5, jitter=1e-6,
-                                     impl=impl))
+            with obs.span("verify.cell", id=f"krige/{label}/{prob.name}",
+                          kind="kriging"):
+                score = float(krige_pmse(locs_o, z_o, locs_n, y, prob.theta,
+                                         pol, nb=prob.nb, nu_static=0.5,
+                                         jitter=1e-6, impl=impl))
             records.append({
                 "id": f"krige/{label}/{prob.name}",
                 "kind": "kriging",
@@ -254,47 +262,56 @@ def sweep_kernels(device="cuda") -> list[dict]:
         la = random_locations(gen(11), m)
         lb = random_locations(gen(12), n)
         for nu in (0.5, 1.5, 2.5):
-            theta = (1.3, 0.12, nu)
-            out = matern_ops.matern_cov(la, lb, theta, nu=nu)
-            ref = matern_ref.matern_cov(la, lb, theta, nu=nu)
-            records.append(_kernel_record(f"kern/matern_cov/m{m}n{n}_nu{nu}",
-                                          "matern_cov", out, ref))
+            rid = f"kern/matern_cov/m{m}n{n}_nu{nu}"
+            with obs.span("verify.cell", id=rid, kind="kernel"):
+                theta = (1.3, 0.12, nu)
+                out = matern_ops.matern_cov(la, lb, theta, nu=nu)
+                ref = matern_ref.matern_cov(la, lb, theta, nu=nu)
+            records.append(_kernel_record(rid, "matern_cov", out, ref))
 
     # mp_syrk: 3 shapes x 3 band widths (band width = precision regime)
     for m, k, bm, bk in ((128, 64, 64, 64), (256, 128, 64, 64),
                          (256, 64, 128, 64)):
         p = torch.randn((m, k), generator=gen(13), device=device)
         for band in (1, 2, 4):
-            kw = dict(tile=bm, round_k=bk, band_blocks=band)
-            records.append(_kernel_record(
-                f"kern/mp_syrk/m{m}k{k}_band{band}", "mp_syrk",
-                syrk_ops.mp_syrk(p, **kw), syrk_ref.mp_syrk(p, **kw)))
+            rid = f"kern/mp_syrk/m{m}k{k}_band{band}"
+            with obs.span("verify.cell", id=rid, kind="kernel"):
+                kw = dict(tile=bm, round_k=bk, band_blocks=band)
+                out = syrk_ops.mp_syrk(p, **kw)
+                ref = syrk_ref.mp_syrk(p, **kw)
+            records.append(_kernel_record(rid, "mp_syrk", out, ref))
 
     # blocked_potrf: 3 sizes x 3 condition numbers
     for n in (32, 64, 128):
         for cname, cond in CONDITIONS.items():
-            a = spd_matrix(17 + n, n, cond=cond, device=device)
-            out = potrf_ops.potrf(a)[0]
+            rid = f"kern/blocked_potrf/n{n}_{cname}"
+            with obs.span("verify.cell", id=rid, kind="kernel"):
+                a = spd_matrix(17 + n, n, cond=cond, device=device)
+                out = potrf_ops.potrf(a)[0]
+                ref = potrf_ref.potrf(a)[0]
             records.append(_kernel_record(
-                f"kern/blocked_potrf/n{n}_{cname}", "blocked_potrf", out,
-                potrf_ref.potrf(a)[0], backward_rel=backward_error(out, a)))
+                rid, "blocked_potrf", out, ref,
+                backward_rel=backward_error(out, a)))
 
     # mp_attention: 3 cache shapes x 3 logit scales (softmax sharpness)
     for i, (b, g, d, sn, sf, blk) in enumerate(
             ((2, 4, 64, 128, 256, 128), (1, 8, 128, 256, 128, 64),
              (4, 1, 64, 128, 128, 128))):
         for scale in (0.5, 1.0, 2.0):
-            q, kn, vn, kf, vf = attention_problem(21 + i, b, g, d, sn, sf,
-                                                  scale=scale, device=device)
-            kq, vq, scales = attn_ops.quantize_kv(kf, vf, blk=blk)
-            near_len = torch.full((b,), sn, dtype=torch.int32, device=device)
-            far_len = torch.full((b,), sf, dtype=torch.int32, device=device)
-            args = (q, kn, vn, near_len, kq, vq, scales, far_len)
-            kw = dict(blk=blk, sm_scale=1.0 / d ** 0.5)
-            rec = _kernel_record(
-                f"kern/mp_attention/shape{i}_scale{scale}", "mp_attention",
-                attn_ops.banded_decode_attention(*args, **kw),
-                attn_ref.banded_decode_attention_ref(*args, **kw))
+            rid = f"kern/mp_attention/shape{i}_scale{scale}"
+            with obs.span("verify.cell", id=rid, kind="kernel"):
+                q, kn, vn, kf, vf = attention_problem(
+                    21 + i, b, g, d, sn, sf, scale=scale, device=device)
+                kq, vq, scales = attn_ops.quantize_kv(kf, vf, blk=blk)
+                near_len = torch.full((b,), sn, dtype=torch.int32,
+                                      device=device)
+                far_len = torch.full((b,), sf, dtype=torch.int32,
+                                     device=device)
+                args = (q, kn, vn, near_len, kq, vq, scales, far_len)
+                kw = dict(blk=blk, sm_scale=1.0 / d ** 0.5)
+                out = attn_ops.banded_decode_attention(*args, **kw)
+                ref = attn_ref.banded_decode_attention_ref(*args, **kw)
+            rec = _kernel_record(rid, "mp_attention", out, ref)
             rec.pop("max_rel")  # softmax outputs are O(1); abs is the metric
             records.append(rec)
     return records

@@ -8,6 +8,8 @@ Pure Python on both sides: no tensor is touched."""
 
 import dataclasses
 
+import json
+
 import pytest
 import torch
 
@@ -165,15 +167,40 @@ def test_task_virtual_cost_equals_reference(label):
                 == [jcost.task_virtual_cost(t, convert_cost=cc) for t in jt]
 
 
-def test_calibration_table():
-    """No table ships with the port: calibrated=True raises, as the
+def test_calibration_table(monkeypatch, tmp_path):
+    """The committed table is the card's: it loads, its keys cover every
+    (kind, tier) pair the DAGs emit, and its meta names an NVIDIA card and
+    its power limit; with the file missing calibrated=True raises, as the
     reference does without one; an injected table is read as the
     reference reads it, with the analytic weight for a missing key."""
+    import re
+
+    from repro_torch.obs.calibrate import cost_key
     task = tdag.Task("GEMM", 0, (2, 1), reads=((2, 0), (1, 0), (2, 1)),
                      tier=tdag.LO)
-    assert not tcost.CALIBRATION_PATH.exists()
-    with pytest.raises(FileNotFoundError, match="calibration"):
-        tcost.task_virtual_cost(task, calibrated=True)
+    payload = json.loads(tcost.CALIBRATION_PATH.read_text())
+    tcost.set_calibration(None)
+    costs = tcost.load_calibration()
+    assert costs == payload["costs"] and all(v > 0 for v in costs.values())
+    for label in sorted(POLICIES):
+        for variant in VARIANTS:
+            keys = {cost_key(t) for t in tdag.build_dag(
+                variant, 6, POLICIES[label][1])}
+            assert keys - {"GEMM/lo2", "TRSM/lo2"} <= set(costs), (label,
+                                                                   variant)
+    meta = payload["meta"]
+    assert meta["backend"] == "cuda" and meta["units"] == "microseconds"
+    assert meta["device"].startswith("NVIDIA")
+    assert re.fullmatch(r"NVIDIA [^,]+, \d+\.\d+ W", meta["nvidia_smi"])
+    assert tcost.task_virtual_cost(task, calibrated=True) == costs["GEMM/lo"]
+    monkeypatch.setattr(tcost, "CALIBRATION_PATH", tmp_path / "missing.json")
+    tcost.set_calibration(None)
+    try:
+        with pytest.raises(FileNotFoundError, match="calibration"):
+            tcost.task_virtual_cost(task, calibrated=True)
+    finally:
+        monkeypatch.undo()
+        tcost.set_calibration(None)
     table = {"GEMM/lo": 41.5, "CONVERT": 3.0}
     try:
         tcost.set_calibration(table)

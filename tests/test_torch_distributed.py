@@ -234,8 +234,9 @@ def test_distributed_two_thetas_are_finite_and_differ(data):
 # ---------------------------------------------------------------------
 
 # world size -> its grids; every version runs on each (fori: rows over
-# every rank), under tpu(2) and the pair
-WORLDS = {1: [(1, 1)], 2: [(2, 1), (1, 2)], 3: [(3, 1)], 4: [(2, 2)]}
+# every rank), under tpu(2) and the pair; 1 x 3 splits each band tile's 32
+# rows unevenly (11, 11, 10)
+WORLDS = {1: [(1, 1)], 2: [(2, 1), (1, 2)], 3: [(3, 1), (1, 3)], 4: [(2, 2)]}
 GRID_POLICIES = ("tpu2", "paper2")
 # a grid that splits the columns sums each block's residual over its grid
 # row in another order, which can move ll by its last bits (measured 0 on
@@ -265,6 +266,7 @@ def _grid_worker(rank, world, path, locs_by_pol, z_by_pol):
                 lay = td.layout(N // NB, grid, v)
                 out.append(dict(dims=dims, pol=pol, version=v, ll=ll.item(),
                                 built=built, rows=lay.rows, cols=lay.cols,
+                                band_rows=lay.band_rows(NB),
                                 off=off.double().numpy(),
                                 band=band.double().numpy()))
     torch.save(out, os.path.join(path, f"rank{rank}.pt"))
@@ -299,10 +301,11 @@ def _one_process(pol, version, locs_bytes, z_bytes):
 
 @pytest.mark.parametrize("world", sorted(WORLDS))
 def test_grid_matches_one_process(world, data, tmp_path_factory):
-    """Every rank holds exactly its slab of off and the band rows of its
-    row slab, replicas of a slab hold the same bits, every rank returns the
-    same ll, and the gathered factor is the one-process factor bit for bit;
-    ll too where the grid does not split columns."""
+    """Every rank holds exactly its slab of off and, of the band tiles of
+    its row slab, its share of their rows (`test_band_rows_split_over_the_
+    grid_row`), replicas of a slab hold the same bits, every rank returns
+    the same ll, and the gathered factor is the one-process factor bit for
+    bit; ll too where the grid does not split columns."""
     locs, z = data[0].tobytes(), data[1].tobytes()
     path = str(tmp_path_factory.mktemp(f"gloo{world}"))
     runs = _grid_run(world, path, locs, z)
@@ -313,13 +316,15 @@ def test_grid_matches_one_process(world, data, tmp_path_factory):
         band = np.full_like(want_band, np.nan)
         for r, out in enumerate(runs):
             got = out[idx]
-            (ra, rb), (ca, cb) = got["rows"], got["cols"]
-            shape = ((rb - ra) * NB, (cb - ca) * NB), (rb - ra, T, NB, NB)
+            (ra, rb), (ca, cb), (s0, s1) = (got["rows"], got["cols"],
+                                            got["band_rows"])
+            shape = ((rb - ra) * NB, (cb - ca) * NB), (rb - ra, T, s1 - s0, NB)
             assert got["built"] == shape and (got["off"].shape,
                                               got["band"].shape) == shape
             for whole, part, sl in ((off, got["off"], np.s_[ra * NB:rb * NB,
                                                            ca * NB:cb * NB]),
-                                    (band, got["band"], np.s_[ra:rb])):
+                                    (band, got["band"], np.s_[ra:rb, :,
+                                                              s0:s1])):
                 prev = whole[sl]
                 assert np.isnan(prev).all() or np.array_equal(prev, part)
                 whole[sl] = part
@@ -332,6 +337,63 @@ def test_grid_matches_one_process(world, data, tmp_path_factory):
             assert abs(case["ll"] - want_ll) <= GRID_LL_REL[case["pol"]] * abs(
                 want_ll)
         assert math.isfinite(case["ll"])
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_band_rows_split_over_the_grid_row(world, data, tmp_path_factory):
+    """Under masked_full and aligned a rank at (r, c) holds (rb - ra, t,
+    nb_c, nb) of the band: its row slab's tiles, of each its share of the nb
+    rows, the first shares a row larger (32 over 2 grid columns: 16 + 16;
+    over 3: 11 + 11 + 10); the shares of a grid row are disjoint and cover
+    the nb rows.  Under fori each rank holds whole tiles."""
+    locs, z = data[0].tobytes(), data[1].tobytes()
+    path = str(tmp_path_factory.mktemp(f"gloo{world}"))
+    runs = _grid_run(world, path, locs, z)
+    want_shares = {1: [(0, NB)], 2: [(0, 16), (16, 32)],
+                   3: [(0, 11), (11, 22), (22, 32)]}
+    seen = 0
+    for idx, case in enumerate(runs[0]):
+        data_, model = case["dims"]
+        if model == 1:
+            continue
+        split = case["version"] != "fori"
+        rows = {}
+        for out in runs:
+            got = out[idx]
+            (ra, rb), (s0, s1) = got["rows"], got["band_rows"]
+            assert got["built"][1] == (rb - ra, T, s1 - s0, NB)
+            rows.setdefault((ra, rb), []).append((s0, s1))
+        for shares in rows.values():
+            assert sorted(shares) == (want_shares[model] if split
+                                      else [(0, NB)])
+            assert sum(b - a for a, b in shares) == NB
+        seen += 1
+    assert seen == 2 * len(VERSIONS) * sum(m > 1 for _, m in WORLDS[world])
+
+
+@pytest.mark.parametrize("dims", [(1, 2), (2, 2), (1, 3)])
+def test_interop_slices_a_ranks_band_rows(dims, data):
+    """`interop.distributed_from_numpy` gives each grid position the slabs
+    the engine builds there: off's (rows, columns) slab, the band tiles of
+    its row slab and of each its share of the rows."""
+    locs, _ = _inputs("tpu2", data)
+    pol = P.tpu(T)
+    off, band = td.build_covariance_distributed(torch.from_numpy(locs), THETA,
+                                                nb=NB, policy=pol)
+    base = make_smoke_grid()
+    for q in range(dims[0] * dims[1]):
+        grid = dataclasses.replace(base, data=dims[0], model=dims[1],
+                                   ranks=tuple(range(dims[0] * dims[1])),
+                                   rank=q)
+        for v in VERSIONS:
+            lay = td.layout(N // NB, grid, v)
+            (ra, rb), (ca, cb), (s0, s1) = lay.rows, lay.cols, lay.band_rows(NB)
+            o, b = interop.distributed_from_numpy(
+                off.float().numpy(), band.numpy(), lo="bfloat16", grid=grid,
+                version=v, device="cpu")
+            assert b.shape == (rb - ra, T, s1 - s0, NB)
+            assert torch.equal(b, band[ra:rb, :, s0:s1])
+            assert torch.equal(o, off[ra * NB:rb * NB, ca * NB:cb * NB])
 
 
 def test_smoke_grid_is_one_process_without_a_group():

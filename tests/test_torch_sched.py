@@ -499,7 +499,11 @@ def test_kernel_error_propagates():
                 kernels)
 
 
-def test_calibrated_without_table_raises():
+def test_calibrated_without_table_raises(monkeypatch, tmp_path):
+    """With no table (the committed one moved away) calibrated=True raises
+    in the real backend and the simulator alike."""
+    monkeypatch.setattr(tcost, "CALIBRATION_PATH", tmp_path / "missing.json")
+    tcost.set_calibration(None)
     a = _matrix("tpu2", 4, 16)
     cfg = SchedConfig(priority="critical_path", calibrated=True)
     with pytest.raises(FileNotFoundError, match="calibration"):
@@ -507,6 +511,8 @@ def test_calibrated_without_table_raises():
     with pytest.raises(FileNotFoundError):
         simulate_dag("tile", 4, TP.tpu(2), dataclasses.replace(
             cfg, backend="sim"))
+    monkeypatch.undo()
+    tcost.set_calibration(None)
 
 
 def test_non_positive_definite_tile_is_nan():
