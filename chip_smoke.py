@@ -211,6 +211,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      with telemetry off, exact launches, both seconds, the summary table
      and the Prometheus text; then BatchEngine.loglik of 4 candidates at
      n_obs = 8,192: batch.candidates = 4 and no engine span inside;
+ 16. the static and concurrency gate (repro_torch.analysis) on the card:
+     (a) in-process, the precision-flow linter, the DAG hazard matrix and
+     the scheduler's dispatch-order replay pass, and the lockguard finds
+     nothing outside the committed baseline in sched/runtime.py and
+     obs/recorder.py; (b) the interleaving model checker's fast matrix
+     (7 cells x W = 2, 3; one CUDA stream per logical worker, cross-stream
+     operands waited on through their producers' end events) gives the
+     same (variant, policy, p, workers, runs, distinct) rows as the same
+     call on the CPU, >= 200 distinct interleavings, no violation, every
+     run bit for bit the on-card in-order replay, the tile cells within
+     the policy's registered factor bound of the on-card tile_cholesky,
+     and one blocked_potrf launch per POTRF task of each run and replay;
+     (c) `python -m repro_torch.analysis --check --concurrency` in a
+     process of its own on the card exits 0; the phase's seconds (at most
+     30);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -350,6 +365,11 @@ OBS = dict(cal_p=6, cal_nb=1_024, cal_reps=3, trace_p=16, trace_nb=1_024,
            skew_reps=20)
 OBS_QUICK = dict(OBS, cal_nb=256, trace_p=6, trace_nb=256, batch_n=2_048,
                  batch_nb=256)
+# phase 16: (b)'s random seeds per (cell, workers) (the CLI's), and the
+# phase's time limit in seconds; --quick runs fewer seeds in (b), whose
+# distinct-interleaving floor (c)'s full matrix then holds
+ANALYSIS = dict(seeds=12, limit_s=30.0)
+ANALYSIS_QUICK = dict(seeds=4, limit_s=30.0)
 # CUDA events resolve to about half a microsecond: the happens-before
 # check's slack on device times, in microseconds
 HB_ATOL_US = 1.0
@@ -4855,6 +4875,119 @@ def observability(ds, cfg, ocfg, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the static and concurrency gate (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def analysis_static():
+    """16 (a): lint, DAG, dispatch-order replay and lockguard in-process."""
+    from repro_torch.analysis import cli
+    from repro_torch.analysis.baseline import load_baseline, split_baselined
+    from repro_torch.analysis.concurrency.lockguard import lockguard_files
+    rc = {"lint": cli.run_lint(cli.SRC_ROOT), "dag": cli.run_dag(),
+          "sched_replay": cli.run_sched_replay()}
+    require(not any(rc.values()), f"analysis layers failed: {rc}")
+    found = lockguard_files(cli.SRC_ROOT)
+    new, kept, _ = split_baselined(found, load_baseline())
+    require(not new, "lockguard: " + "; ".join(f.render() for f in new))
+    emit(phase="analysis", step="static", rc=rc, lockguard_findings=len(found),
+         lockguard_baselined=len(kept))
+
+
+def analysis_potrf_launches(cells, seeds, workers):
+    """blocked_potrf launches of run_matrix on the card: one per POTRF task
+    (all FAST_CELLS policies have an fp32 band) of each run and of each
+    cell's in-order replay; the tile engine it is held to runs its plain
+    versions at nb = 4."""
+    from repro_torch.analysis.concurrency.interleave import SCHEDULES, _policies
+    from repro_torch.sched.runtime import build_graph
+    runs = len(workers) * (seeds + len(SCHEDULES) - 1)
+    total = 0
+    for variant, plabel, p in cells:
+        graph = build_graph(variant, p, _policies()[plabel])
+        total += sum(t.kind == "POTRF" for t in graph.tasks) * (1 + runs)
+    return total
+
+
+def analysis_matrix(acfg):
+    """16 (b): the interleaving matrix on the card against the same call on
+    the CPU."""
+    import torch
+    from repro_torch.analysis.cli import INTERLEAVE_DISTINCT_MIN
+    from repro_torch.analysis.concurrency.interleave import FAST_CELLS, run_matrix
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    workers = (2, 3)
+    kw = dict(seeds=acfg["seeds"], workers=workers)
+    t0 = time.perf_counter()
+    cpu = run_matrix(FAST_CELLS, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card = run_matrix(FAST_CELLS, device="cuda", **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    print(card.render(), flush=True)
+    want = {k: 0 for k in counts}
+    want["blocked_potrf"] = analysis_potrf_launches(FAST_CELLS, acfg["seeds"],
+                                                    workers)
+    require(card.ok, "interleave on the card: " + "; ".join(
+        (card.violations + card.mismatches)[:5]))
+    require(cpu.ok, "interleave on the CPU: " + "; ".join(
+        (cpu.violations + cpu.mismatches)[:5]))
+    require(card.rows == cpu.rows, f"card rows {card.rows} != CPU rows {cpu.rows}")
+    if acfg["seeds"] >= 12:
+        require(card.n_distinct >= INTERLEAVE_DISTINCT_MIN,
+                f"{card.n_distinct} distinct interleavings on the card")
+    require(counts == want, f"interleave launches {counts}, expected {want}")
+    emit(phase="analysis", step="interleave", runs=card.n_runs,
+         distinct=card.n_distinct, seconds_cuda=card_s, seconds_cpu=cpu_s,
+         launches=counts, engine_rel=list(card.engine_rel),
+         engine_rel_cpu=list(cpu.engine_rel))
+    return counts["blocked_potrf"]
+
+
+def analysis_cli():
+    """16 (c): the gate's CLI with --concurrency in a process of its own,
+    on the card (its default device)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--check", "--concurrency"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    print(out.stdout, end="", flush=True)
+    require(out.returncode == 0, f"python -m repro_torch.analysis --check "
+            f"--concurrency exited {out.returncode}: {out.stderr[-2000:]}")
+    require("static analysis: OK" in out.stdout and " on cuda," in out.stdout,
+            "the CLI's matrix did not run on the card")
+    emit(phase="analysis", step="cli", rc=out.returncode, seconds=seconds)
+
+
+def analysis(acfg, results):
+    """Phase 16: the static and concurrency gate on the card (see the module
+    docstring), sub-steps timed into one line."""
+    secs = {}
+    t_all = time.perf_counter()
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    step("16a static", analysis_static)
+    launches = step("16b interleave", analysis_matrix, acfg)
+    step("16c cli", analysis_cli)
+    results["blocked_potrf"]["launches_analysis"] = launches
+    total = time.perf_counter() - t_all
+    emit(phase="analysis", step="seconds", total=total, **secs)
+    require(total <= acfg["limit_s"], f"phase 16 took {total} s, over its "
+            f"{acfg['limit_s']} s")
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -5099,6 +5232,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("15 telemetry", observability, ds, cfg,
           OBS_QUICK if args.quick else OBS, results)
+    torch.cuda.empty_cache()
+    timed("16 analysis", analysis, ANALYSIS_QUICK if args.quick else ANALYSIS,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -5108,7 +5244,7 @@ def main(argv=None):
         {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
                                   "launches_accuracy", "launches_sched",
                                   "launches_tiles", "launches_distributed",
-                                  "launches_obs")
+                                  "launches_obs", "launches_analysis")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

