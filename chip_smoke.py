@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # the full run (one card)
     python3 chip_smoke.py --quick    # small shapes: build and check only
                                      # (phase 9: evaluations and kernels;
-                                     # phase 11 (b) at n = 4,096 and 8,192)
+                                     # phase 11 (b) at n = 4,096 and 8,192;
+                                     # phase 17 (b) at train_lm's 20m size)
     python3 chip_smoke.py --e2e-ab DIR  # only phases 4, 8.1, 9.1 and 10.1's
                                      # evaluations, the checkout at DIR and
                                      # this one in turns (DIR, this, this, DIR)
@@ -226,6 +227,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      (c) `python -m repro_torch.analysis --check --concurrency` in a
      process of its own on the card exits 0; the phase's seconds (at most
      30);
+ 17. LM training (repro_torch.train, .optim, .runtime, .checkpoint, .data):
+     (a) llama3.2-1b's SMOKE in fp32 compute on the card and on the CPU from
+     one state and one stream, 3 steps with 2 microbatches and one with
+     int8 compression: losses, lr and grad norms per step, the params'
+     update and the moments within TRAIN_CPU_TOL; (b) llama3.2-1b at full
+     width and depth (16 layers, d 2,048, vocab 128,256, tied, remat on),
+     bf16 compute with fp32 masters, train_4k's 4,096 tokens, global batch
+     8 in 4 microbatches of 2 (halved while the peak predicted by
+     train_peak_bytes passes 70 GiB), from the synthetic source, 6 steps:
+     each step's seconds, the median of steps 2-6, tokens/s, the peak
+     beside its prediction, model TFLOP/s (train_step_flops: 6 N T, the
+     attention's products, remat's recompute) beside the bf16 peak, the
+     losses finite and under the first + 1.0, no kernel of the port
+     launched; the last step under the profiler (the device's idle share,
+     the fp32 score products' share); (c) train_lm's 100m model through
+     FaultTolerantLoop, 20 steps of 8 x 512 with a checkpoint every 5 and
+     failures injected at steps 7 and 13: 2 restarts, data_step 20, finite
+     losses, each save's bytes and seconds, the last checkpoint restored
+     bit for bit; the phase's seconds (at most 90);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -308,10 +328,12 @@ GENERAL_NU_MAX_REL = 1e-4
 WEAK = (1.0, 0.03, 0.5)
 MEDIUM = (1.0, 0.10, 0.5)
 # phase 9: the paper pair on an fp64 medium field, split as phase 8's; the
-# estimation's grid and Nelder-Mead iterations (phase 8.2's); --quick runs
-# the evaluations and the kernels only
+# estimation's grid and Nelder-Mead iterations (8, cut from phase 8.2's 20
+# when phase 17 came: both fits start from one grid point and move alike,
+# to the same theta-hat at 20 on the H100); --quick runs the evaluations
+# and the kernels only
 PAPER = dict(n_all=45_056, hold=11, n_obs=40_960, nb=1_024, grid=3, refine=2,
-             nm_iters=20, estimate=True)
+             nm_iters=8, estimate=True)
 PAPER_QUICK = dict(n_all=5_632, hold=11, n_obs=5_120, nb=128, grid=3,
                    refine=2, nm_iters=3, estimate=False)
 # the paper pair's registered loglik_drift (src/repro/verify/bounds.py),
@@ -370,6 +392,25 @@ OBS_QUICK = dict(OBS, cal_nb=256, trace_p=6, trace_nb=256, batch_n=2_048,
 # distinct-interleaving floor (c)'s full matrix then holds
 ANALYSIS = dict(seeds=12, limit_s=30.0)
 ANALYSIS_QUICK = dict(seeds=4, limit_s=30.0)
+# phase 17: (b) llama3.2-1b's full config (with --quick, train_lm's 20m size)
+# at train_4k's sequence length: global batch, microbatches, steps, whether
+# the last step runs under the profiler, the peak a step may be predicted to
+# reach before its microbatch is halved; (c) train_lm's size, batch,
+# sequence, steps, checkpoint interval and injected failures; the phase's
+# time limit in seconds
+TRAIN = dict(arch="llama3.2-1b", size=None, batch=8, microbatches=4, steps=6,
+             profile=True, peak_gib=70.0, loop_size="100m", loop_batch=8,
+             loop_seq=512, loop_steps=20, ckpt_every=5, fail_at=(7, 13),
+             limit_s=90.0)
+TRAIN_QUICK = dict(TRAIN, size="20m")
+# 17 (a): the SMOKE model's steps, card against CPU (fp32 compute): loss and
+# lr relative, grad norm relative, the params' update (||card - cpu|| over
+# the CPU's update), each moment's largest difference over its largest
+# entry; from the port's measured distance to the JAX package on the CPU
+# (tests/test_torch_train.py: 3.1e-7, 9.6e-8, 3.7e-5, 5.0e-4 and, after a
+# compressed step, 1.1e-2), a few times over: the card sums in other orders
+TRAIN_CPU_TOL = dict(loss=1e-5, lr=1e-6, grad_norm=1e-4, update=2e-3, m=3e-2,
+                     v=3e-2)
 # CUDA events resolve to about half a microsecond: the happens-before
 # check's slack on device times, in microseconds
 HB_ATOL_US = 1.0
@@ -4988,6 +5029,332 @@ def analysis(acfg, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: LM training (repro_torch.train, .runtime, .checkpoint, .data)
+# ---------------------------------------------------------------------------
+
+def _layer_param_count(cfg) -> int:
+    """One attention block's params (norms, q/k/v/o, the SwiGLU MLP)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    return 2 * d + 2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
+
+
+def train_param_count(cfg) -> int:
+    """init_lm's parameter count of a dense attention model: the embedding
+    (and the unembedding unless tied), the layers, the final norm."""
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return embed + cfg.n_layers * _layer_param_count(cfg) + cfg.d_model
+
+
+def train_peak_bytes(cfg, micro: int, seq: int) -> int:
+    """Predicted peak device bytes of one train step (bf16 compute, fp32
+    masters and moments, remat per cycle), the larger of two moments:
+    the backward of a microbatch of `micro` sequences -- the state (params,
+    m, v: 12 N), the step's fp32 gradient sum (4 N), bf16 compute copy (2
+    N) and bf16 gradients (2 N), the larger of one layer's (micro, H, S, S)
+    attention scores and the head's (micro, S, V) logits at 12 bytes an
+    element (the saved fp32 softmax output, the incoming fp32 gradient and
+    the softmax backward's output), and the bf16 carries saved at each
+    cycle; and the AdamW update -- old and new params, m and v, the
+    gradient sum and its clipped copy (32 N) and five temporaries of the
+    largest leaf (`adamw.update`'s m-hat and v-hat, held while the step's
+    terms and their sum are made)."""
+    n = train_param_count(cfg)
+    scores = micro * cfg.n_heads * seq * seq
+    logits = micro * seq * cfg.vocab
+    carries = cfg.n_cycles * micro * seq * cfg.d_model * 2
+    backward = 20 * n + 12 * max(scores, logits) + carries
+    leaf = max(cfg.vocab * cfg.d_model, cfg.n_layers * cfg.d_model * cfg.d_ff)
+    update = 32 * n + 5 * 4 * leaf
+    return max(backward, update)
+
+
+def train_microbatches(cfg, batch: int, count: int, seq: int,
+                       limit_gib: float) -> int:
+    """The microbatch count for `batch` sequences: `count`, doubled (the
+    microbatch halved) while the predicted peak passes limit_gib; widths
+    and depth are never cut.  Raises when one sequence a microbatch does
+    not fit."""
+    while train_peak_bytes(cfg, batch // count, seq) > limit_gib * 2**30:
+        if batch // count == 1:
+            raise RuntimeError(f"{cfg.name}: one sequence of {seq} is "
+                               f"predicted past {limit_gib} GiB")
+        count *= 2
+    return count
+
+
+def train_step_flops(cfg, batch: int, seq: int, *, remat: bool) -> dict:
+    """The model flops of one train step over batch x seq tokens: 6 N T
+    (forward 2 N T, backward 4 N T, the tied head counted once), the
+    attention's products over the full S x S (the causal mask is applied,
+    not skipped: 4 S^2 H d_head a sequence and layer forward, twice that
+    backward), and remat's recompute (the layers' forward once more, 2
+    N_layers T, and its attention products)."""
+    t = batch * seq
+    attn_fwd = 4 * seq * seq * cfg.n_heads * cfg.d_head * cfg.n_layers * batch
+    layers = cfg.n_layers * _layer_param_count(cfg)
+    return {"dense": 6 * train_param_count(cfg) * t, "attention": 3 * attn_fwd,
+            "remat": (2 * layers * t + attn_fwd) if remat else 0}
+
+
+def _update_rel(got, want, start):
+    """||got - want|| over ||want - start||: two updates of the same params
+    against the size of the update (Adam moves a near-zero gradient's
+    element by about lr either way, so an element-wise bound would have to
+    allow 2 lr a step)."""
+    num = sum(float(((g.cpu() - w) ** 2).sum()) for g, w in zip(got, want))
+    den = sum(float(((w - s) ** 2).sum()) for w, s in zip(want, start))
+    return (num / den) ** 0.5
+
+
+def train_vs_cpu(tcfg, smi):
+    """17 (a): llama3.2-1b's SMOKE, fp32 compute, from one state and one
+    stream on the card and on the CPU: 3 steps with 2 microbatches, then one
+    with int8 compression; losses and grad norms per step, the updated
+    params and moments, within TRAIN_CPU_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import LM_SMOKE_CONFIGS
+    from repro_torch.data import DataConfig, SyntheticTokenSource
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import init_residual
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    cfg = LM_SMOKE_CONFIGS["llama3.2-1b"]
+    tc = TrainConfig(peak_lr=1e-2, warmup=1, total_steps=10, microbatches=2,
+                     compute_dtype="float32")
+    steps = {"plain": make_train_step(cfg, tc), "int8": make_train_step(
+        cfg, dataclasses.replace(tc, compression="int8"))}
+    src = SyntheticTokenSource(cfg, DataConfig(seed=17, global_batch=4,
+                                               seq_len=32), device="cpu")
+    init = init_train_state(torch.Generator().manual_seed(17), cfg, tc,
+                            device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, log = _to_device(init, dev), []
+        for i in range(4):
+            if i == 3:
+                state = dict(state, residual=init_residual(state["params"]))
+            state, m = steps["int8" if i == 3 else "plain"](
+                state, _to_device(src.batch_at(i), dev))
+            log.append({k: float(v) for k, v in m.items()})
+        out[dev] = state, log
+    (s_cpu, log_cpu), (s_card, log_card) = out["cpu"], out["cuda"]
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(log_card, log_cpu))
+           for k in ("loss", "grad_norm", "lr")}
+    rel["update"] = _update_rel(tree_leaves(s_card["params"]),
+                                tree_leaves(s_cpu["params"]),
+                                tree_leaves(init["params"]))
+    for k in ("m", "v"):
+        rel[k] = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                     for a, b in zip(tree_leaves(s_card["opt"][k]),
+                                     tree_leaves(s_cpu["opt"][k])))
+    emit(phase="training", step="card_vs_cpu", model=cfg.name + " SMOKE",
+         smi=smi, compute="float32", steps=4, microbatches=2, last_step="int8",
+         losses_card=[m["loss"] for m in log_card],
+         losses_cpu=[m["loss"] for m in log_cpu], rel=rel, tol=TRAIN_CPU_TOL)
+    for k, tol in TRAIN_CPU_TOL.items():
+        require(rel[k] <= tol, f"training SMOKE card vs CPU: {k} {rel[k]} > {tol}")
+    require(int(s_card["data_step"]) == 4, "training SMOKE: data_step")
+
+
+def _fp32_gemm(name: str) -> bool:
+    """A cuBLAS / CUTLASS IEEE fp32 GEMM (TF32 is off), by kernel name: in
+    the training path only the attention's score products are fp32."""
+    low = name.lower()
+    return "sgemm" in low or "f32f32_f32f32" in low or "nvjet_sss" in low
+
+
+def train_full(tcfg, smi):
+    """17 (b): llama3.2-1b at full width and depth (or --quick's size),
+    bf16 compute, fp32 masters, train_4k's sequence length, from the
+    synthetic source: each step's seconds (the last under the profiler),
+    the median of steps 2 on,
+    tokens/s, the peak against its prediction, model TFLOP/s beside the
+    bf16 peak; the losses finite and under the first + 1.0; no kernel of
+    the port launched (the training path has none)."""
+    import torch
+    from repro_torch.configs import LM_CONFIGS, SHAPES
+    from repro_torch.data import DataConfig, SyntheticTokenSource
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train_lm import size_config
+    cfg = LM_CONFIGS[tcfg["arch"]] if tcfg["size"] is None else \
+        size_config(tcfg["size"]).scaled(remat=True)
+    seq, batch = SHAPES["train_4k"].seq_len, tcfg["batch"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    micro = train_microbatches(cfg, batch, tcfg["microbatches"], seq,
+                               tcfg["peak_gib"] - held / 2**30)
+    predicted = (train_peak_bytes(cfg, batch // micro, seq) + held) / 2**30
+    flops = train_step_flops(cfg, batch, seq, remat=cfg.remat)
+    emit(phase="training", step="full_predicted", model=cfg.name, smi=smi,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         tied=cfg.tie_embeddings, remat=cfg.remat,
+         params=train_param_count(cfg), seq=seq, global_batch=batch,
+         microbatches=micro, tokens_per_step=batch * seq,
+         peak_gib_predicted=predicted, held_gib=held / 2**30,
+         flops_per_step=flops, flops_total=sum(flops.values()))
+    tc = TrainConfig(microbatches=micro)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    state = init_train_state(gen, cfg, tc, device="cuda")
+    step_fn = make_train_step(cfg, tc)
+    src = SyntheticTokenSource(cfg, DataConfig(seed=170, global_batch=batch,
+                                               seq_len=seq), device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    seconds, losses, profile = [], [], None
+    for i in range(tcfg["steps"]):
+        batch_i, box = src.batch_at(i), {}
+
+        def one_step():
+            box["state"], box["m"] = step_fn(state, batch_i)
+            box["loss"] = float(box["m"]["loss"])  # the step's device sync
+        torch.cuda.synchronize()
+        if tcfg["profile"] and i == tcfg["steps"] - 1:  # the last step
+            profile = stream_profile(one_step, keep_rows=True)
+            seconds.append(profile["wall_ms"] / 1e3)
+        else:
+            t0 = time.perf_counter()
+            one_step()
+            seconds.append(time.perf_counter() - t0)
+        state, m = box["state"], box["m"]
+        losses.append(box["loss"])
+        emit(phase="training", step="full_step", index=i + 1, smi=smi,
+             seconds=seconds[-1], loss=losses[-1],
+             grad_norm=float(m["grad_norm"]), lr=float(m["lr"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    median = statistics.median(seconds[1:])
+    total = sum(flops.values())
+    if profile is not None:
+        rows = profile.pop("rows")
+        fp32 = sum(ms for name, _, ms in rows if _fp32_gemm(name))
+        profile["fp32_gemm_ms"] = fp32
+        profile["fp32_gemm_share"] = fp32 / profile["device_busy_ms"]
+        profile["fp32_gemm_kernels"] = sorted(
+            {name[:80] for name, _, _ in rows if _fp32_gemm(name)})
+    emit(phase="training", step="full", model=cfg.name, smi=smi,
+         step_seconds=seconds, median_s_steps_2_on=median,
+         tokens_per_s=batch * seq / median, peak_gib=peak,
+         peak_gib_predicted=predicted, model_tflops=total / median / 1e12,
+         bf16_peak_tflops=BF16_FLOPS / 1e12,
+         model_tflops_without_remat=(total - flops["remat"]) / median / 1e12,
+         first_loss=losses[0], last_loss=losses[-1], losses=losses,
+         launches=counts, profile=profile)
+    require(all(math.isfinite(x) for x in losses), f"training losses {losses}")
+    require(max(losses) < losses[0] + 1.0,
+            f"training loss rose past the first + 1.0: {losses}")
+    require(not any(counts.values()),
+            f"the training path launched a kernel of the port: {counts}")
+    require(peak < 80.0, f"training peak {peak} GiB")
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_loop(tcfg, smi):
+    """17 (c): train_lm's size through FaultTolerantLoop on the card with
+    injected failures: the restarts, data_step, finite losses, each save's
+    bytes and seconds, and the final checkpoint restored bit for bit."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data import DataConfig, SyntheticTokenSource
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import (FaultTolerantLoop, LoopConfig,
+                                     make_failure_injector)
+    from repro_torch.runtime import fault_tolerance
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train_lm import size_config
+    cfg = size_config(tcfg["loop_size"])
+    steps = tcfg["loop_steps"]
+    tc = TrainConfig(peak_lr=1e-3, warmup=max(10, steps // 20),
+                     total_steps=steps)  # train_lm's
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    state = init_train_state(gen, cfg, tc, device="cuda")
+    src = SyntheticTokenSource(cfg, DataConfig(
+        seed=171, global_batch=tcfg["loop_batch"], seq_len=tcfg["loop_seq"]),
+        device="cuda")
+    saves, restores = [], []
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed_save(ckpt_dir, step, st, **kw):
+        t0 = time.perf_counter()
+        fut = save(ckpt_dir, step, st, **kw)
+        snap = time.perf_counter() - t0
+
+        def done(f):
+            path = f.result()
+            saves.append(dict(step=step, snapshot_s=snap,
+                              seconds=time.perf_counter() - t0,
+                              bytes=sum(os.path.getsize(os.path.join(path, x))
+                                        for x in os.listdir(path))))
+        fut.add_done_callback(done)
+        return fut
+
+    def timed_restore(*args, **kw):
+        t0 = time.perf_counter()
+        out = restore(*args, **kw)
+        torch.cuda.synchronize()
+        restores.append(dict(step=args[1], seconds=time.perf_counter() - t0))
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        fault_tolerance.ckpt.save = timed_save
+        fault_tolerance.ckpt.restore = timed_restore
+        try:
+            loop = FaultTolerantLoop(
+                LoopConfig(ckpt_dir=d, ckpt_every=tcfg["ckpt_every"],
+                           max_steps=steps), make_train_step(cfg, tc), src,
+                state, failure_injector=make_failure_injector(tcfg["fail_at"]))
+            t0 = time.perf_counter()
+            final = loop.run()
+            run_s = time.perf_counter() - t0
+        finally:
+            fault_tolerance.ckpt.save = save
+            fault_tolerance.ckpt.restore = restore
+        last = ckpt.latest_step(d)
+        back = ckpt.restore(d, last, final)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(final), tree_leaves(back)))
+    losses = [m["loss"] for m in loop.metrics_log]
+    emit(phase="training", step="loop", model=cfg.name, smi=smi,
+         params=train_param_count(cfg), batch=tcfg["loop_batch"],
+         seq=tcfg["loop_seq"], steps=steps, fail_at=list(tcfg["fail_at"]),
+         restarts=loop.restarts, data_step=int(final["data_step"]),
+         steps_run=[m["step"] for m in loop.metrics_log], seconds=run_s,
+         step_median_s=statistics.median(m["time"] for m in loop.metrics_log),
+         saves=sorted(saves, key=lambda s: s["step"]), restores=restores,
+         last_checkpoint=last, restored_same_bits=same,
+         first_loss=losses[0], last_loss=losses[-1])
+    require(loop.restarts == len(tcfg["fail_at"]), f"restarts {loop.restarts}")
+    require(int(final["data_step"]) == steps and last == steps,
+            f"data_step {int(final['data_step'])}, last checkpoint {last}")
+    require(all(math.isfinite(x) for x in losses), f"loop losses {losses}")
+    require(same, "the restored checkpoint differs from the saved state")
+
+
+def training(tcfg, smi, results):
+    """Phase 17: LM training on the card (see the module docstring), its
+    sub-steps timed into one line."""
+    import torch
+    secs = {}
+    t_all = time.perf_counter()
+    for name, fn in (("17a card vs CPU", train_vs_cpu),
+                     ("17b full width", train_full), ("17c loop", train_loop)):
+        t0 = time.perf_counter()
+        fn(tcfg, smi)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    for r in results.values():
+        r["launches_training"] = 0  # train_full requires no launch
+    total = time.perf_counter() - t_all
+    emit(phase="training", step="seconds", smi=smi, total=total, **secs)
+    require(total <= tcfg["limit_s"], f"phase 17 took {total} s, over its "
+            f"{tcfg['limit_s']} s")
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -5235,6 +5602,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("16 analysis", analysis, ANALYSIS_QUICK if args.quick else ANALYSIS,
           results)
+    torch.cuda.empty_cache()
+    timed("17 training", training, TRAIN_QUICK if args.quick else TRAIN, smi,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -5244,7 +5614,8 @@ def main(argv=None):
         {k: r[k] for k in keys + ("launches_fidelity", "launches_paper",
                                   "launches_accuracy", "launches_sched",
                                   "launches_tiles", "launches_distributed",
-                                  "launches_obs", "launches_analysis")
+                                  "launches_obs", "launches_analysis",
+                                  "launches_training")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 from . import llama3_2_1b
 from .geostat import GEOSTAT_CONFIGS, GeostatConfig
+from .shapes import SHAPES, ShapeSpec, cell_applicable
 
 # the model zoo's architectures ported so far; the others come with their
 # families (ROADMAP A)
@@ -8,4 +9,4 @@ LM_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 LM_SMOKE_CONFIGS = {m.CONFIG.name: m.SMOKE for m in _MODULES}
 
 __all__ = ["GEOSTAT_CONFIGS", "GeostatConfig", "LM_CONFIGS",
-           "LM_SMOKE_CONFIGS"]
+           "LM_SMOKE_CONFIGS", "SHAPES", "ShapeSpec", "cell_applicable"]

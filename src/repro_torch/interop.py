@@ -3,8 +3,9 @@ port.
 
 The geostatistics path has no weights; a dataset (locations, observations,
 generating theta) and a precision policy take their place.  The LM path
-takes the reference's `init_lm` param tree.  Everything crosses as numpy
-arrays and dtype names, so nothing here needs JAX.
+takes the reference's `init_lm` param tree, and LM training its whole
+train state.  Everything crosses as numpy arrays and dtype names, so
+nothing here needs JAX.
 """
 
 from __future__ import annotations
@@ -79,6 +80,23 @@ def lm_params_from_numpy(tree, *, device="cuda", dtype=torch.float32):
                 for k, v in tree.items()}
     return torch.tensor(np.asarray(tree, np.float32), dtype=dtype,
                         device=device)
+
+
+def train_state_from_numpy(tree, *, device="cuda"):
+    """The reference's train state (params, opt's m, v and step, data_step
+    and residual: nested dicts of numpy-convertible arrays, e.g.
+    `jax.tree.map(np.asarray, state)`) as the port's: the same keys, shapes
+    and dtypes, on `device`.  A bf16 leaf (`ml_dtypes.bfloat16`, which
+    torch.from_numpy rejects) goes through float32, which holds it
+    exactly."""
+    if isinstance(tree, dict):
+        return {k: train_state_from_numpy(v, device=device)
+                for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.tensor(a.astype(np.float32), device=device)
+        return t.to(torch.bfloat16)  # repro: disable=no-implicit-downcast -- a bf16 leaf's own values: exact
+    return torch.tensor(a, device=device)
 
 
 def problem_from_numpy(name: str, n: int, nb: int, regime: str, theta, locs,

@@ -2,7 +2,7 @@
 
 The port of `repro.models.layers` for the dense attention models: RMSNorm,
 rotary embeddings, GQA attention (with the query-chunked path for long
-sequences) and the SwiGLU MLP.  MoE waits for its family (ROADMAP A11).
+sequences) and the SwiGLU MLP.  MoE waits for its family (ROADMAP A 9).
 
 Init functions take an explicit `torch.Generator` and draw fp32 params with
 the reference's shapes and scales (not its random bits); `stack` prepends
@@ -115,10 +115,13 @@ def attention(p, x, cfg, *, positions):
     swa = cfg.swa_window
 
     def block(q_blk, q_offset):
-        # fp32 scores from exact fp32 copies of the operands; scaled and
-        # masked in place, since at the chunk size this buffer is GiBs
-        scores = torch.einsum("bskgh,btkh->bkgst", q_blk.float(), k32)
-        scores.div_(math.sqrt(hd))
+        # fp32 scores from exact fp32 copies of the operands, scaled into a
+        # tensor of their own and masked in place, since at the chunk size
+        # this buffer is GiBs (einsum returns a view: an in-place op on it
+        # would make autograd clone the whole buffer's gradient in the
+        # backward, twice)
+        scores = torch.einsum("bskgh,btkh->bkgst", q_blk.float(), k32) \
+            / math.sqrt(hd)
         mask = _attn_mask(q_blk.shape[1], sq, swa=swa, q_offset=q_offset,
                           device=x.device)
         scores.masked_fill_(~mask, NEG_INF)

@@ -1,26 +1,29 @@
-"""Full-model init + forward of the decoder-only LM (inference).
+"""Full-model init, forward and loss of the decoder-only LM.
 
 The port of `repro.models.transformer` for the dense attention family:
 layers are grouped into cycles (`cfg.block_pattern`) and the per-cycle
 params are stacked on a leading "cycles" axis, the reference's tree, so
 its weights carry across unchanged (`interop.lm_params_from_numpy`).
-The forward pass loops over that axis where the reference scans.
+The forward pass loops over that axis where the reference scans, and
+under autograd `cfg.remat` checkpoints it one cycle at a time (nested
+over groups of `cfg.remat_group` cycles) as the reference's
+`jax.checkpoint` does.
 
-Not ported yet (ROADMAP A11): the mamba / mLSTM / sLSTM mixers, MoE FFNs,
-the whisper encoder and cross-attention, the vision stub, remat and
-`lm_loss`.
+Not ported yet (ROADMAP A 9): the mamba / mLSTM / sLSTM mixers, MoE FFNs,
+the whisper encoder and cross-attention and the vision stub.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (_init, attention, attention_init, mlp, mlp_init, rmsnorm,
                      rmsnorm_init)
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP A11")
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP A 9")
 
 
 def _check_supported(cfg) -> None:
@@ -93,17 +96,67 @@ def unembed_logits(params, x, cfg):
     return (x @ unembed).float()
 
 
+def _checkpointed(fn):
+    """fn under activation checkpointing: its intermediates are recomputed
+    in the backward instead of saved (the reference's jax.checkpoint)."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
     """tokens: (B, S) integer -> (logits (B, S, vocab) fp32, aux loss); the
-    aux loss is 0 without MoE layers."""
+    aux loss is 0 without MoE layers.
+
+    With `cfg.remat` and autograd recording, each cycle is checkpointed;
+    when `cfg.remat_group` > 1 divides the cycle count, groups of that many
+    cycles are checkpointed too, around their checkpointed cycles (the
+    reference's two-level form: the backward holds one group's carries and
+    one cycle's intermediates at a time).  Without autograd (serving,
+    `torch.no_grad()`) remat changes nothing."""
     _check_supported(cfg)
     b, s = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for c in range(cfg.n_cycles):
+
+    def cycle_fn(x, c):
         cyc = cycle_slice(params["cycles"], c)
         for i in range(len(cfg.block_pattern)):
             x = _apply_block(cyc[f"b{i}"], x, cfg, positions=positions)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    group = cfg.remat_group if remat else 1
+    inner = _checkpointed(cycle_fn) if remat else cycle_fn
+    if group > 1 and cfg.n_cycles % group == 0:
+        def outer_fn(x, g):
+            for c in range(g * group, (g + 1) * group):
+                x = inner(x, c)
+            return x
+        outer = _checkpointed(outer_fn)
+        for g in range(cfg.n_cycles // group):
+            x = outer(x, g)
+    else:
+        for c in range(cfg.n_cycles):
+            x = inner(x, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed_logits(params, x, cfg), aux
+
+
+def lm_loss(params, batch, cfg, *, compute_dtype=torch.bfloat16):
+    """Next-token cross-entropy + MoE aux: (loss, {"ce", "aux"}).
+
+    batch: {"tokens", "labels"} (B, S) integer; labels below 0 are masked
+    and the mean runs over the unmasked tokens.  The label's log-probability
+    is gathered where the reference contracts with a one-hot: the
+    contraction has one non-zero term, so the value is the same, without a
+    second (B, S, vocab) buffer."""
+    logits, aux = forward_lm(params, batch["tokens"], cfg,
+                             compute_dtype=compute_dtype)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits, dim=-1)
+    del logits  # log_softmax keeps its output, not its input
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + aux, {"ce": loss, "aux": aux}

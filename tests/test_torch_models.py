@@ -215,9 +215,9 @@ def test_unported_families_raise():
     gen = torch.Generator()
     for cfg in (SMOKE.scaled(block_pattern=("attn", "mamba")),
                 SMOKE.scaled(enc_dec=True, n_enc_layers=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
             init_lm(gen, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
             init_cache(cfg, 1, 8, device="cpu")
 
 

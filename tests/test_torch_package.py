@@ -106,6 +106,19 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((RuntimeError, AssertionError)):
         analysis_cli.main(["--check", "--concurrency"])
     assert analysis_cli.main(["--lint-only", "--device", "cpu"]) == 0
+    # LM training: the state, the data source and both entry points
+    from repro_torch.data import DataConfig, SyntheticTokenSource
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch import train_lm
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_train_state(torch.Generator(), SMOKE, TrainConfig())
+    with pytest.raises((RuntimeError, AssertionError)):
+        SyntheticTokenSource(SMOKE, DataConfig()).batch_at(0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        launch_train.main(["--arch", "llama3.2-1b", "--steps", "1"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        train_lm.main(["--steps", "1"])
 
 
 def test_generate_computes_on_the_device_of_its_inputs():
