@@ -5,7 +5,8 @@
     python3 chip_smoke.py --quick    # small shapes: build and check only
                                      # (phase 9: evaluations and kernels;
                                      # phase 11 (b) at n = 4,096 and 8,192;
-                                     # phase 17 (b) at train_lm's 20m size)
+                                     # phase 17 (b) at train_lm's 20m size;
+                                     # phase 18 (b) at 4 layers, 2 x 1,024)
     python3 chip_smoke.py --e2e-ab DIR  # only phases 4, 8.1, 9.1 and 10.1's
                                      # evaluations, the checkout at DIR and
                                      # this one in turns (DIR, this, this, DIR)
@@ -246,6 +247,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      failures injected at steps 7 and 13: 2 restarts, data_step 20, finite
      losses, each save's bytes and seconds, the last checkpoint restored
      bit for bit; the phase's seconds (at most 90);
+ 18. MoE serving (models.layers.moe through forward_lm, prefill and
+     decode_step): (a) qwen3-moe-30b-a3b's and grok-1-314b's SMOKE in fp32
+     compute on the card and on the CPU from one set of weights:
+     forward_lm, prefill and 4 decode steps within phase 5's 1e-4 of max
+     |logit|, the same greedy ids, the same kept (token, expert, slot)
+     assignments in every layer, the aux within MOE_AUX_TOL, one train step
+     with 2 microbatches within TRAIN_CPU_TOL; (b) qwen3-moe-30b-a3b at full
+     width with its depth cut 48 -> 16 layers (random weights from a seed,
+     bf16 compute, fp32 params) at phase 7's traffic through
+     serve_lm.generate (the batch halved while moe_serve_peak_bytes
+     predicts more than 70 GiB): prefill seconds, ms per decode step, the
+     peak beside its prediction, each layer's share of prefill assignments
+     dropped at capacity, a decode step and a prefill under the profiler,
+     a second prefill the same bits, then every layer's served cache
+     through mp_attention (exactly 2 launches a layer, no other kernel of
+     the port) against its plain version and exact attention; the phase's
+     seconds (at most 90);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -411,6 +429,20 @@ TRAIN_QUICK = dict(TRAIN, size="20m")
 # compressed step, 1.1e-2), a few times over: the card sums in other orders
 TRAIN_CPU_TOL = dict(loss=1e-5, lr=1e-6, grad_norm=1e-4, update=2e-3, m=3e-2,
                      v=3e-2)
+# phase 18: (b) qwen3-moe-30b-a3b at full width with its depth cut 48 -> 16
+# (the fp32 params of all 48 layers are 122 GB; 16 are 42.4 GB) at phase
+# 7's traffic and banded attention, the peak the prediction may reach
+# before the batch is halved; (a) the SMOKE configs, their prompt and
+# decode steps; the phase's time limit in seconds.  --quick: 4 layers at
+# phase 7's --quick traffic
+MOE = dict(arch="qwen3-moe-30b-a3b", layers=16, batch=4, prompt=8_192, new=64,
+           near=1_024, blk=128, peak_gib=70.0,
+           smoke=("qwen3-moe-30b-a3b", "grok-1-314b"), smoke_prompt=(2, 24),
+           smoke_steps=4, limit_s=90.0)
+MOE_QUICK = dict(MOE, layers=4, batch=2, prompt=1_024, new=8, near=256)
+# 18 (a): the aux loss, card against CPU, relative: an fp32 mean of fp32
+# softmax outputs and integer counts, summed in other orders
+MOE_AUX_TOL = 1e-6
 # CUDA events resolve to about half a microsecond: the happens-before
 # check's slack on device times, in microseconds
 HB_ATOL_US = 1.0
@@ -5032,17 +5064,27 @@ def analysis(acfg, results):
 # phase 17: LM training (repro_torch.train, .runtime, .checkpoint, .data)
 # ---------------------------------------------------------------------------
 
-def _layer_param_count(cfg) -> int:
-    """One attention block's params (norms, q/k/v/o, the SwiGLU MLP)."""
+def _layer_param_count(cfg, idx_in_pattern: int = 0) -> int:
+    """One attention block's params: the pre-norms, q/k/v/o (and the
+    qk-norm scales), and the SwiGLU MLP or, on an MoE layer, the router and
+    the experts' three weights."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    return 2 * d + 2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
+    n = d + 2 * d * h * hd + 2 * d * kv * hd + (2 * hd if cfg.qk_norm else 0)
+    if cfg.layer_is_moe(idx_in_pattern):
+        e, fe = cfg.moe.n_experts, cfg.moe.d_expert
+        return n + d + d * e + 3 * e * d * fe
+    return n + (d + 3 * d * cfg.d_ff if cfg.d_ff > 0 else 0)
 
 
 def train_param_count(cfg) -> int:
-    """init_lm's parameter count of a dense attention model: the embedding
-    (and the unembedding unless tied), the layers, the final norm."""
+    """init_lm's parameter count of an attention model, dense or MoE: the
+    embedding (and the unembedding unless tied), the layers, the final
+    norm."""
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    return embed + cfg.n_layers * _layer_param_count(cfg) + cfg.d_model
+    pattern = len(cfg.block_pattern)
+    layers = sum(_layer_param_count(cfg, i % pattern)
+                 for i in range(cfg.n_layers))
+    return embed + layers + cfg.d_model
 
 
 def train_peak_bytes(cfg, micro: int, seq: int) -> int:
@@ -5355,6 +5397,374 @@ def training(tcfg, smi, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: MoE serving (models.layers.moe through prefill and decode_step)
+# ---------------------------------------------------------------------------
+
+def moe_serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
+    """Predicted peak device bytes of `serve_lm.generate` on an attention
+    model with MoE FFNs (bf16 compute, fp32 params), by term:
+      params    4 N;
+      cache     the prompt's bf16 K/V cache (prefill fills it layer by
+                layer, allocated at the first) and its grown copy (both
+                held while `_grow_cache` runs);
+      scores    the fp32 scores of one query chunk (all of S x S below
+                `_QCHUNK_THRESHOLD`), two at once: the product beside its
+                scaled copy, then the softmax beside its input;
+      attention q, k, v, rope'd k, k in fp32, a chunk's fp32 queries, the
+                chunks' outputs and their concatenation;
+      dispatch  the MoE layer: the tokens with their zero row, the gathered
+                slots (G E C, d) and their copy for the batched product, three
+                (G E C, fe) expert activations, the outputs and their padded
+                copy, one expert weight cast to bf16, the routing's fp32
+                logits, softmax and sorted values with int64 indices;
+      residual  three (B, S, d) activations (x, its norm, a block's output).
+    `total` = params + the larger of prefill's moment (prompt cache,
+    residual and the larger of scores + attention or dispatch) and the
+    grow's (both caches)."""
+    from repro_torch.models import layers
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    spec = cfg.moe
+    e, k, fe = spec.n_experts, spec.top_k, spec.d_expert
+    t = batch * prompt
+    g = layers._moe_group_count(t, e)
+    c = max(4, int(spec.capacity_factor * (t // g) * k / e))
+    slots = g * e * c
+    kv_row = cfg.n_layers * 2 * batch * kv * hd * 2
+    chunked = (prompt >= layers._QCHUNK_THRESHOLD
+               and prompt % layers._QCHUNK == 0)
+    qc = layers._QCHUNK if chunked else prompt
+    out = {"params": 4 * train_param_count(cfg),
+           "cache": kv_row * prompt, "cache_grown": kv_row * (prompt + new),
+           "scores": 2 * batch * h * qc * prompt * 4,
+           "attention": (3 * t * h * hd * 2 + 3 * t * kv * hd * 2
+                         + t * kv * hd * 4 + batch * qc * h * hd * 4),
+           "dispatch": ((t + g) * d * 2 + 2 * slots * d * 2 + 3 * slots * fe * 2
+                        + (2 * slots + g) * d * 2 + e * d * fe * 2
+                        + t * e * (3 * 4 + 8)),
+           "residual": 3 * t * d * 2}
+    prefill = out["cache"] + out["residual"] + max(
+        out["scores"] + out["attention"], out["dispatch"])
+    out["total"] = out["params"] + max(prefill, out["cache"] + out["cache_grown"])
+    out.update(groups=g, capacity=c)
+    return out
+
+
+def moe_drop_share(counts, capacity: int) -> float:
+    """A layer's share of assignments dropped at capacity: over every group
+    and expert, the assignments past the first `capacity`, over all T k of
+    them.  counts: (G, E) assignments per expert before the drop."""
+    return float((counts - capacity).clamp(min=0).sum() / counts.sum())
+
+
+@contextlib.contextmanager
+def moe_routing():
+    """Within: each call of the port's `moe` from forward_lm, prefill or
+    decode_step appends its routing (`layers.moe_route`: the top-k experts,
+    each assignment's slot or the trash, the counts before the drop, the
+    capacity) to the list it yields.  The routing is computed again beside
+    the call, which itself is unchanged."""
+    import torch
+    from repro_torch.models import layers, transformer
+    log, orig = [], layers.moe
+
+    def recorded(p, x, spec):
+        with torch.no_grad():
+            r = layers.moe_route(p, x, spec)
+        log.append({key: r[key] for key in ("expert", "slot", "counts",
+                                            "capacity")})
+        return orig(p, x, spec)
+    transformer.moe = recorded  # every FFN goes through transformer._ffn
+    try:
+        yield log
+    finally:
+        transformer.moe = orig
+
+
+def _same_routing(a, b) -> bool:
+    """Two routing logs (moe_routing) with the same kept assignments: the
+    same experts and slots in every layer (on any devices)."""
+    import torch
+    return len(a) == len(b) and all(
+        x["capacity"] == y["capacity"]
+        and torch.equal(x["expert"].cpu(), y["expert"].cpu())
+        and torch.equal(x["slot"].cpu(), y["slot"].cpu()) for x, y in zip(a, b))
+
+
+def moe_smoke_vs_cpu(mcfg, smi):
+    """18 (a): each MoE SMOKE config in fp32 compute on the card and on the
+    CPU, one set of weights from a seed: forward_lm's and prefill's logits
+    within 1e-4 of max |logit|, the aux within MOE_AUX_TOL, the same kept
+    (token, expert, slot) assignments in every layer, then `steps` decode
+    steps, each run on both devices from a copy of the card's cache (each
+    device rounds its own cache rows to bf16, phase 5's reason) with the
+    card's greedy id: logits within 1e-4 and the same greedy ids; then one
+    train step with 2 microbatches within TRAIN_CPU_TOL."""
+    import torch
+    from repro_torch.configs import LM_SMOKE_CONFIGS
+    from repro_torch.data import DataConfig, SyntheticTokenSource
+    from repro_torch.models import decode_step, forward_lm, init_lm, layers, prefill
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serve_lm import _grow_cache
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    kw = dict(compute_dtype=torch.float32)
+    for name in mcfg["smoke"]:
+        cfg = LM_SMOKE_CONFIGS[name]
+        gen = torch.Generator().manual_seed(18)
+        params = {"cpu": init_lm(gen, cfg, device="cpu")}
+        params["cuda"] = _to_device(params["cpu"], "cuda")
+        prompt = torch.randint(0, cfg.vocab, mcfg["smoke_prompt"], generator=gen)
+        out, routing, caches = {}, {}, {}
+        for dev, p in params.items():
+            tp = prompt.to(dev)
+            with moe_routing() as log:
+                logits, aux = forward_lm(p, tp, cfg, **kw)
+            routing[dev] = log
+            pre, caches[dev] = prefill(p, tp, cfg, **kw)
+            out[dev] = dict(forward=logits.cpu(), prefill=pre.cpu(),
+                            aux=float(aux))
+        rel = {}
+        for what in ("forward", "prefill"):
+            g, w = out["cuda"][what], out["cpu"][what]
+            require(bool(torch.isfinite(g).all()), f"{name} SMOKE {what}: not finite")
+            rel[what] = float((g - w).abs().max() / w.abs().max())
+        rel["aux"] = abs(out["cuda"]["aux"] - out["cpu"]["aux"]) / abs(out["cpu"]["aux"])
+        same_routing = _same_routing(routing["cuda"], routing["cpu"])
+        kept = [int((r["slot"] < cfg.moe.n_experts * r["capacity"]).sum())
+                for r in routing["cuda"]]
+        # exact ties on both devices: integer-valued tokens and a router in
+        # quarters with experts 1 and 2 copies of expert 0 give equal logits
+        # in any summation order; each device must keep the lower expert
+        # first, as lax.top_k does
+        tie_x = torch.randint(-1, 2, (2, 24, cfg.d_model), generator=gen).float()
+        router = torch.randint(-1, 2, (cfg.d_model, cfg.moe.n_experts),
+                               generator=gen).float() / 4
+        router[:, 1] = router[:, 2] = router[:, 0]
+        ties = {dev: [layers.moe_route({"router": router.to(dev)},
+                                       tie_x.to(dev), cfg.moe)]
+                for dev in ("cpu", "cuda")}
+        chosen = ties["cpu"][0]["expert"]
+        straddled = int((((chosen == 0) | (chosen == 1)).sum(-1) == 2)
+                        .logical_and(~(chosen == 2).any(-1)).sum())
+        same_ties = _same_routing(ties["cuda"], ties["cpu"])
+
+        steps = mcfg["smoke_steps"]
+        cache = _grow_cache(caches["cuda"], steps, kv_quant=False)
+        tok = torch.argmax(out["cuda"]["prefill"][:, -1], dim=-1)[:, None]
+        step_rel, same_ids, ids = 0.0, True, []
+        for i in range(steps):
+            pos = prompt.shape[1] + i
+            cpu_cache = _to_device(cache, "cpu")  # a copy: the step writes it
+            lc, cache = decode_step(params["cuda"], cache, tok.cuda(), pos, cfg, **kw)
+            lp, _ = decode_step(params["cpu"], cpu_cache, tok, pos, cfg, **kw)
+            lc = lc.cpu()
+            require(bool(torch.isfinite(lc).all()), f"{name} SMOKE step: not finite")
+            step_rel = max(step_rel, float((lc - lp).abs().max() / lp.abs().max()))
+            tok = torch.argmax(lc[:, 0], dim=-1)[:, None]
+            same_ids &= bool((tok == torch.argmax(lp[:, 0], dim=-1)[:, None]).all())
+            ids.append(tok[:, 0].tolist())
+        rel["decode"] = step_rel
+
+        tc = TrainConfig(peak_lr=1e-2, warmup=1, total_steps=10, microbatches=2,
+                         compute_dtype="float32")
+        src = SyntheticTokenSource(cfg, DataConfig(seed=18, global_batch=4,
+                                                   seq_len=32), device="cpu")
+        init = init_train_state(torch.Generator().manual_seed(18), cfg, tc,
+                                device="cpu")
+        step_fn = make_train_step(cfg, tc)
+        trained = {dev: step_fn(_to_device(init, dev), _to_device(src.batch_at(0), dev))
+                   for dev in ("cpu", "cuda")}
+        (s_cpu, m_cpu), (s_card, m_card) = trained["cpu"], trained["cuda"]
+        train_rel = {key: abs(float(m_card[key]) - float(m_cpu[key])) / abs(float(m_cpu[key]))
+                     for key in ("loss", "grad_norm", "lr")}
+        train_rel["update"] = _update_rel(tree_leaves(s_card["params"]),
+                                          tree_leaves(s_cpu["params"]),
+                                          tree_leaves(init["params"]))
+        for key in ("m", "v"):
+            train_rel[key] = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                                 for a, b in zip(tree_leaves(s_card["opt"][key]),
+                                                 tree_leaves(s_cpu["opt"][key])))
+        emit(phase="moe_serving", step="card_vs_cpu", model=name + " SMOKE",
+             smi=smi, compute="float32", prompt=list(prompt.shape),
+             decode_steps=steps, rel=rel, tol=1e-4, aux_tol=MOE_AUX_TOL,
+             aux_card=out["cuda"]["aux"], aux_cpu=out["cpu"]["aux"],
+             same_routing=same_routing, kept_per_layer=kept,
+             same_ties=same_ties, ties_straddling_top_k=straddled,
+             assignments_per_layer=prompt.numel() * cfg.moe.top_k,
+             same_ids=same_ids, ids_card=ids, train_rel=train_rel,
+             train_tol=TRAIN_CPU_TOL)
+        for what in ("forward", "prefill", "decode"):
+            require(rel[what] <= 1e-4, f"{name} SMOKE {what}: card vs CPU {rel[what]}")
+        require(rel["aux"] <= MOE_AUX_TOL, f"{name} SMOKE aux: card vs CPU {rel['aux']}")
+        require(same_routing, f"{name} SMOKE: the kept assignments differ")
+        require(same_ties and straddled > 0,
+                f"{name}: tied experts chosen differently ({straddled} ties "
+                f"straddle the top k)")
+        require(same_ids, f"{name} SMOKE: greedy ids differ between the card and the CPU")
+        for key, tol in TRAIN_CPU_TOL.items():
+            require(train_rel[key] <= tol,
+                    f"{name} SMOKE train step card vs CPU: {key} {train_rel[key]} > {tol}")
+
+
+def moe_full(mcfg, smi, results):
+    """18 (b): qwen3-moe-30b-a3b at full width, depth cut (random weights
+    from a seed, bf16 compute, fp32 params) through serve_lm.generate at
+    phase 7's traffic, then every layer's served cache through the
+    banded-precision attention: the predicted peak (the batch halved past
+    peak_gib) beside the measured one, prefill seconds, ms per decode step,
+    each layer's share of prefill assignments dropped at capacity, a
+    decode step and a prefill under the profiler, a second prefill the same
+    bits as the first, exactly 2 mp_attention launches a layer and no other
+    kernel of the port, the kernel against its plain version and exact
+    attention."""
+    import torch
+    from repro_torch.configs import LM_CONFIGS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_lm, prefill
+    from repro_torch.serve_lm import banded_kv_attention, fold_banded, generate
+    cfg = LM_CONFIGS[mcfg["arch"]].scaled(n_layers=mcfg["layers"])
+    b, s, n_new = mcfg["batch"], mcfg["prompt"], mcfg["new"]
+    near, blk = mcfg["near"], mcfg["blk"]
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    pred = moe_serve_peak_bytes(cfg, b, s, n_new)
+    while b > 1 and (pred["total"] + held) / 2**30 > mcfg["peak_gib"]:
+        b //= 2
+        pred = moe_serve_peak_bytes(cfg, b, s, n_new)
+    predicted = (pred["total"] + held) / 2**30
+    emit(phase="moe_serving", step="predicted", model=cfg.name, smi=smi,
+         layers=cfg.n_layers, layers_of=LM_CONFIGS[mcfg["arch"]].n_layers,
+         d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+         d_expert=cfg.moe.d_expert, vocab=cfg.vocab,
+         params=train_param_count(cfg), batch=b, prompt=s, new_tokens=n_new,
+         peak_gib_predicted=predicted, held_gib=held / 2**30,
+         terms_gib={key: v / 2**30 for key, v in pred.items()
+                    if key not in ("groups", "capacity")},
+         prefill_groups=pred["groups"], prefill_capacity=pred["capacity"])
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    t0 = time.perf_counter()
+    params = init_lm(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    q = torch.randn((b * kv, g, hd), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    length = s + n_new - 1  # the last generated id is never written
+
+    # the main path, counted: generate, then every layer's banded attention
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = {}
+    ids, cache = generate(params, cfg, prompt, n_new, stats=stats)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layer_k, layer_v = cache["b0"]["k"], cache["b0"]["v"]
+    banded = [banded_kv_attention(layer_k[c], layer_v[c], q, length,
+                                  near=near, blk=blk)
+              for c in range(cfg.n_cycles)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
+                "mp_syrk": 0, "mp_syrk_grad": 0,
+                "mp_attention": 2 * cfg.n_cycles}
+    require(counts == expected, f"MoE serving launches {counts}, expected {expected}")
+    require(tuple(ids.shape) == (b, n_new) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab, f"generated ids {tuple(ids.shape)}")
+    require(tuple(layer_k.shape) == (cfg.n_cycles, b, s + n_new, kv, hd)
+            and bool(torch.isfinite(layer_k[:, :, :length]).all())
+            and bool(torch.isfinite(layer_v[:, :, :length]).all()),
+            "MoE served cache: wrong shape or not finite")
+
+    # each layer's banded attention: the kernel against its plain version
+    # (partials and merged, _attn_errors) and the main path's output
+    # against exact attention
+    kw = dict(blk=blk, sm_scale=hd ** -0.5)
+    vs_plain = vs_oracle = vs_exact = partials_rel = 0.0
+    for c, (out, exact) in enumerate(banded):
+        segs, _ = fold_banded(layer_k[c], layer_v[c], length, near=near, blk=blk)
+        err = _attn_errors(q, segs, **kw)
+        require(bool(torch.isfinite(out).all()), f"MoE layer {c}: banded not finite")
+        vs_plain = max(vs_plain, err["vs_plain"],
+                       float((out - err["plain"]).abs().max()))
+        vs_oracle = max(vs_oracle, err["vs_oracle"])
+        partials_rel = max(partials_rel, err["partials_rel"])
+        vs_exact = max(vs_exact, float((out - exact).abs().max()))
+    del banded
+    require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
+            f"MoE served cache: kernel vs plain {vs_plain}, vs oracle {vs_oracle} "
+            f"> {ATTN_MAX_ABS}")
+    require(vs_exact < 0.05, f"MoE served cache: banded vs exact {vs_exact}")
+
+    # one more step fills the last slot: finite logits over the full vocab
+    logits, _ = decode_step(params, cache, ids[:, -1:], length, cfg)
+    require(tuple(logits.shape) == (b, 1, cfg.vocab)
+            and bool(torch.isfinite(logits).all()), "MoE decode logits not finite")
+    # where the time goes: one decode step (rewriting the last slot) and one
+    # prefill under the profiler, that prefill's logits kept
+    box, profiles = {}, {}
+    for what, fn in (
+            ("decode_step", lambda: decode_step(params, cache, ids[:, -1:],
+                                                length, cfg)),
+            ("prefill", lambda: box.update(logits=prefill(params, prompt, cfg)[0]))):
+        wall_ms, busy, rows = device_profile(fn)
+        profiles[what] = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                              idle_share=1 - busy / wall_ms,
+                              kernels=sum(c for _, c, _ in rows),
+                              top=[{"name": k_[:90], "count": c, "ms": ms}
+                                   for k_, c, ms in rows[:10]])
+        emit(phase="moe_serving", step="profile", what=what, smi=smi,
+             **profiles[what])
+    del cache, layer_k, layer_v
+    torch.cuda.empty_cache()
+    # a second prefill of the same prompt: the same bits (the combine has no
+    # atomic add), with each layer's routing recorded
+    with moe_routing() as log:
+        again, _ = prefill(params, prompt, cfg)
+    same_bits = torch.equal(again, box["logits"])
+    require(bool(torch.isfinite(again).all()), "MoE prefill logits not finite")
+    shares = [moe_drop_share(r["counts"], r["capacity"]) for r in log]
+    require(len(shares) == cfg.n_layers, f"routing of {len(shares)} layers")
+    emit(phase="moe_serving", step="full", model=cfg.name, smi=smi,
+         layers=cfg.n_layers, batch=b, prompt=s, new_tokens=n_new,
+         compute="bfloat16", init_seconds=init_s,
+         prefill_seconds=stats["prefill_s"],
+         decode_ms_per_step=1e3 * stats["decode_s"] / stats["decode_steps"],
+         peak_gib=peak, peak_gib_predicted=predicted,
+         dropped_share={"min": min(shares), "median": statistics.median(shares),
+                        "max": max(shares)},
+         dropped_share_per_layer=shares, prefill_capacity=log[0]["capacity"],
+         second_prefill_same_bits=same_bits, ids_sha256=_ids_checksum(ids),
+         ids_head=ids[0, :8].tolist(), launches=counts,
+         max_abs_kernel_vs_plain=vs_plain, max_abs_kernel_vs_oracle=vs_oracle,
+         bound=ATTN_MAX_ABS, partials_rel=partials_rel,
+         max_abs_banded_vs_exact=vs_exact, rows=b * kv, g=g, d=hd)
+    require(same_bits, "MoE prefill: a second prefill gave other bits")
+    require(peak < 80.0, f"MoE serving peak {peak} GiB")
+    del params, log
+    torch.cuda.empty_cache()
+    r = results["mp_attention"]
+    r["max_abs_err"] = max(r["max_abs_err"], vs_plain)
+    for key, row in results.items():
+        row["launches_moe"] = counts["mp_attention"] if key == "mp_attention" else 0
+
+
+def moe_serving(mcfg, smi, results):
+    """Phase 18: the MoE family on the card (see the module docstring), its
+    sub-steps timed into one line."""
+    import torch
+    secs = {}
+    t_all = time.perf_counter()
+    for name, fn in (("18a card vs CPU", lambda: moe_smoke_vs_cpu(mcfg, smi)),
+                     ("18b full width", lambda: moe_full(mcfg, smi, results))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    total = time.perf_counter() - t_all
+    emit(phase="moe_serving", step="seconds", smi=smi, total=total, **secs)
+    require(total <= mcfg["limit_s"], f"phase 18 took {total} s, over its "
+            f"{mcfg['limit_s']} s")
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -5605,6 +6015,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("17 training", training, TRAIN_QUICK if args.quick else TRAIN, smi,
           results)
+    torch.cuda.empty_cache()
+    timed("18 MoE serving", moe_serving, MOE_QUICK if args.quick else MOE, smi,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -5615,7 +6028,7 @@ def main(argv=None):
                                   "launches_accuracy", "launches_sched",
                                   "launches_tiles", "launches_distributed",
                                   "launches_obs", "launches_analysis",
-                                  "launches_training")
+                                  "launches_training", "launches_moe")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

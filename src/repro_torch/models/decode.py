@@ -1,6 +1,8 @@
 """Serving: cache construction, prefill, and single-token decode.
 
-The port of `repro.models.decode` for the attention blocks.  Cache layout,
+The port of `repro.models.decode` for the attention blocks, with a dense
+or an MoE FFN (whose aux loss serving drops, as the reference does).
+Cache layout,
 one entry per block slot of the cycle pattern, stacked over cycles as the
 reference's (so caches compare directly with it):
 
@@ -22,8 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import NEG_INF, attention, mlp, rmsnorm, rope
-from .transformer import _check_supported, cycle_slice, unembed_logits
+from .layers import NEG_INF, attention, rmsnorm, rope
+from .transformer import _check_supported, _ffn, cycle_slice, unembed_logits
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -114,9 +116,7 @@ def _decode_attn(p, x, cfg, cache, pos: int):
 def _decode_block(p, x, cfg, cache, pos: int):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + _decode_attn(p["inner"], h, cfg, cache, pos)
-    if "ffn" in p:
-        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x
+    return _ffn(p, x, cfg)[0]  # the MoE aux dropped, as the reference
 
 
 def decode_step(params, cache, tokens, pos: int, cfg, *,
@@ -189,7 +189,6 @@ def prefill(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
                     for name, t in entry.items()}
             for name, t in entry.items():
                 cache[f"b{i}"][name][c] = t
-            if "ffn" in p:
-                x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+            x = _ffn(p, x, cfg)[0]
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return unembed_logits(params, x, cfg), cache

@@ -1,8 +1,9 @@
 """Neural blocks of the model zoo: init + apply, plain functions on dicts.
 
-The port of `repro.models.layers` for the dense attention models: RMSNorm,
+The port of `repro.models.layers` for the attention models: RMSNorm,
 rotary embeddings, GQA attention (with the query-chunked path for long
-sequences) and the SwiGLU MLP.  MoE waits for its family (ROADMAP A 9).
+sequences), the SwiGLU MLP and the top-k MoE FFN with its grouped
+capacity dispatch and load-balance aux loss.
 
 Init functions take an explicit `torch.Generator` and draw fp32 params with
 the reference's shapes and scales (not its random bits); `stack` prepends
@@ -150,3 +151,130 @@ def mlp(p, x):
     dt = x.dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     return h @ p["w_down"].to(dt)
+
+
+# ------------------------------------------------------------------ moe
+
+def moe_init(gen, cfg, *, stack=(), device="cuda"):
+    """The router (d, E) and the experts' SwiGLU weights (E, d, fe) and
+    (E, fe, d), with the reference's scales: `_init`'s default of
+    1/sqrt(shape[0]) makes w_gate's and w_up's 1/sqrt(E)."""
+    d, spec = cfg.d_model, cfg.moe
+    e, fe = spec.n_experts, spec.d_expert
+    kw = dict(stack=stack, device=device)
+    return {"router": _init(gen, (d, e), **kw),
+            "w_gate": _init(gen, (e, d, fe), **kw),
+            "w_up": _init(gen, (e, d, fe), **kw),
+            "w_down": _init(gen, (e, fe, d), scale=1.0 / math.sqrt(fe), **kw)}
+
+
+_MOE_GROUPS = 32  # dispatch groups (GShard-style), as the reference's
+
+
+def _moe_group_count(t: int, e: int) -> int:
+    """Largest group count <= _MOE_GROUPS keeping >= 4*E tokens per group
+    (decode batches route globally; training splits into 32 groups)."""
+    g = _MOE_GROUPS
+    while g > 1 and (t // g) < 4 * e:
+        g //= 2
+    while t % g:
+        g //= 2
+    return max(g, 1)
+
+
+def moe_route(p, x, spec):
+    """The routing of `moe` for x (B, S, d): a dict of
+      groups, capacity   G and C (Python ints; T = B S tokens in G groups
+                         of Tg, each expert C slots a group);
+      probs              (G, Tg, E) fp32 softmax of the router logits;
+      expert, gate       (G, Tg, k) the top-k experts, lower index first on
+                         a tie (`lax.top_k`'s order), and their gates
+                         renormalised to sum to 1;
+      counts             (G, E) assignments per expert before the drop;
+      slot               (G, Tg, k) each assignment's slot e*C + position
+                         in its expert, or E*C (the trash) where it fell
+                         past the capacity: the first C assignments of an
+                         expert in token order are kept.
+    """
+    b, s, d = x.shape
+    t = b * s
+    e, k = spec.n_experts, spec.top_k
+    g_cnt = _moe_group_count(t, e)
+    tg = t // g_cnt
+    c = max(4, int(spec.capacity_factor * tg * k / e))
+    xf = x.reshape(g_cnt, tg, d)
+    logits = (xf @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort keeps the lower index first among equal
+    # probabilities, as lax.top_k does; torch.topk promises no order
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = vals[..., :k], idx[..., :k]
+    gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+
+    flat_e = expert.reshape(g_cnt, tg * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, -1, order)
+    counts = torch.zeros((g_cnt, e), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, -1) - counts
+    pos_in_e = (torch.arange(tg * k, device=x.device)[None]
+                - torch.gather(starts, -1, se))
+    sorted_slot = torch.where(pos_in_e < c, se * c + pos_in_e, e * c)
+    slot = torch.empty_like(sorted_slot).scatter_(1, order, sorted_slot)
+    return {"groups": g_cnt, "capacity": c, "probs": probs, "expert": expert,
+            "gate": gate, "counts": counts, "slot": slot.reshape(g_cnt, tg, k)}
+
+
+def moe(p, x, spec):
+    """Top-k token-choice MoE with the reference's grouped sort-based
+    capacity dispatch. x: (B, S, d) -> (y (B, S, d), aux loss fp32).
+
+    Tokens split into G groups (`_moe_group_count`), each expert holding C
+    slots a group (`moe_route`). The slot table's gather reads a zero row
+    for an empty slot; the expert products run over all E x C slots, each
+    weight cast to the activation dtype at its product. The combine sums
+    gate x expert output in fp32 over each token's kept slots in ascending
+    slot order (the order of the reference's scatter-add), gathered
+    through the table's inverse instead of scattered, so that no atomic
+    add makes the result differ between runs; then casts to x's dtype.
+    The aux loss is switch-style over all groups: E sum(frac_tokens x
+    frac_probs) x aux_loss_weight, frac_tokens from the counts before the
+    drop.  Autograd reaches the gates, the gather and the combine; a
+    dropped assignment gets no gradient and the counts carry none."""
+    b, s, d = x.shape
+    e, k = spec.n_experts, spec.top_k
+    r = moe_route(p, x, spec)
+    g_cnt, c, slot = r["groups"], r["capacity"], r["slot"]
+    tg = b * s // g_cnt
+    dt = x.dtype
+    dev = x.device
+    rows = torch.arange(g_cnt, device=dev)[:, None]
+
+    # the slot table: the token in each slot, tg (the zero row) where empty
+    table = torch.full((g_cnt, e * c + 1), tg, dtype=torch.int64, device=dev)
+    tok = torch.arange(tg, device=dev)[None, :, None].expand(g_cnt, tg, k)
+    table[rows, slot.reshape(g_cnt, -1)] = tok.reshape(g_cnt, -1)
+    table = table[:, :-1]
+    xz = torch.cat([x.reshape(g_cnt, tg, d),
+                    torch.zeros((g_cnt, 1, d), dtype=dt, device=dev)], dim=1)
+    xe = xz[rows, table].reshape(g_cnt, e, c, d)
+
+    h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt)))
+         * torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt)))
+    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    # the trash slot E*C reads a zero row
+    ye = torch.cat([ye.reshape(g_cnt, e * c, d),
+                    torch.zeros((g_cnt, 1, d), dtype=dt, device=dev)], dim=1)
+
+    # combine: each token's k slots in ascending order (the trash last)
+    slot_sorted, j = torch.sort(slot, dim=-1)
+    gate = torch.gather(r["gate"], -1, j)
+    y = ye[rows, slot_sorted[..., 0]].float() * gate[..., 0, None]
+    for i in range(1, k):
+        y = y + ye[rows, slot_sorted[..., i]].float() * gate[..., i, None]
+    y = y.reshape(b, s, d).to(dt)
+
+    frac_tokens = torch.sum(r["counts"], 0).float() / (b * s * k)
+    frac_probs = torch.mean(r["probs"], dim=(0, 1))
+    aux = e * torch.sum(frac_tokens * frac_probs) * spec.aux_loss_weight
+    return y, aux

@@ -1,16 +1,17 @@
 """Full-model init, forward and loss of the decoder-only LM.
 
-The port of `repro.models.transformer` for the dense attention family:
-layers are grouped into cycles (`cfg.block_pattern`) and the per-cycle
+The port of `repro.models.transformer` for the dense and MoE attention
+families: layers are grouped into cycles (`cfg.block_pattern`) and the per-cycle
 params are stacked on a leading "cycles" axis, the reference's tree, so
 its weights carry across unchanged (`interop.lm_params_from_numpy`).
 The forward pass loops over that axis where the reference scans, and
 under autograd `cfg.remat` checkpoints it one cycle at a time (nested
 over groups of `cfg.remat_group` cycles) as the reference's
-`jax.checkpoint` does.
+`jax.checkpoint` does.  MoE layers add their load-balance aux loss,
+summed over every layer inside the checkpointed cycle.
 
-Not ported yet (ROADMAP A 9): the mamba / mLSTM / sLSTM mixers, MoE FFNs,
-the whisper encoder and cross-attention and the vision stub.
+Not ported yet (ROADMAP A 9): the mamba / mLSTM / sLSTM mixers, the
+whisper encoder and cross-attention and the vision stub.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (_init, attention, attention_init, mlp, mlp_init, rmsnorm,
-                     rmsnorm_init)
+from .layers import (_init, attention, attention_init, mlp, mlp_init, moe,
+                     moe_init, rmsnorm, rmsnorm_init)
 
 
 def _not_ported(what: str):
@@ -34,8 +35,6 @@ def _check_supported(cfg) -> None:
     for i, bt in enumerate(cfg.block_pattern):
         if bt != "attn":
             raise _not_ported(f"the {bt} mixer")
-        if cfg.layer_is_moe(i):
-            raise _not_ported("the MoE FFN")
 
 
 def cycle_slice(tree, c: int):
@@ -47,26 +46,42 @@ def cycle_slice(tree, c: int):
 
 
 def _block_init(gen, cfg, idx_in_pattern: int, *, stack=(), device="cuda"):
-    """An attention block (the only kind ported: `_check_supported`)."""
+    """An attention block (the only mixer ported: `_check_supported`) with
+    the reference's FFN rule: an MoE FFN (`ffn_moe`) where
+    `cfg.layer_is_moe(idx_in_pattern)`, else the SwiGLU MLP where d_ff > 0,
+    else none."""
     kw = dict(stack=stack, device=device)
     p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
          "inner": attention_init(gen, cfg, **kw)}
-    if cfg.d_ff > 0:
+    is_moe = cfg.layer_is_moe(idx_in_pattern)
+    if is_moe or cfg.d_ff > 0:
         p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
-        p["ffn"] = mlp_init(gen, cfg, **kw)
+        if is_moe:
+            p["ffn_moe"] = moe_init(gen, cfg, **kw)
+        else:
+            p["ffn"] = mlp_init(gen, cfg, **kw)
     return p
 
 
+def _ffn(p, x, cfg):
+    """x plus the block's FFN of its pre-normed x: (x, aux), the aux loss of
+    an MoE FFN, None for the MLP or no FFN."""
+    if "ffn_moe" in p:
+        out, aux = moe(p["ffn_moe"], rmsnorm(p["norm2"], x, cfg.norm_eps),
+                       cfg.moe)
+        return x + out, aux
+    if "ffn" in p:
+        x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x, None
+
+
 def _apply_block(p, x, cfg, *, positions):
-    """One attention block: mixer + optional FFN, pre-norm residuals.  (The
-    reference also returns the MoE aux loss and the SSM state, neither of
-    which an attention block has.)"""
+    """One attention block: mixer + optional FFN, pre-norm residuals.
+    Returns (x, aux) as `_ffn`.  (The reference also returns the SSM state,
+    which an attention block has not.)"""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + attention(p["inner"], h, cfg, positions=positions)
-    if "ffn" in p:
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp(p["ffn"], h)
-    return x
+    return _ffn(p, x, cfg)
 
 
 # --------------------------------------------------------------- init
@@ -103,8 +118,8 @@ def _checkpointed(fn):
 
 
 def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
-    """tokens: (B, S) integer -> (logits (B, S, vocab) fp32, aux loss); the
-    aux loss is 0 without MoE layers.
+    """tokens: (B, S) integer -> (logits (B, S, vocab) fp32, aux loss): the
+    MoE layers' aux summed over the layers, 0 without MoE layers.
 
     With `cfg.remat` and autograd recording, each cycle is checkpointed;
     when `cfg.remat_group` > 1 divides the cycle count, groups of that many
@@ -117,28 +132,32 @@ def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
     x = params["embed"][tokens].to(compute_dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
 
-    def cycle_fn(x, c):
+    # the carry is (x, aux), as the reference scans it: each cycle adds its
+    # layers' aux inside the checkpointed function
+    def cycle_fn(x, aux, c):
         cyc = cycle_slice(params["cycles"], c)
         for i in range(len(cfg.block_pattern)):
-            x = _apply_block(cyc[f"b{i}"], x, cfg, positions=positions)
-        return x
+            x, aux_i = _apply_block(cyc[f"b{i}"], x, cfg, positions=positions)
+            if aux_i is not None:
+                aux = aux + aux_i
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     group = cfg.remat_group if remat else 1
     inner = _checkpointed(cycle_fn) if remat else cycle_fn
     if group > 1 and cfg.n_cycles % group == 0:
-        def outer_fn(x, g):
+        def outer_fn(x, aux, g):
             for c in range(g * group, (g + 1) * group):
-                x = inner(x, c)
-            return x
+                x, aux = inner(x, aux, c)
+            return x, aux
         outer = _checkpointed(outer_fn)
         for g in range(cfg.n_cycles // group):
-            x = outer(x, g)
+            x, aux = outer(x, aux, g)
     else:
         for c in range(cfg.n_cycles):
-            x = inner(x, c)
+            x, aux = inner(x, aux, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed_logits(params, x, cfg), aux
 
 
