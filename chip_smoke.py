@@ -6,7 +6,8 @@
                                      # (phase 9: evaluations and kernels;
                                      # phase 11 (b) at n = 4,096 and 8,192;
                                      # phase 17 (b) at train_lm's 20m size;
-                                     # phase 18 (b) at 4 layers, 2 x 1,024)
+                                     # phase 18 (b) at 4 layers, 2 x 1,024;
+                                     # phase 19 (b) at 4 layers, 2 x 128)
     python3 chip_smoke.py --e2e-ab DIR  # only phases 4, 8.1, 9.1 and 10.1's
                                      # evaluations, the checkout at DIR and
                                      # this one in turns (DIR, this, this, DIR)
@@ -254,16 +255,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      |logit|, the same greedy ids, the same kept (token, expert, slot)
      assignments in every layer, the aux within MOE_AUX_TOL, one train step
      with 2 microbatches within TRAIN_CPU_TOL; (b) qwen3-moe-30b-a3b at full
-     width with its depth cut 48 -> 16 layers (random weights from a seed,
-     bf16 compute, fp32 params) at phase 7's traffic through
-     serve_lm.generate (the batch halved while moe_serve_peak_bytes
-     predicts more than 70 GiB): prefill seconds, ms per decode step, the
-     peak beside its prediction, each layer's share of prefill assignments
-     dropped at capacity, a decode step and a prefill under the profiler,
-     a second prefill the same bits, then every layer's served cache
-     through mp_attention (exactly 2 launches a layer, no other kernel of
-     the port) against its plain version and exact attention; the phase's
-     seconds (at most 90);
+     width with its depth cut 48 -> 8 layers through serve_full (below) at
+     phase 7's traffic, its prefill profiled and checked whole;
+ 19. recurrent serving (models.ssm: mamba, mLSTM, sLSTM through
+     forward_lm, prefill, decode_step and generate): (a) xlstm-1.3b's and
+     jamba-v0.1-52b's SMOKE in fp32 compute on the card and on the CPU from
+     one set of weights: forward_lm, prefill and 4 decode steps within phase
+     5's 1e-4 of max |logit| and the same greedy ids (jamba's prompt not a
+     multiple of its mamba_chunk: the scan pads), lm_loss with remat and its
+     gradient norm within TRAIN_CPU_TOL; through serve_full, (b) xlstm-1.3b
+     at full width and depth (48 layers; 4 x 512 prompts and 64 tokens; a
+     4-token prefill profiled, whose trace holds ~1,200 launches a token,
+     and 128 tokens checked) and (c) jamba-v0.1-52b at full width with its
+     depth cut 32 -> 8 (one cycle: 7 mamba layers, 4 with MoE, and one
+     attention layer; 4 x 4,096 prompts and 32 tokens; 128 tokens
+     profiled, the whole prompt checked);
+     serve_full, in 18 (b), 19 (b) and (c): random weights from a seed,
+     bf16 compute, fp32 params, through serve_lm.generate (the batch halved
+     while serve_peak_bytes predicts more than 70 GiB): prefill seconds, ms
+     per decode step, the peak beside its prediction, the recurrent state's
+     bytes per sequence, a decode step and a prefill under the profiler, a
+     prefill run twice the same bits, with MoE each layer's share of its
+     assignments dropped at capacity, then every attention layer's served
+     cache through mp_attention (exactly 2 launches a layer, no other
+     kernel of the port; none in 19 (b)) against its plain version and
+     exact attention; each phase's seconds (at most 90);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -429,17 +445,45 @@ TRAIN_QUICK = dict(TRAIN, size="20m")
 # compressed step, 1.1e-2), a few times over: the card sums in other orders
 TRAIN_CPU_TOL = dict(loss=1e-5, lr=1e-6, grad_norm=1e-4, update=2e-3, m=3e-2,
                      v=3e-2)
-# phase 18: (b) qwen3-moe-30b-a3b at full width with its depth cut 48 -> 16
-# (the fp32 params of all 48 layers are 122 GB; 16 are 42.4 GB) at phase
-# 7's traffic and banded attention, the peak the prediction may reach
-# before the batch is halved; (a) the SMOKE configs, their prompt and
-# decode steps; the phase's time limit in seconds.  --quick: 4 layers at
-# phase 7's --quick traffic
-MOE = dict(arch="qwen3-moe-30b-a3b", layers=16, batch=4, prompt=8_192, new=64,
+# phase 18: (b) qwen3-moe-30b-a3b at full width with its depth cut 48 -> 8
+# (the fp32 params of all 48 layers are 122 GB; 8 are 23.6 GB; 16 until
+# phase 19 came and the script's time neared 1,000 s) at phase 7's traffic
+# and banded attention, its weights' seed, the prefill taken under the
+# profiler and the one run twice for the same bits (None: the whole
+# prompt), the peak the prediction may reach before the batch is halved;
+# (a) the SMOKE configs, their prompt and decode steps; the phase's time
+# limit in seconds.  --quick: 4 layers at phase 7's --quick traffic
+MOE = dict(arch="qwen3-moe-30b-a3b", layers=8, batch=4, prompt=8_192, new=64,
+           seed=18, profile_prompt=None, check_prompt=None,
            near=1_024, blk=128, peak_gib=70.0,
            smoke=("qwen3-moe-30b-a3b", "grok-1-314b"), smoke_prompt=(2, 24),
            smoke_steps=4, limit_s=90.0)
 MOE_QUICK = dict(MOE, layers=4, batch=2, prompt=1_024, new=8, near=256)
+# phase 19: (b) xlstm-1.3b at full width and depth, (c) jamba-v0.1-52b at
+# full width with its depth cut 32 -> 8 (one cycle of its 8-block pattern:
+# all 32 layers' fp32 params are ~208 GB, 8 are 53.2 GB), each with its
+# batch, prompt, new tokens, seed, the prefill taken under the profiler
+# and the one run twice for the same bits (None: the whole prompt); the
+# served attention cache's near window and block; the peak the prediction
+# may reach before the batch is halved; (a) the SMOKE configs, their
+# prompt (not a multiple of jamba's mamba_chunk of 8), decode steps and the
+# lm_loss batch (S = 128: two mLSTM chunks); the phase's time limit in
+# seconds.  (b)'s prompt is cut 1,024 -> 512, and phase 18 (b)'s depth
+# 16 -> 8, toward a script under 1,000 s; (b) profiles a 4-token prefill
+# (it is host-bound, ~1,200 launches a token, and a 128-token trace took
+# 72 s to process on one H100) and checks the same bits on 128 tokens.
+# --quick: 4 xlstm layers, shorter prompts
+SSM = dict(xlstm=dict(arch="xlstm-1.3b", layers=48, batch=4, prompt=512,
+                      new=64, seed=19, profile_prompt=4, check_prompt=128),
+           jamba=dict(arch="jamba-v0.1-52b", layers=8, batch=4, prompt=4_096,
+                      new=32, seed=19, profile_prompt=128, check_prompt=None),
+           near=1_024, blk=128, peak_gib=70.0,
+           smoke=("xlstm-1.3b", "jamba-v0.1-52b"), smoke_prompt=(2, 20),
+           smoke_steps=4, smoke_loss=(2, 128), limit_s=90.0)
+SSM_QUICK = dict(SSM, xlstm=dict(SSM["xlstm"], layers=4, batch=2, prompt=128,
+                                 new=8),
+                 jamba=dict(SSM["jamba"], batch=2, prompt=1_024, new=8),
+                 near=256)
 # 18 (a): the aux loss, card against CPU, relative: an fp32 mean of fp32
 # softmax outputs and integer counts, summed in other orders
 MOE_AUX_TOL = 1e-6
@@ -5064,12 +5108,32 @@ def analysis(acfg, results):
 # phase 17: LM training (repro_torch.train, .runtime, .checkpoint, .data)
 # ---------------------------------------------------------------------------
 
+def _mixer_param_count(cfg, bt: str) -> int:
+    """One mixer's params (`models/ssm.py`'s inits, `layers.attention_init`)."""
+    d, h = cfg.d_model, cfg.n_heads
+    d_in = cfg.ssm_expand * d
+    if bt == "mamba":
+        n, r = cfg.ssm_d_state, max(1, d // 16)
+        return (2 * d * d_in + d_in * cfg.ssm_conv + d_in + d_in * (r + 2 * n)
+                + r * d_in + d_in + d_in * n + d_in + d_in * d)
+    if bt == "mlstm":
+        return 2 * d * d_in + 3 * d_in * d_in + 2 * d_in * h + 2 * h + d_in + d_in * d
+    if bt == "slstm":
+        return 4 * d * d + h * (d // h) * 4 * (d // h) + 4 * d + d * d
+    kv, hd = cfg.n_kv_heads, cfg.d_head
+    return 2 * d * h * hd + 2 * d * kv * hd + (2 * hd if cfg.qk_norm else 0)
+
+
 def _layer_param_count(cfg, idx_in_pattern: int = 0) -> int:
-    """One attention block's params: the pre-norms, q/k/v/o (and the
-    qk-norm scales), and the SwiGLU MLP or, on an MoE layer, the router and
-    the experts' three weights."""
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    n = d + 2 * d * h * hd + 2 * d * kv * hd + (2 * hd if cfg.qk_norm else 0)
+    """One block's params: the pre-norm, the mixer (attention with its
+    qk-norm scales, mamba, mLSTM or sLSTM) and, on attention and mamba
+    blocks, the SwiGLU MLP or, on an MoE layer, the router and the experts'
+    three weights, with their pre-norm (the reference's FFN rule)."""
+    d = cfg.d_model
+    bt = cfg.block_pattern[idx_in_pattern % len(cfg.block_pattern)]
+    n = d + _mixer_param_count(cfg, bt)
+    if bt not in ("attn", "mamba"):
+        return n
     if cfg.layer_is_moe(idx_in_pattern):
         e, fe = cfg.moe.n_experts, cfg.moe.d_expert
         return n + d + d * e + 3 * e * d * fe
@@ -5077,9 +5141,9 @@ def _layer_param_count(cfg, idx_in_pattern: int = 0) -> int:
 
 
 def train_param_count(cfg) -> int:
-    """init_lm's parameter count of an attention model, dense or MoE: the
-    embedding (and the unembedding unless tied), the layers, the final
-    norm."""
+    """init_lm's parameter count of a model of any ported family (dense,
+    MoE, SSM, hybrid): the embedding (and the unembedding unless tied),
+    the layers, the final norm."""
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     pattern = len(cfg.block_pattern)
     layers = sum(_layer_param_count(cfg, i % pattern)
@@ -5400,53 +5464,116 @@ def training(tcfg, smi, results):
 # phase 18: MoE serving (models.layers.moe through prefill and decode_step)
 # ---------------------------------------------------------------------------
 
-def moe_serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
-    """Predicted peak device bytes of `serve_lm.generate` on an attention
-    model with MoE FFNs (bf16 compute, fp32 params), by term:
+def ssm_state_bytes(cfg, batch: int) -> int:
+    """The recurrent blocks' cache entries (`init_cache`): mamba's bf16
+    conv state (B, K-1, d_in) and fp32 ssm state (B, d_in, N), the mLSTM's
+    fp32 C (B, H, hd, hd), n (B, H, hd), m (B, H) with hd = d_in / H, the
+    sLSTM's fp32 c, n, h, m (B, H, d / H); constant in S."""
+    d, h = cfg.d_model, cfg.n_heads
+    d_in = cfg.ssm_expand * d
+    hd = d_in // h
+    per = {"attn": 0,
+           "mamba": (cfg.ssm_conv - 1) * d_in * 2 + d_in * cfg.ssm_d_state * 4,
+           "mlstm": (h * hd * hd + h * hd + h) * 4,
+           "slstm": 4 * d * 4}
+    return batch * sum(per[cfg.layer_block_type(i)] for i in range(cfg.n_layers))
+
+
+def serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
+    """Predicted peak device bytes of `serve_lm.generate` (bf16 compute,
+    fp32 params) on an attention, MoE, recurrent or hybrid model, by term,
+    with T = B S (0 where the model has no such layer):
       params    4 N;
-      cache     the prompt's bf16 K/V cache (prefill fills it layer by
-                layer, allocated at the first) and its grown copy (both
-                held while `_grow_cache` runs);
+      state     the recurrent cache entries (`ssm_state_bytes`), allocated
+                at the first cycle;
+      cache     the attention layers' prompt bf16 K/V cache (prefill fills
+                it layer by layer, allocated at the first) and its grown
+                copy `cache_grown` (both held while `_grow_cache` runs);
       scores    the fp32 scores of one query chunk (all of S x S below
                 `_QCHUNK_THRESHOLD`), two at once: the product beside its
                 scaled copy, then the softmax beside its input;
       attention q, k, v, rope'd k, k in fp32, a chunk's fp32 queries, the
                 chunks' outputs and their concatenation;
-      dispatch  the MoE layer: the tokens with their zero row, the gathered
-                slots (G E C, d) and their copy for the batched product, three
-                (G E C, fe) expert activations, the outputs and their padded
-                copy, one expert weight cast to bf16, the routing's fp32
-                logits, softmax and sorted values with int64 indices;
+      dispatch  one MoE layer: the tokens with their zero row, the gathered
+                slots (G E C, d) and their copy for the batched product,
+                three (G E C, fe) expert activations, the outputs and their
+                padded copy, one expert weight cast to bf16, the routing's
+                fp32 logits, softmax and sorted values with int64 indices;
+      mamba     one mamba layer at the end of its scan: xz (2 d_in bf16),
+                the conv's padded input (kept by the state's view) and its
+                activated output, dt, the scan's fp32 copies of dt and x_c
+                (padded to the chunk), its fp32 y chunks and their
+                concatenation (26 d_in bytes a token), the x_proj output
+                and fp32 B and C (2 (r + 2N) + 8 N); or, if larger, the
+                last chunk's moment (22 d_in + 2 (r + 2N) + 8 N bytes a
+                token, four (B, chunk, d_in, N) fp32 tensors: the scan's
+                pair, a product and the result it fills, three (B, d_in, N)
+                states and A);
+      mlstm     one mLSTM layer in its loop: xz, bf16 q, k, v, their fp32
+                copies, the step outputs and their stack (32 d_in bytes a
+                token) and four (B, H, hd, hd) fp32 memories (the carried
+                C, its decayed copy, the outer product, the new C);
+      slstm     one sLSTM layer: the fp32 pre-activations (16 d bytes a
+                token), the step outputs and their stack (8 d);
       residual  three (B, S, d) activations (x, its norm, a block's output).
-    `total` = params + the larger of prefill's moment (prompt cache,
-    residual and the larger of scores + attention or dispatch) and the
-    grow's (both caches)."""
+    `total` = params + state + the larger of prefill's moment (cache,
+    residual and the largest of scores + attention, dispatch, mamba,
+    mlstm, slstm) and the grow's (both caches).  `groups` and `capacity`
+    are the MoE prefill's (None without MoE)."""
     from repro_torch.models import layers
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    spec = cfg.moe
-    e, k, fe = spec.n_experts, spec.top_k, spec.d_expert
+    kinds = set(cfg.block_pattern)
+    d, h = cfg.d_model, cfg.n_heads
+    d_in = cfg.ssm_expand * d
     t = batch * prompt
-    g = layers._moe_group_count(t, e)
-    c = max(4, int(spec.capacity_factor * (t // g) * k / e))
-    slots = g * e * c
-    kv_row = cfg.n_layers * 2 * batch * kv * hd * 2
-    chunked = (prompt >= layers._QCHUNK_THRESHOLD
-               and prompt % layers._QCHUNK == 0)
-    qc = layers._QCHUNK if chunked else prompt
-    out = {"params": 4 * train_param_count(cfg),
-           "cache": kv_row * prompt, "cache_grown": kv_row * (prompt + new),
-           "scores": 2 * batch * h * qc * prompt * 4,
-           "attention": (3 * t * h * hd * 2 + 3 * t * kv * hd * 2
-                         + t * kv * hd * 4 + batch * qc * h * hd * 4),
-           "dispatch": ((t + g) * d * 2 + 2 * slots * d * 2 + 3 * slots * fe * 2
-                        + (2 * slots + g) * d * 2 + e * d * fe * 2
-                        + t * e * (3 * 4 + 8)),
-           "residual": 3 * t * d * 2}
+    out = dict.fromkeys(("cache", "cache_grown", "scores", "attention",
+                         "dispatch", "mamba", "mlstm", "slstm"), 0)
+    out["params"] = 4 * train_param_count(cfg)
+    out["state"] = ssm_state_bytes(cfg, batch)
+    out["residual"] = 3 * t * d * 2
+    groups = capacity = None
+    if "attn" in kinds:
+        kv, hd = cfg.n_kv_heads, cfg.d_head
+        n_attn = sum(cfg.layer_block_type(i) == "attn"
+                     for i in range(cfg.n_layers))
+        kv_row = n_attn * 2 * batch * kv * hd * 2
+        chunked = (prompt >= layers._QCHUNK_THRESHOLD
+                   and prompt % layers._QCHUNK == 0)
+        qc = layers._QCHUNK if chunked else prompt
+        out.update(cache=kv_row * prompt, cache_grown=kv_row * (prompt + new),
+                   scores=2 * batch * h * qc * prompt * 4,
+                   attention=(3 * t * h * hd * 2 + 3 * t * kv * hd * 2
+                              + t * kv * hd * 4 + batch * qc * h * hd * 4))
+    if cfg.moe is not None:
+        e, k, fe = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert
+        groups = layers._moe_group_count(t, e)
+        capacity = max(4, int(cfg.moe.capacity_factor * (t // groups) * k / e))
+        slots = groups * e * capacity
+        out["dispatch"] = ((t + groups) * d * 2 + 2 * slots * d * 2
+                           + 3 * slots * fe * 2 + (2 * slots + groups) * d * 2
+                           + e * d * fe * 2 + t * e * (3 * 4 + 8))
+    if "mamba" in kinds:
+        n, r = cfg.ssm_d_state, max(1, d // 16)
+        chunk = min(cfg.mamba_chunk, prompt)
+        padded = batch * (prompt + (-prompt) % chunk)
+        per_token = 2 * (r + 2 * n) + 8 * n   # dbc, and B, C in fp32
+        scan = 4 * batch * chunk * d_in * n * 4 + (3 * batch + 1) * d_in * n * 4
+        out["mamba"] = max((26 * d_in + per_token) * padded,
+                           (22 * d_in + per_token) * padded + scan)
+    if "mlstm" in kinds:
+        hd = d_in // h
+        out["mlstm"] = 32 * t * d_in + 4 * batch * h * hd * hd * 4
+    if "slstm" in kinds:
+        out["slstm"] = 24 * t * d
     prefill = out["cache"] + out["residual"] + max(
-        out["scores"] + out["attention"], out["dispatch"])
-    out["total"] = out["params"] + max(prefill, out["cache"] + out["cache_grown"])
-    out.update(groups=g, capacity=c)
+        out["scores"] + out["attention"], out["dispatch"], out["mamba"],
+        out["mlstm"], out["slstm"])
+    out["total"] = out["params"] + out["state"] + max(
+        prefill, out["cache"] + out["cache_grown"])
+    out.update(groups=groups, capacity=capacity)
     return out
+
+
+moe_serve_peak_bytes = serve_peak_bytes  # phase 18's name for it
 
 
 def moe_drop_share(counts, capacity: int) -> float:
@@ -5605,163 +5732,334 @@ def moe_smoke_vs_cpu(mcfg, smi):
                     f"{name} SMOKE train step card vs CPU: {key} {train_rel[key]} > {tol}")
 
 
-def moe_full(mcfg, smi, results):
-    """18 (b): qwen3-moe-30b-a3b at full width, depth cut (random weights
-    from a seed, bf16 compute, fp32 params) through serve_lm.generate at
-    phase 7's traffic, then every layer's served cache through the
-    banded-precision attention: the predicted peak (the batch halved past
-    peak_gib) beside the measured one, prefill seconds, ms per decode step,
-    each layer's share of prefill assignments dropped at capacity, a
-    decode step and a prefill under the profiler, a second prefill the same
-    bits as the first, exactly 2 mp_attention launches a layer and no other
-    kernel of the port, the kernel against its plain version and exact
-    attention."""
+def serve_full(phase, mcfg, pcfg, smi, results):
+    """18 (b), 19 (b), (c): one model at full width, depth as `mcfg` cuts
+    it (random weights from a seed, bf16 compute, fp32 params) through
+    serve_lm.generate, then every attention layer's served cache through
+    the banded-precision attention: the predicted peak (the batch halved
+    past pcfg's peak_gib) beside the measured one, the recurrent state's
+    bytes per sequence, prefill seconds, ms per decode step, a decode step
+    and a `profile_prompt`-token prefill under the profiler (None: the
+    whole prompt), two prefills of `check_prompt` tokens the same bits (the
+    profiled one is the first where the prompts agree), with MoE each
+    layer's share of that prefill's assignments dropped at capacity;
+    exactly 2 mp_attention launches an attention layer and no other kernel
+    of the port, the kernel against its plain version and exact attention.
+    Returns the launch counts."""
     import torch
     from repro_torch.configs import LM_CONFIGS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import decode_step, init_lm, prefill
     from repro_torch.serve_lm import banded_kv_attention, fold_banded, generate
-    cfg = LM_CONFIGS[mcfg["arch"]].scaled(n_layers=mcfg["layers"])
+    full = LM_CONFIGS[mcfg["arch"]]
+    cfg = full.scaled(n_layers=mcfg["layers"])
     b, s, n_new = mcfg["batch"], mcfg["prompt"], mcfg["new"]
-    near, blk = mcfg["near"], mcfg["blk"]
-    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    near, blk = pcfg["near"], pcfg["blk"]
+    attn_slots = [f"b{i}" for i, bt in enumerate(cfg.block_pattern) if bt == "attn"]
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    pred = moe_serve_peak_bytes(cfg, b, s, n_new)
-    while b > 1 and (pred["total"] + held) / 2**30 > mcfg["peak_gib"]:
+    pred = serve_peak_bytes(cfg, b, s, n_new)
+    while b > 1 and (pred["total"] + held) / 2**30 > pcfg["peak_gib"]:
         b //= 2
-        pred = moe_serve_peak_bytes(cfg, b, s, n_new)
+        pred = serve_peak_bytes(cfg, b, s, n_new)
     predicted = (pred["total"] + held) / 2**30
-    emit(phase="moe_serving", step="predicted", model=cfg.name, smi=smi,
-         layers=cfg.n_layers, layers_of=LM_CONFIGS[mcfg["arch"]].n_layers,
-         d_model=cfg.d_model, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-         d_expert=cfg.moe.d_expert, vocab=cfg.vocab,
+    emit(phase=phase, step="predicted", model=cfg.name, smi=smi,
+         layers=cfg.n_layers, layers_of=full.n_layers, d_model=cfg.d_model,
+         block_pattern=list(cfg.block_pattern), moe=cfg.moe is not None
+         and dict(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                  d_expert=cfg.moe.d_expert), vocab=cfg.vocab,
          params=train_param_count(cfg), batch=b, prompt=s, new_tokens=n_new,
          peak_gib_predicted=predicted, held_gib=held / 2**30,
          terms_gib={key: v / 2**30 for key, v in pred.items()
                     if key not in ("groups", "capacity")},
          prefill_groups=pred["groups"], prefill_capacity=pred["capacity"])
-    gen = torch.Generator(device="cuda").manual_seed(18)
+    secs = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    gen = torch.Generator(device="cuda").manual_seed(mcfg["seed"])
     t0 = time.perf_counter()
     params = init_lm(gen, cfg)
     prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
     q = torch.randn((b * kv, g, hd), generator=gen, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    t0 = lap("init", t0)
     length = s + n_new - 1  # the last generated id is never written
 
-    # the main path, counted: generate, then every layer's banded attention
+    # the main path, counted: generate, then each attention layer's banded
+    # attention
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     stats = {}
     ids, cache = generate(params, cfg, prompt, n_new, stats=stats)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    layer_k, layer_v = cache["b0"]["k"], cache["b0"]["v"]
-    banded = [banded_kv_attention(layer_k[c], layer_v[c], q, length,
-                                  near=near, blk=blk)
-              for c in range(cfg.n_cycles)]
+    t0 = lap("generate", t0)
+    banded = [(key, c, banded_kv_attention(cache[key]["k"][c], cache[key]["v"][c],
+                                           q, length, near=near, blk=blk))
+              for key in attn_slots for c in range(cfg.n_cycles)]
     torch.cuda.synchronize()
     counts = launch_counts()
     expected = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
-                "mp_syrk": 0, "mp_syrk_grad": 0,
-                "mp_attention": 2 * cfg.n_cycles}
-    require(counts == expected, f"MoE serving launches {counts}, expected {expected}")
+                "mp_syrk": 0, "mp_syrk_grad": 0, "mp_attention": 2 * len(banded)}
+    require(counts == expected, f"{cfg.name} serving launches {counts}, "
+            f"expected {expected}")
     require(tuple(ids.shape) == (b, n_new) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab, f"generated ids {tuple(ids.shape)}")
-    require(tuple(layer_k.shape) == (cfg.n_cycles, b, s + n_new, kv, hd)
-            and bool(torch.isfinite(layer_k[:, :, :length]).all())
-            and bool(torch.isfinite(layer_v[:, :, :length]).all()),
-            "MoE served cache: wrong shape or not finite")
+    state = {key: e for key, e in cache.items() if key not in attn_slots}
+    state_bytes = sum(t.numel() * t.element_size() for e in state.values()
+                      for t in e.values())
+    require(state_bytes == ssm_state_bytes(cfg, b),  # no S in the reckoning
+            f"{cfg.name}: recurrent state {state_bytes} bytes, reckoned "
+            f"{ssm_state_bytes(cfg, b)}")
+    require(all(bool(torch.isfinite(t.float()).all()) for e in state.values()
+                for t in e.values()), f"{cfg.name}: recurrent state not finite")
 
-    # each layer's banded attention: the kernel against its plain version
-    # (partials and merged, _attn_errors) and the main path's output
-    # against exact attention
-    kw = dict(blk=blk, sm_scale=hd ** -0.5)
+    # each attention layer's banded attention: the kernel against its plain
+    # version (partials and merged, _attn_errors) and the main path's
+    # output against exact attention
     vs_plain = vs_oracle = vs_exact = partials_rel = 0.0
-    for c, (out, exact) in enumerate(banded):
-        segs, _ = fold_banded(layer_k[c], layer_v[c], length, near=near, blk=blk)
+    kw = dict(blk=blk, sm_scale=hd ** -0.5)
+    for key, c, (out, exact) in banded:
+        layer_k, layer_v = cache[key]["k"][c], cache[key]["v"][c]
+        require(tuple(layer_k.shape) == (b, s + n_new, kv, hd)
+                and bool(torch.isfinite(layer_k[:, :length]).all())
+                and bool(torch.isfinite(layer_v[:, :length]).all()),
+                f"{cfg.name} {key}: served cache wrong shape or not finite")
+        segs, _ = fold_banded(layer_k, layer_v, length, near=near, blk=blk)
         err = _attn_errors(q, segs, **kw)
-        require(bool(torch.isfinite(out).all()), f"MoE layer {c}: banded not finite")
-        vs_plain = max(vs_plain, err["vs_plain"],
-                       float((out - err["plain"]).abs().max()))
+        require(bool(torch.isfinite(out).all()), f"{cfg.name} {key}: banded not finite")
+        vs_plain = max(vs_plain, err["vs_plain"], float((out - err["plain"]).abs().max()))
         vs_oracle = max(vs_oracle, err["vs_oracle"])
         partials_rel = max(partials_rel, err["partials_rel"])
         vs_exact = max(vs_exact, float((out - exact).abs().max()))
     del banded
-    require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
-            f"MoE served cache: kernel vs plain {vs_plain}, vs oracle {vs_oracle} "
-            f"> {ATTN_MAX_ABS}")
-    require(vs_exact < 0.05, f"MoE served cache: banded vs exact {vs_exact}")
+    if attn_slots:
+        require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
+                f"{cfg.name} served cache: kernel vs plain {vs_plain}, vs oracle "
+                f"{vs_oracle} > {ATTN_MAX_ABS}")
+        require(vs_exact < 0.05, f"{cfg.name} served cache: banded vs exact {vs_exact}")
 
     # one more step fills the last slot: finite logits over the full vocab
     logits, _ = decode_step(params, cache, ids[:, -1:], length, cfg)
     require(tuple(logits.shape) == (b, 1, cfg.vocab)
-            and bool(torch.isfinite(logits).all()), "MoE decode logits not finite")
-    # where the time goes: one decode step (rewriting the last slot) and one
-    # prefill under the profiler, that prefill's logits kept
+            and bool(torch.isfinite(logits).all()), f"{cfg.name} decode logits not finite")
+    t0 = lap("checks", t0)
+    # where the time goes: one decode step (rewriting the last slot) and
+    # one prefill under the profiler, that prefill's logits kept
+    short = prompt[:, :mcfg["profile_prompt"]]
     box, profiles = {}, {}
     for what, fn in (
-            ("decode_step", lambda: decode_step(params, cache, ids[:, -1:],
-                                                length, cfg)),
-            ("prefill", lambda: box.update(logits=prefill(params, prompt, cfg)[0]))):
+            ("decode_step", lambda: decode_step(params, cache, ids[:, -1:], length, cfg)),
+            ("prefill", lambda: box.update(logits=prefill(params, short, cfg)[0]))):
         wall_ms, busy, rows = device_profile(fn)
         profiles[what] = dict(wall_ms=wall_ms, device_busy_ms=busy,
                               idle_share=1 - busy / wall_ms,
                               kernels=sum(c for _, c, _ in rows),
                               top=[{"name": k_[:90], "count": c, "ms": ms}
                                    for k_, c, ms in rows[:10]])
-        emit(phase="moe_serving", step="profile", what=what, smi=smi,
+        emit(phase=phase, step="profile", model=cfg.name, what=what,
+             prompt=short.shape[1] if what == "prefill" else None, smi=smi,
              **profiles[what])
-    del cache, layer_k, layer_v
+        t0 = lap("profile " + what, t0)
+    del cache
     torch.cuda.empty_cache()
-    # a second prefill of the same prompt: the same bits (the combine has no
-    # atomic add), with each layer's routing recorded
+    # a prefill twice, unprofiled but for a first that shares the profiled
+    # one's tokens: the same bits (the MoE combine has no atomic add), the
+    # second with each MoE layer's routing recorded
+    check = prompt[:, :mcfg["check_prompt"]]
+    first = (box.pop("logits") if check.shape == short.shape
+             else prefill(params, check, cfg)[0])
     with moe_routing() as log:
-        again, _ = prefill(params, prompt, cfg)
-    same_bits = torch.equal(again, box["logits"])
-    require(bool(torch.isfinite(again).all()), "MoE prefill logits not finite")
+        again, _ = prefill(params, check, cfg)
+    same_bits = torch.equal(again, first)
+    t0 = lap("second prefill", t0)
+    require(bool(torch.isfinite(again).all()), f"{cfg.name} prefill logits not finite")
     shares = [moe_drop_share(r["counts"], r["capacity"]) for r in log]
-    require(len(shares) == cfg.n_layers, f"routing of {len(shares)} layers")
-    emit(phase="moe_serving", step="full", model=cfg.name, smi=smi,
+    n_moe = sum(cfg.layer_is_moe(i % len(cfg.block_pattern))  # _block_init's rule
+                and cfg.layer_block_type(i) in ("attn", "mamba")
+                for i in range(cfg.n_layers))
+    require(len(shares) == n_moe, f"routing of {len(shares)} layers, {n_moe} MoE")
+    emit(phase=phase, step="full", model=cfg.name, smi=smi,
          layers=cfg.n_layers, batch=b, prompt=s, new_tokens=n_new,
-         compute="bfloat16", init_seconds=init_s,
-         prefill_seconds=stats["prefill_s"],
+         compute="bfloat16", seconds=secs, prefill_seconds=stats["prefill_s"],
          decode_ms_per_step=1e3 * stats["decode_s"] / stats["decode_steps"],
          peak_gib=peak, peak_gib_predicted=predicted,
-         dropped_share={"min": min(shares), "median": statistics.median(shares),
-                        "max": max(shares)},
-         dropped_share_per_layer=shares, prefill_capacity=log[0]["capacity"],
-         second_prefill_same_bits=same_bits, ids_sha256=_ids_checksum(ids),
-         ids_head=ids[0, :8].tolist(), launches=counts,
-         max_abs_kernel_vs_plain=vs_plain, max_abs_kernel_vs_oracle=vs_oracle,
-         bound=ATTN_MAX_ABS, partials_rel=partials_rel,
-         max_abs_banded_vs_exact=vs_exact, rows=b * kv, g=g, d=hd)
-    require(same_bits, "MoE prefill: a second prefill gave other bits")
-    require(peak < 80.0, f"MoE serving peak {peak} GiB")
+         state_bytes_per_sequence=state_bytes // b,
+         check_prompt=check.shape[1], second_prefill_same_bits=same_bits,
+         dropped_share=shares and {"min": min(shares),
+                                   "median": statistics.median(shares),
+                                   "max": max(shares)},
+         dropped_share_per_layer=shares,
+         prefill_capacity=log[0]["capacity"] if log else None,
+         ids_sha256=_ids_checksum(ids), ids_head=ids[0, :8].tolist(),
+         launches=counts,
+         max_abs_kernel_vs_plain=vs_plain if attn_slots else None,
+         max_abs_kernel_vs_oracle=vs_oracle if attn_slots else None,
+         bound=ATTN_MAX_ABS, partials_rel=partials_rel if attn_slots else None,
+         max_abs_banded_vs_exact=vs_exact if attn_slots else None,
+         rows=b * kv, g=g, d=hd)
+    require(same_bits, f"{cfg.name} prefill: a second prefill gave other bits")
+    require(peak < 80.0, f"{cfg.name} serving peak {peak} GiB")
     del params, log
     torch.cuda.empty_cache()
-    r = results["mp_attention"]
-    r["max_abs_err"] = max(r["max_abs_err"], vs_plain)
-    for key, row in results.items():
-        row["launches_moe"] = counts["mp_attention"] if key == "mp_attention" else 0
+    if attn_slots:
+        r = results["mp_attention"]
+        r["max_abs_err"] = max(r["max_abs_err"], vs_plain)
+    return counts
 
 
 def moe_serving(mcfg, smi, results):
     """Phase 18: the MoE family on the card (see the module docstring), its
     sub-steps timed into one line."""
     import torch
-    secs = {}
+    secs, counts = {}, {}
     t_all = time.perf_counter()
     for name, fn in (("18a card vs CPU", lambda: moe_smoke_vs_cpu(mcfg, smi)),
-                     ("18b full width", lambda: moe_full(mcfg, smi, results))):
+                     ("18b full width", lambda: counts.update(serve_full(
+                         "moe_serving", mcfg, mcfg, smi, results)))):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
+    for key, row in results.items():
+        row["launches_moe"] = counts.get(key, 0)
     total = time.perf_counter() - t_all
     emit(phase="moe_serving", step="seconds", smi=smi, total=total, **secs)
     require(total <= mcfg["limit_s"], f"phase 18 took {total} s, over its "
             f"{mcfg['limit_s']} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: recurrent serving (models.ssm through prefill and decode_step)
+# ---------------------------------------------------------------------------
+
+def _grad_norm(grads) -> float:
+    return math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+
+
+def ssm_smoke_vs_cpu(scfg, smi):
+    """19 (a): each recurrent SMOKE config in fp32 compute on the card and
+    on the CPU, one set of weights from a seed: forward_lm's and prefill's
+    logits within 1e-4 of max |logit|, then `steps` decode steps, each run
+    on both devices from a copy of the card's cache (phase 5's reason) with
+    the card's greedy id: logits within 1e-4 and the same greedy ids; then
+    lm_loss with remat (the sequence scans' chunk checkpoints taken at
+    S = 128) and its gradient within TRAIN_CPU_TOL's loss and grad_norm.
+    jamba's prompt is not a multiple of its mamba_chunk, so its scan pads
+    on the card.  The CPU runs one intra-op thread meanwhile: with one a
+    core its thousands of tiny ops took 11 s instead of about 1 (an xlstm
+    loss on the card's host)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the CPU's tiny ops: one intra-op thread
+    try:
+        _ssm_smoke_vs_cpu(scfg, smi)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _ssm_smoke_vs_cpu(scfg, smi):
+    import torch
+    from repro_torch.configs import LM_SMOKE_CONFIGS
+    from repro_torch.models import decode_step, forward_lm, init_lm, lm_loss, prefill
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.serve_lm import _grow_cache
+    kw = dict(compute_dtype=torch.float32)
+    for name in scfg["smoke"]:
+        t_model = time.perf_counter()
+        cfg = LM_SMOKE_CONFIGS[name]
+        gen = torch.Generator().manual_seed(19)
+        params = {"cpu": init_lm(gen, cfg, device="cpu")}
+        params["cuda"] = _to_device(params["cpu"], "cuda")
+        prompt = torch.randint(0, cfg.vocab, scfg["smoke_prompt"], generator=gen)
+        require(prompt.shape[1] % cfg.mamba_chunk != 0 or "mamba" not in cfg.block_pattern,
+                f"{name}: the prompt is a multiple of the mamba chunk")
+        out, caches = {}, {}
+        for dev, p in params.items():
+            tp = prompt.to(dev)
+            logits, _ = forward_lm(p, tp, cfg, **kw)
+            pre, caches[dev] = prefill(p, tp, cfg, **kw)
+            out[dev] = dict(forward=logits.cpu(), prefill=pre.cpu())
+        rel = {}
+        for what in ("forward", "prefill"):
+            g, w = out["cuda"][what], out["cpu"][what]
+            require(bool(torch.isfinite(g).all()), f"{name} SMOKE {what}: not finite")
+            rel[what] = float((g - w).abs().max() / w.abs().max())
+        steps = scfg["smoke_steps"]
+        cache = _grow_cache(caches["cuda"], steps, kv_quant=False)
+        tok = torch.argmax(out["cuda"]["prefill"][:, -1], dim=-1)[:, None]
+        step_rel, same_ids, ids = 0.0, True, []
+        for i in range(steps):
+            pos = prompt.shape[1] + i
+            cpu_cache = _to_device(cache, "cpu")  # a copy: the step writes it
+            lc, cache = decode_step(params["cuda"], cache, tok.cuda(), pos, cfg, **kw)
+            lp, _ = decode_step(params["cpu"], cpu_cache, tok, pos, cfg, **kw)
+            lc = lc.cpu()
+            require(bool(torch.isfinite(lc).all()), f"{name} SMOKE step: not finite")
+            step_rel = max(step_rel, float((lc - lp).abs().max() / lp.abs().max()))
+            tok = torch.argmax(lc[:, 0], dim=-1)[:, None]
+            same_ids &= bool((tok == torch.argmax(lp[:, 0], dim=-1)[:, None]).all())
+            ids.append(tok[:, 0].tolist())
+        rel["decode"] = step_rel
+
+        t_loss = time.perf_counter()
+        lcfg = cfg.scaled(remat=True)
+        tokens = torch.randint(0, cfg.vocab, scfg["smoke_loss"], generator=gen)
+        labels = torch.randint(0, cfg.vocab, scfg["smoke_loss"], generator=gen)
+        loss, norm, loss_s = {}, {}, {}
+        for dev, p in params.items():
+            t0 = time.perf_counter()
+            leaves = tree_map(lambda x: x.clone().requires_grad_(True), p)
+            value, _ = lm_loss(leaves, {"tokens": tokens.to(dev),
+                                        "labels": labels.to(dev)}, lcfg, **kw)
+            grads = torch.autograd.grad(value, tree_leaves(leaves))
+            loss[dev], norm[dev] = float(value.detach()), _grad_norm(grads)
+            loss_s[dev] = time.perf_counter() - t0
+        train_rel = {"loss": abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"]),
+                     "grad_norm": abs(norm["cuda"] - norm["cpu"]) / norm["cpu"]}
+        emit(phase="ssm_serving", step="card_vs_cpu", model=name + " SMOKE",
+             smi=smi, compute="float32", prompt=list(prompt.shape),
+             mamba_chunk=cfg.mamba_chunk if "mamba" in cfg.block_pattern else None,
+             decode_steps=steps, rel=rel, tol=1e-4, same_ids=same_ids,
+             ids_card=ids, loss_tokens=list(tokens.shape), loss_card=loss["cuda"],
+             loss_cpu=loss["cpu"], grad_norm_card=norm["cuda"],
+             grad_norm_cpu=norm["cpu"], train_rel=train_rel,
+             train_tol={k: TRAIN_CPU_TOL[k] for k in train_rel},
+             seconds={"serve": t_loss - t_model, "loss": loss_s})
+        for what in ("forward", "prefill", "decode"):
+            require(rel[what] <= 1e-4, f"{name} SMOKE {what}: card vs CPU {rel[what]}")
+        require(same_ids, f"{name} SMOKE: greedy ids differ between the card and the CPU")
+        for key, value in train_rel.items():
+            require(value <= TRAIN_CPU_TOL[key],
+                    f"{name} SMOKE lm_loss card vs CPU: {key} {value} > {TRAIN_CPU_TOL[key]}")
+
+
+def ssm_serving(scfg, smi, results):
+    """Phase 19: the recurrent mixers on the card (see the module
+    docstring), its sub-steps timed into one line."""
+    import torch
+    secs, counts = {}, {}
+    t_all = time.perf_counter()
+    for name, fn in (("19a card vs CPU", lambda: ssm_smoke_vs_cpu(scfg, smi)),
+                     ("19b xlstm", lambda: counts.update(
+                         xlstm=serve_full("ssm_serving", scfg["xlstm"], scfg, smi,
+                                          results))),
+                     ("19c jamba", lambda: counts.update(
+                         jamba=serve_full("ssm_serving", scfg["jamba"], scfg, smi,
+                                          results)))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    for key, row in results.items():
+        row["launches_ssm"] = sum(c.get(key, 0) for c in counts.values())
+    total = time.perf_counter() - t_all
+    emit(phase="ssm_serving", step="seconds", smi=smi, total=total, **secs)
+    require(total <= scfg["limit_s"], f"phase 19 took {total} s, over its "
+            f"{scfg['limit_s']} s")
 
 
 # ---------------------------------------------------------------------------
@@ -6018,6 +6316,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("18 MoE serving", moe_serving, MOE_QUICK if args.quick else MOE, smi,
           results)
+    torch.cuda.empty_cache()
+    timed("19 SSM serving", ssm_serving, SSM_QUICK if args.quick else SSM, smi,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -6028,7 +6329,8 @@ def main(argv=None):
                                   "launches_accuracy", "launches_sched",
                                   "launches_tiles", "launches_distributed",
                                   "launches_obs", "launches_analysis",
-                                  "launches_training", "launches_moe")
+                                  "launches_training", "launches_moe",
+                                  "launches_ssm")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,24 @@
 """Serving: cache construction, prefill, and single-token decode.
 
-The port of `repro.models.decode` for the attention blocks, with a dense
-or an MoE FFN (whose aux loss serving drops, as the reference does).
-Cache layout,
-one entry per block slot of the cycle pattern, stacked over cycles as the
-reference's (so caches compare directly with it):
+The port of `repro.models.decode` for the attention, mamba, mLSTM and
+sLSTM blocks, with a dense or an MoE FFN (whose aux loss serving drops,
+as the reference does).  Cache layout, one entry per block slot of the
+cycle pattern, stacked over cycles as the reference's (so caches compare
+directly with it):
 
   attn (full) : {k, v: (C, B, S_max, KV, hd)}           (rope'd at write)
   attn (SWA)  : {k, v: (C, B, W, KV, hd), pos: (C, W)}  (circular)
   kv_quant    : k, v int8 and {k_scale, v_scale: (C, B, S_max, KV)} fp32
+  mamba       : {conv: (C, B, K-1, d_in) bf16, ssm: (C, B, d_in, N) fp32}
+  mlstm       : {c: (C, B, H, hd, hd), n: (C, B, H, hd), m: (C, B, H)}
+  slstm       : {c, n, h, m: (C, B, H, hd)}
 
-Where the reference returns a new cache from each decode step,
-`decode_step` writes the new row into the cache it is given and returns
-that same cache: a copy per step would move the whole cache for one row.
-Decode attention is plain PyTorch here, as in the reference; the
-banded-precision kernel serves `serve_lm.banded_kv_attention`.
+The recurrent entries are constant in S.  Where the reference returns a
+new cache from each decode step, `decode_step` writes the new row (or the
+new state) into the cache it is given and returns that same cache: a copy
+per step would move the whole cache for one row.  Decode attention is
+plain PyTorch here, as in the reference; the banded-precision kernel
+serves `serve_lm.banded_kv_attention`.
 """
 
 from __future__ import annotations
@@ -25,9 +29,24 @@ import torch
 import torch.nn.functional as F
 
 from .layers import NEG_INF, attention, rmsnorm, rope
-from .transformer import _check_supported, _ffn, cycle_slice, unembed_logits
+from .ssm import mamba_init_state, mlstm_init_state, slstm_init_state
+from .transformer import (_apply_block, _check_supported, _ffn, cycle_slice,
+                          unembed_logits)
 
 CACHE_DTYPE = torch.bfloat16
+
+
+# each recurrent block's cache entry names, in its state tuple's order
+_STATE_NAMES = {"mamba": ("conv", "ssm"), "mlstm": ("c", "n", "m"),
+                "slstm": ("c", "n", "h", "m")}
+
+
+def _state_init(bt, cfg, batch, device):
+    if bt == "mamba":
+        return mamba_init_state(batch, cfg, CACHE_DTYPE, device=device)
+    if bt == "mlstm":
+        return mlstm_init_state(batch, cfg, device=device)
+    return slstm_init_state(batch, cfg, device=device)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
@@ -42,7 +61,13 @@ def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
     w = min(cfg.swa_window or max_len, max_len)
     dt = torch.int8 if kv_quant else CACHE_DTYPE
     cache = {}
-    for i in range(len(cfg.block_pattern)):
+    for i, bt in enumerate(cfg.block_pattern):
+        if bt != "attn":
+            st = _state_init(bt, cfg, batch, device)
+            cache[f"b{i}"] = {
+                name: t.expand((c,) + t.shape).contiguous()
+                for name, t in zip(_STATE_NAMES[bt], st)}
+            continue
         entry = {name: torch.zeros((c, batch, w, kv, hd), dtype=dt,
                                    device=device) for name in ("k", "v")}
         if kv_quant:
@@ -113,10 +138,19 @@ def _decode_attn(p, x, cfg, cache, pos: int):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
 
 
-def _decode_block(p, x, cfg, cache, pos: int):
+def _decode_block(p, x, cfg, bt: str, cache, pos: int):
+    """One block for one token; its cache entry is updated in place.  The
+    MoE aux is dropped, as the reference does."""
+    if bt != "attn":
+        names = _STATE_NAMES[bt]
+        x, _, st = _apply_block(p, x, cfg, bt, positions=None,
+                                state=tuple(cache[n] for n in names))
+        for name, t in zip(names, st):
+            cache[name].copy_(t.to(cache[name].dtype))
+        return x
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + _decode_attn(p["inner"], h, cfg, cache, pos)
-    return _ffn(p, x, cfg)[0]  # the MoE aux dropped, as the reference
+    return _ffn(p, x, cfg)[0]
 
 
 def decode_step(params, cache, tokens, pos: int, cfg, *,
@@ -128,9 +162,9 @@ def decode_step(params, cache, tokens, pos: int, cfg, *,
     for c in range(cfg.n_cycles):
         cyc_params = cycle_slice(params["cycles"], c)
         cyc_cache = cycle_slice(cache, c)
-        for i in range(len(cfg.block_pattern)):
-            x = _decode_block(cyc_params[f"b{i}"], x, cfg, cyc_cache[f"b{i}"],
-                              pos)
+        for i, bt in enumerate(cfg.block_pattern):
+            x = _decode_block(cyc_params[f"b{i}"], x, cfg, bt,
+                              cyc_cache[f"b{i}"], pos)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed_logits(params, x, cfg), cache
 
@@ -171,17 +205,25 @@ def prefill(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
     cache = {}
     for c in range(cfg.n_cycles):
         cyc = cycle_slice(params["cycles"], c)
-        for i in range(len(cfg.block_pattern)):
+        for i, bt in enumerate(cfg.block_pattern):
             p = cyc[f"b{i}"]
-            h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-            # run attention AND capture rope'd k/v for the cache
-            k = torch.einsum("bsd,dhk->bshk", h, p["inner"]["wk"].to(h.dtype))
-            v = torch.einsum("bsd,dhk->bshk", h, p["inner"]["wv"].to(h.dtype))
-            if cfg.qk_norm:
-                k = rmsnorm(p["inner"]["k_norm"], k, cfg.norm_eps)
-            kr = rope(k, positions, cfg.rope_theta)
-            x = x + attention(p["inner"], h, cfg, positions=positions)
-            entry = _prefill_entry(cfg, kr, v, s)
+            if bt == "attn":
+                h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+                # run attention AND capture rope'd k/v for the cache
+                k = torch.einsum("bsd,dhk->bshk", h,
+                                 p["inner"]["wk"].to(h.dtype))
+                v = torch.einsum("bsd,dhk->bshk", h,
+                                 p["inner"]["wv"].to(h.dtype))
+                if cfg.qk_norm:
+                    k = rmsnorm(p["inner"]["k_norm"], k, cfg.norm_eps)
+                kr = rope(k, positions, cfg.rope_theta)
+                x = x + attention(p["inner"], h, cfg, positions=positions)
+                entry = _prefill_entry(cfg, kr, v, s)
+            else:
+                x, _, st = _apply_block(p, x, cfg, bt, positions=positions)
+                entry = dict(zip(_STATE_NAMES[bt], st))
+                if bt == "mamba":
+                    entry["conv"] = entry["conv"].to(CACHE_DTYPE)
             if c == 0:  # stacked storage, filled one cycle at a time
                 cache[f"b{i}"] = {
                     name: torch.empty((cfg.n_cycles,) + t.shape, dtype=t.dtype,
@@ -189,6 +231,7 @@ def prefill(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
                     for name, t in entry.items()}
             for name, t in entry.items():
                 cache[f"b{i}"][name][c] = t
-            x = _ffn(p, x, cfg)[0]
+            if bt == "attn":  # the other blocks' FFN ran in _apply_block
+                x = _ffn(p, x, cfg)[0]
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return unembed_logits(params, x, cfg), cache

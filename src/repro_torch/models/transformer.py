@@ -1,17 +1,19 @@
 """Full-model init, forward and loss of the decoder-only LM.
 
-The port of `repro.models.transformer` for the dense and MoE attention
-families: layers are grouped into cycles (`cfg.block_pattern`) and the per-cycle
-params are stacked on a leading "cycles" axis, the reference's tree, so
-its weights carry across unchanged (`interop.lm_params_from_numpy`).
-The forward pass loops over that axis where the reference scans, and
-under autograd `cfg.remat` checkpoints it one cycle at a time (nested
-over groups of `cfg.remat_group` cycles) as the reference's
+The port of `repro.models.transformer` for the dense, MoE, SSM (xLSTM)
+and hybrid (jamba) families: layers are grouped into cycles
+(`cfg.block_pattern`) and the per-cycle params are stacked on a leading
+"cycles" axis, the reference's tree, so its weights carry across
+unchanged (`interop.lm_params_from_numpy`).  A block is a mixer
+(attention, mamba, mLSTM or sLSTM: `models/ssm.py`) and the reference's
+FFN rule.  The forward pass loops over the cycle axis where the reference
+scans, and under autograd `cfg.remat` checkpoints it one cycle at a time
+(nested over groups of `cfg.remat_group` cycles) as the reference's
 `jax.checkpoint` does.  MoE layers add their load-balance aux loss,
 summed over every layer inside the checkpointed cycle.
 
-Not ported yet (ROADMAP A 9): the mamba / mLSTM / sLSTM mixers, the
-whisper encoder and cross-attention and the vision stub.
+Not ported yet (ROADMAP A 9): the whisper encoder and cross-attention
+and the vision stub.
 """
 
 from __future__ import annotations
@@ -21,6 +23,13 @@ from torch.utils.checkpoint import checkpoint
 
 from .layers import (_init, attention, attention_init, mlp, mlp_init, moe,
                      moe_init, rmsnorm, rmsnorm_init)
+from .ssm import (mamba_forward, mamba_init, mlstm_forward, mlstm_init,
+                  slstm_forward, slstm_init)
+
+_INNER_INIT = {"attn": attention_init, "mamba": mamba_init,
+               "mlstm": mlstm_init, "slstm": slstm_init}
+_SSM_FORWARD = {"mamba": mamba_forward, "mlstm": mlstm_forward,
+                "slstm": slstm_forward}
 
 
 def _not_ported(what: str):
@@ -32,9 +41,9 @@ def _check_supported(cfg) -> None:
         raise _not_ported("the encoder-decoder (whisper) family")
     if cfg.frontend is not None:
         raise _not_ported(f"the {cfg.frontend} frontend")
-    for i, bt in enumerate(cfg.block_pattern):
-        if bt != "attn":
-            raise _not_ported(f"the {bt} mixer")
+    for bt in cfg.block_pattern:
+        if bt not in _INNER_INIT:
+            raise ValueError(f"unknown block type {bt!r}")
 
 
 def cycle_slice(tree, c: int):
@@ -46,15 +55,16 @@ def cycle_slice(tree, c: int):
 
 
 def _block_init(gen, cfg, idx_in_pattern: int, *, stack=(), device="cuda"):
-    """An attention block (the only mixer ported: `_check_supported`) with
-    the reference's FFN rule: an MoE FFN (`ffn_moe`) where
-    `cfg.layer_is_moe(idx_in_pattern)`, else the SwiGLU MLP where d_ff > 0,
-    else none."""
+    """The block at `idx_in_pattern` of the cycle: its mixer and the
+    reference's FFN rule: attention and mamba blocks get an MoE FFN
+    (`ffn_moe`) where `cfg.layer_is_moe(idx_in_pattern)`, else the SwiGLU
+    MLP where d_ff > 0; mLSTM and sLSTM blocks never get one."""
+    bt = cfg.block_pattern[idx_in_pattern % len(cfg.block_pattern)]
     kw = dict(stack=stack, device=device)
     p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
-         "inner": attention_init(gen, cfg, **kw)}
+         "inner": _INNER_INIT[bt](gen, cfg, **kw)}
     is_moe = cfg.layer_is_moe(idx_in_pattern)
-    if is_moe or cfg.d_ff > 0:
+    if bt in ("attn", "mamba") and (is_moe or cfg.d_ff > 0):
         p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
         if is_moe:
             p["ffn_moe"] = moe_init(gen, cfg, **kw)
@@ -75,13 +85,18 @@ def _ffn(p, x, cfg):
     return x, None
 
 
-def _apply_block(p, x, cfg, *, positions):
-    """One attention block: mixer + optional FFN, pre-norm residuals.
-    Returns (x, aux) as `_ffn`.  (The reference also returns the SSM state,
-    which an attention block has not.)"""
+def _apply_block(p, x, cfg, bt: str, *, positions, state=None):
+    """One block of type bt: mixer + optional FFN, pre-norm residuals.
+    Returns (x, aux, new_state): aux as `_ffn`'s, new_state the recurrent
+    mixer's state after the sequence (None for attention), which starts
+    from `state` (None: the mixer's initial state)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attention(p["inner"], h, cfg, positions=positions)
-    return _ffn(p, x, cfg)
+    if bt == "attn":
+        out, new_state = attention(p["inner"], h, cfg, positions=positions), None
+    else:
+        out, new_state = _SSM_FORWARD[bt](p["inner"], h, cfg, state=state)
+    x, aux = _ffn(p, x + out, cfg)
+    return x, aux, new_state
 
 
 # --------------------------------------------------------------- init
@@ -136,8 +151,9 @@ def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
     # layers' aux inside the checkpointed function
     def cycle_fn(x, aux, c):
         cyc = cycle_slice(params["cycles"], c)
-        for i in range(len(cfg.block_pattern)):
-            x, aux_i = _apply_block(cyc[f"b{i}"], x, cfg, positions=positions)
+        for i, bt in enumerate(cfg.block_pattern):
+            x, aux_i, _ = _apply_block(cyc[f"b{i}"], x, cfg, bt,
+                                       positions=positions)
             if aux_i is not None:
                 aux = aux + aux_i
         return x, aux

@@ -30,9 +30,13 @@ DEMO = ArchConfig(name="serve-demo", family="dense", n_layers=4, d_model=128,
 def _grow_cache(cache, n: int, *, kv_quant: bool):
     """Full-attention entries get n empty slots on the S axis (SWA entries
     are circular and keep their window); with kv_quant the rows become int8
-    with per-row scales, as decode_step writes them."""
+    with per-row scales, as decode_step writes them.  The recurrent blocks'
+    entries are constant in S and pass through unchanged."""
     out = {}
     for key, entry in cache.items():
+        if "k" not in entry:
+            out[key] = entry
+            continue
         entry = dict(entry)
         if "pos" not in entry:
             for name in ("k", "v"):

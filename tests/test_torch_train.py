@@ -145,8 +145,7 @@ def test_lm_loss_masks_labels_and_means_over_the_rest(weights):
 
 
 def test_lm_loss_unported_families_raise():
-    for cfg in (SMOKE.scaled(block_pattern=("attn", "mamba")),
-                SMOKE.scaled(enc_dec=True, n_enc_layers=1),
+    for cfg in (SMOKE.scaled(enc_dec=True, n_enc_layers=1),
                 SMOKE.scaled(frontend="vision_stub", n_patches=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
             lm_loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.long),
