@@ -7,7 +7,9 @@
                                      # phase 11 (b) at n = 4,096 and 8,192;
                                      # phase 17 (b) at train_lm's 20m size;
                                      # phase 18 (b) at 4 layers, 2 x 1,024;
-                                     # phase 19 (b) at 4 layers, 2 x 128)
+                                     # phase 19 (b) at 4 layers, 2 x 128;
+                                     # phase 20 at shorter prompts, llava
+                                     # at 2 layers, h2o at 4)
     python3 chip_smoke.py --e2e-ab DIR  # only phases 4, 8.1, 9.1 and 10.1's
                                      # evaluations, the checkout at DIR and
                                      # this one in turns (DIR, this, this, DIR)
@@ -44,10 +46,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      paper-pair request at every nu: fp64 band storage, and the off-band
      computed in fp64 and rounded once to fp32;
      3b. mp_attention (banded-precision flash decode) against its plain
-     version on the kernel tests' shapes, logit scales, ragged lengths
-     (an empty far segment among them) and fp32 / bf16 near K/V, and at
-     the served segment sizes with B*KV = 1 and 32: ragged lengths that
-     end mid-chunk, chunks wholly past the end, seg_len = 0;
+     version on the kernel tests' shapes and h2o-danube-1.8b's (d_head 80,
+     G = 4), logit scales, ragged lengths (an empty far segment among them)
+     and fp32 / bf16 near K/V, G = 15 and 16 at d_head 80, and at the
+     served segment sizes with B*KV = 1 and 32: ragged lengths that end
+     mid-chunk, chunks wholly past the end, seg_len = 0; then d_head 80 at
+     h2o-danube's served window (16 rows, 1,024 bf16 near and 3,072 int8
+     far keys, 24 layers in turn) timed beside its plain version, SDPA and
+     its byte bound;
   4. main path: geostat_loglik_step at n = 65536, nb = 1024, band t = 8,
      {fp32 band, bf16 off-band}, three requests (theta), each through the
      kernels and through the plain versions; launch counts, log-likelihoods,
@@ -255,7 +261,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      |logit|, the same greedy ids, the same kept (token, expert, slot)
      assignments in every layer, the aux within MOE_AUX_TOL, one train step
      with 2 microbatches within TRAIN_CPU_TOL; (b) qwen3-moe-30b-a3b at full
-     width with its depth cut 48 -> 8 layers through serve_full (below) at
+     width with its depth cut 48 -> 4 layers through serve_full (below) at
      phase 7's traffic, its prefill profiled and checked whole;
  19. recurrent serving (models.ssm: mamba, mLSTM, sLSTM through
      forward_lm, prefill, decode_step and generate): (a) xlstm-1.3b's and
@@ -264,22 +270,38 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      5's 1e-4 of max |logit| and the same greedy ids (jamba's prompt not a
      multiple of its mamba_chunk: the scan pads), lm_loss with remat and its
      gradient norm within TRAIN_CPU_TOL; through serve_full, (b) xlstm-1.3b
-     at full width and depth (48 layers; 4 x 512 prompts and 64 tokens; a
-     4-token prefill profiled, whose trace holds ~1,200 launches a token,
-     and 128 tokens checked) and (c) jamba-v0.1-52b at full width with its
-     depth cut 32 -> 8 (one cycle: 7 mamba layers, 4 with MoE, and one
+     at full width with its depth cut 48 -> 24 (4 x 512 prompts and 64
+     tokens; a 4-token prefill profiled, whose trace holds ~1,200 launches a
+     token, and 128 tokens checked) and (c) jamba-v0.1-52b at full width
+     with its depth cut 32 -> 8 (one cycle: 7 mamba layers, 4 with MoE, and one
      attention layer; 4 x 4,096 prompts and 32 tokens; 128 tokens
      profiled, the whole prompt checked);
-     serve_full, in 18 (b), 19 (b) and (c): random weights from a seed,
-     bf16 compute, fp32 params, through serve_lm.generate (the batch halved
-     while serve_peak_bytes predicts more than 70 GiB): prefill seconds, ms
-     per decode step, the peak beside its prediction, the recurrent state's
-     bytes per sequence, a decode step and a prefill under the profiler, a
-     prefill run twice the same bits, with MoE each layer's share of its
-     assignments dropped at capacity, then every attention layer's served
-     cache through mp_attention (exactly 2 launches a layer, no other
-     kernel of the port; none in 19 (b)) against its plain version and
-     exact attention; each phase's seconds (at most 90);
+ 20. the rest of the zoo (whisper's encoder and cross-attention, the vision
+     stub, qwen3-4b, qwen3-32b, h2o-danube-1.8b): (a) the five SMOKEs in
+     fp32 compute on the card and on the CPU from one set of weights and
+     stub inputs: forward_lm (whisper over its encoder's output), prefill
+     (from frames or patches) and 4 decode steps from the prefill's length
+     within 1e-4 and the same greedy ids, lm_loss with frames or patches and
+     its gradient norm within TRAIN_CPU_TOL; through serve_full, (b)
+     whisper-tiny uncut (4 + 4 layers, 1,500 frames; 16 x 32-token prompts,
+     64 tokens), each layer's cross cache through mp_attention at near 256
+     (G = 1, d_head 64) and (c) llava-next-34b at full width with its depth
+     cut 60 -> 8 (2 x (2,880 patches + 1,216 tokens), 32 tokens; d_head
+     128, G = 7) and h2o-danube-1.8b uncut (24 layers; 2 x 8,192 prompts
+     past its 4,096 window, 32 tokens; each window's slots in position
+     order through the d_head 80 kernel, G = 4); the phase's seconds (at
+     most 120);
+     serve_full, in 18 (b), 19 (b), (c) and 20 (b), (c): random weights
+     from a seed, bf16 compute, fp32 params, through serve_lm.generate (the
+     batch halved while serve_peak_bytes predicts more than 70 GiB):
+     prefill seconds, ms per decode step, the peak beside its prediction,
+     the recurrent state's bytes per sequence, a decode step and a prefill
+     under the profiler, a prefill run twice the same bits, with MoE each
+     layer's share of its assignments dropped at capacity, then every
+     attention layer's served cache through mp_attention (exactly 2
+     launches a cache, no other kernel of the port; none in 19 (b)) against
+     its plain version and exact attention; each phase's seconds (at most
+     90);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -339,9 +361,14 @@ QUICK = dict(n=8_192, nb=512, t=4, nu=0.5, off_update="square")
 SERVE = dict(batch=4, prompt=8_192, new=64, near=1_024, blk=128)
 SERVE_QUICK = dict(batch=2, prompt=1_024, new=8, near=256, blk=128)
 # phase 3b: (b, g, d, sn, sf, blk) of tests/test_kernels.py and the
-# conformance sweep, its logit scales, and the bound of verify/bounds.py
+# conformance sweep, and h2o-danube-1.8b's d_head 80 with its GQA's G = 4;
+# its logit scales, and the bound of verify/bounds.py
 ATTN_SHAPES = ((2, 4, 64, 128, 256, 128), (1, 8, 128, 256, 128, 64),
-               (4, 1, 64, 128, 128, 128))
+               (4, 1, 64, 128, 128, 128), (2, 4, 80, 128, 256, 128))
+# phase 3b's timing at d_head 80: h2o-danube-1.8b's served window (phase 20
+# (c)): rows (2 x 8 KV heads), G, d, near slots, far keys (4,096 slots cut
+# at near 1,024), blk, layers taken in turn
+ATTN_D80 = dict(rows=16, g=4, d=80, near=1_024, far=3_072, blk=128, layers=24)
 ATTN_SCALES = (0.5, 1.0, 2.0)
 ATTN_MAX_ABS = 1e-3
 MLE = dict(n=8_192, nb=512, t=4, max_iters=15)
@@ -445,23 +472,26 @@ TRAIN_QUICK = dict(TRAIN, size="20m")
 # compressed step, 1.1e-2), a few times over: the card sums in other orders
 TRAIN_CPU_TOL = dict(loss=1e-5, lr=1e-6, grad_norm=1e-4, update=2e-3, m=3e-2,
                      v=3e-2)
-# phase 18: (b) qwen3-moe-30b-a3b at full width with its depth cut 48 -> 8
-# (the fp32 params of all 48 layers are 122 GB; 8 are 23.6 GB; 16 until
-# phase 19 came and the script's time neared 1,000 s) at phase 7's traffic
+# phase 18: (b) qwen3-moe-30b-a3b at full width with its depth cut 48 -> 4
+# (the fp32 params of all 48 layers are 122 GB; 4 are 12.8 GB; 16 until
+# phase 19 came and the script's time neared 1,000 s, 8 until phase 20
+# came) at phase 7's traffic
 # and banded attention, its weights' seed, the prefill taken under the
 # profiler and the one run twice for the same bits (None: the whole
 # prompt), the peak the prediction may reach before the batch is halved;
 # (a) the SMOKE configs, their prompt and decode steps; the phase's time
 # limit in seconds.  --quick: 4 layers at phase 7's --quick traffic
-MOE = dict(arch="qwen3-moe-30b-a3b", layers=8, batch=4, prompt=8_192, new=64,
+MOE = dict(arch="qwen3-moe-30b-a3b", layers=4, batch=4, prompt=8_192, new=64,
            seed=18, profile_prompt=None, check_prompt=None,
            near=1_024, blk=128, peak_gib=70.0,
            smoke=("qwen3-moe-30b-a3b", "grok-1-314b"), smoke_prompt=(2, 24),
            smoke_steps=4, limit_s=90.0)
 MOE_QUICK = dict(MOE, layers=4, batch=2, prompt=1_024, new=8, near=256)
-# phase 19: (b) xlstm-1.3b at full width and depth, (c) jamba-v0.1-52b at
-# full width with its depth cut 32 -> 8 (one cycle of its 8-block pattern:
-# all 32 layers' fp32 params are ~208 GB, 8 are 53.2 GB), each with its
+# phase 19: (b) xlstm-1.3b at full width with its depth cut 48 -> 24 (for
+# phase 20's time: 48 took 35 s of a full run on a slow host), (c)
+# jamba-v0.1-52b at full width with its depth cut 32 -> 8 (one cycle of its
+# 8-block pattern: all 32 layers' fp32 params are ~208 GB, 8 are 53.2 GB),
+# each with its
 # batch, prompt, new tokens, seed, the prefill taken under the profiler
 # and the one run twice for the same bits (None: the whole prompt); the
 # served attention cache's near window and block; the peak the prediction
@@ -473,7 +503,7 @@ MOE_QUICK = dict(MOE, layers=4, batch=2, prompt=1_024, new=8, near=256)
 # (it is host-bound, ~1,200 launches a token, and a 128-token trace took
 # 72 s to process on one H100) and checks the same bits on 128 tokens.
 # --quick: 4 xlstm layers, shorter prompts
-SSM = dict(xlstm=dict(arch="xlstm-1.3b", layers=48, batch=4, prompt=512,
+SSM = dict(xlstm=dict(arch="xlstm-1.3b", layers=24, batch=4, prompt=512,
                       new=64, seed=19, profile_prompt=4, check_prompt=128),
            jamba=dict(arch="jamba-v0.1-52b", layers=8, batch=4, prompt=4_096,
                       new=32, seed=19, profile_prompt=128, check_prompt=None),
@@ -483,6 +513,38 @@ SSM = dict(xlstm=dict(arch="xlstm-1.3b", layers=48, batch=4, prompt=512,
 SSM_QUICK = dict(SSM, xlstm=dict(SSM["xlstm"], layers=4, batch=2, prompt=128,
                                  new=8),
                  jamba=dict(SSM["jamba"], batch=2, prompt=1_024, new=8),
+                 near=256)
+# phase 20: (b) whisper-tiny at full width and depth, uncut (d 384, 4 + 4
+# layers, 1,500 frames), batch 16 x 32-token prompts and 64 new tokens, its
+# cross caches through the banded attention at near 256 so that their far
+# segment is not empty (its 95-row self caches have no far block at any
+# near window, so they stay out); (c) llava-next-34b at full width with
+# its depth cut 60 -> 8 (fp32 params: ~21.7 GB; all 60 ~138 GB), 2 x
+# (2,880 patches + 1,216 text tokens) = 4,096 positions, 32 new tokens;
+# h2o-danube-1.8b uncut (24 layers, 7.3 GB fp32), 2 x 8,192-token prompts
+# past its 4,096 window (the prompt a multiple of it, ROADMAP C 25), 32 new
+# tokens, its window through mp_attention at d_head 80; each with its seed,
+# the prefill taken under the profiler and the one run twice (None: the
+# whole prompt); the near window (whisper's own for its cross caches) and
+# block; the peak the prediction may reach before the batch is halved; (a)
+# the five SMOKE configs, their prompt, decode steps and lm_loss batch; the
+# phase's time limit in seconds.  --quick: shorter prompts, llava at 2
+# layers, h2o at 4
+ZOO = dict(whisper=dict(arch="whisper-tiny", layers=4, batch=16, prompt=32,
+                        new=64, seed=20, profile_prompt=None, check_prompt=None,
+                        near=256, banded_self=False),
+           llava=dict(arch="llava-next-34b", layers=8, batch=2, prompt=1_216,
+                      new=32, seed=20, profile_prompt=None, check_prompt=None),
+           h2o=dict(arch="h2o-danube-1.8b", layers=24, batch=2, prompt=8_192,
+                    new=32, seed=20, profile_prompt=1_024, check_prompt=None),
+           near=1_024, blk=128, peak_gib=70.0,
+           smoke=("whisper-tiny", "llava-next-34b", "qwen3-4b", "qwen3-32b",
+                  "h2o-danube-1.8b"), smoke_prompt=(2, 20), smoke_steps=4,
+           smoke_loss=(2, 32), limit_s=120.0)
+ZOO_QUICK = dict(ZOO, whisper=dict(ZOO["whisper"], batch=4, new=8),
+                 llava=dict(ZOO["llava"], layers=2, prompt=256, new=8),
+                 h2o=dict(ZOO["h2o"], layers=4, prompt=4_096, new=8,
+                          profile_prompt=256),
                  near=256)
 # 18 (a): the aux loss, card against CPU, relative: an fp32 mean of fp32
 # softmax outputs and integer counts, summed in other orders
@@ -1579,10 +1641,14 @@ def check_attention(gen, results):
                          max_abs_vs_oracle=vs_oracle, bound=ATTN_MAX_ABS,
                          partials_rel=err["partials_rel"])
     # a bf16 query, once per head dim, and the widest G the kernel takes
+    # (at d = 80 every thread group's last head and the idle threads)
     for (b, g, d, sn, sf, blk), q_dt in (
             (ATTN_SHAPES[0], torch.bfloat16), (ATTN_SHAPES[1], torch.bfloat16),
+            (ATTN_SHAPES[3], torch.bfloat16),
             ((2, 16, 128, 192, 384, 64), torch.float32),
-            ((2, 16, 64, 192, 384, 64), torch.bfloat16)):
+            ((2, 16, 64, 192, 384, 64), torch.bfloat16),
+            ((2, 16, 80, 192, 384, 64), torch.float32),
+            ((3, 15, 80, 192, 384, 64), torch.bfloat16)):
         q = randn(b, g, d).to(q_dt)
         kv = [randn(b, s_, d) for s_ in (sn, sn, sf, sf)]
         kq, vq, sc = ops.quantize_kv(kv[2], kv[3], blk=blk)
@@ -1634,11 +1700,42 @@ def check_attention(gen, results):
              n_split_far=split_plan(b, sf, blk)[1], max_abs_vs_plain=vs_plain,
              max_abs_vs_oracle=vs_oracle, bound=ATTN_MAX_ABS,
              partials_rel=err["partials_rel"])
+    # d_head 80 at h2o-danube-1.8b's served window, its layers in turn
+    # (each ~13 MB of K/V; 24 are 6x the 50 MB L2): held to its plain
+    # version and timed as phase 7 times d_head 64
+    a = ATTN_D80
+    q = randn(a["rows"], a["g"], a["d"])
+    layer_segs = []
+    for _ in range(a["layers"]):
+        kq, vq, sc = ops.quantize_kv(randn(a["rows"], a["far"], a["d"]),
+                                     randn(a["rows"], a["far"], a["d"]),
+                                     blk=a["blk"])
+        layer_segs.append((randn(a["rows"], a["near"], a["d"]).bfloat16(),
+                           randn(a["rows"], a["near"], a["d"]).bfloat16(),
+                           torch.full((a["rows"],), a["near"], dtype=torch.int32,
+                                      device="cuda"), kq, vq, sc,
+                           torch.full((a["rows"],), a["far"], dtype=torch.int32,
+                                      device="cuda")))
+    err = _attn_errors(q, layer_segs[0], blk=a["blk"], sm_scale=a["d"] ** -0.5)
+    require(err["vs_plain"] <= ATTN_MAX_ABS and err["vs_oracle"] <= ATTN_MAX_ABS,
+            f"mp_attention d=80 served window: {err['vs_plain']}, {err['vs_oracle']}")
+    worst = max(worst, err["vs_plain"])
+    d80 = attn_layer_times(q, layer_segs, blk=a["blk"], sm_scale=a["d"] ** -0.5)
+    emit(phase="kernels", kernel="mp_attention", shape=a,
+         max_abs_vs_plain=err["vs_plain"], max_abs_vs_oracle=err["vs_oracle"],
+         bound=ATTN_MAX_ABS, partials_rel=err["partials_rel"],
+         kernel_ms_per_layer=d80["ms"], plain_ms_per_layer=d80["plain_ms"],
+         banded_call_ms_per_layer=d80["banded_call_ms"],
+         sdpa_ms_per_layer=d80["library_ms"],
+         max_abs_sdpa_vs_kernel=d80["max_abs_sdpa_vs_kernel"],
+         bound_ms=d80["bound_ms"], bound_by=d80["bound_by"], bytes=d80["bytes"])
+    del layer_segs
     results["mp_attention"] = dict(
         name="mp_attention", route="cuda",
         source="src/repro_torch/csrc/mp_attention.cu",
         replaces="src/repro/kernels/mp_attention/mp_attention.py:78",
-        max_abs_err=worst)
+        max_abs_err=worst, ms_d80=d80["ms"], plain_ms_d80=d80["plain_ms"],
+        bound_ms_d80=d80["bound_ms"], library_ms_d80=d80["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1694,19 +1791,101 @@ def smoke_lm_vs_cpu():
          same_ids=same, ids_card=out["cuda"]["ids"].tolist())
 
 
+def window_in_order(entry, c: int, length):
+    """One attention layer's served cache entry at cycle c as (k, v,
+    length) for `serve_lm.banded_kv_attention`: a full cache as it is, its
+    first `length` slots filled; a circular sliding window (it has `pos`)
+    with its filled slots gathered in position order, oldest first, so that
+    the near window holds the latest positions, and length their count."""
+    import torch
+    k, v = entry["k"][c], entry["v"][c]
+    if "pos" not in entry:
+        return k, v, length
+    pos = entry["pos"][c]
+    order = torch.argsort(pos)
+    order = order[pos[order] >= 0]
+    return k[:, order], v[:, order], int(order.numel())
+
+
 def _ids_checksum(ids) -> str:
     import hashlib
     return hashlib.sha256(ids.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def attn_segments_all(fn, q, layer_segs, kw):
+    """fn (the launch wrapper or the plain version) on each layer's near
+    and far segments in turn."""
+    for kn, vn, near_len, kf, vf, sc, far_len in layer_segs:
+        fn(q, kn, vn, None, near_len, **kw)
+        fn(q, kf, vf, sc, far_len, **kw)
+
+
+def attn_layer_times(q, layer_segs, *, blk, sm_scale):
+    """mp_attention's numbers per layer over `layer_segs` (each layer's
+    `fold_banded` segments, taken in turn so that each comes from device
+    memory): `ms` the two segment launches alone (the kernel's time),
+    `plain_ms` their plain versions, `banded_call_ms` the whole banded call
+    with its plain-PyTorch merge, `library_ms` one SDPA call over the
+    dequantized K/V (bf16) with the validity mask, G query heads as G
+    queries of one KV head, and its distance to the kernel's output; the
+    bound: the bytes the two launches need per layer (q for each, the
+    filled K/V rows of each segment, the far scales, each (acc, m, l))
+    over 3.35 TB/s against 4 G d flops a key over the fp32 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mp_attention import ops, ref
+    from repro_torch.kernels.mp_attention.mp_attention import launch
+    kw = dict(blk=blk, sm_scale=sm_scale)
+    n_layers = len(layer_segs)
+    rows, g, hd = q.shape
+    out = dict(
+        ms=time_ms(lambda: attn_segments_all(launch, q, layer_segs, kw)) / n_layers,
+        plain_ms=time_ms(lambda: attn_segments_all(
+            ref.flash_decode_segment, q, layer_segs, kw)) / n_layers,
+        banded_call_ms=time_ms(lambda: [ops.banded_decode_attention(q, *sg, **kw)
+                                        for sg in layer_segs]) / n_layers)
+    sdpa_in = []
+    for kn, vn, near_len, kf, vf, sc, far_len in layer_segs:
+        nblk = kf.shape[1] // blk
+        deq = [(x.float().reshape(x.shape[0], nblk, blk, hd)
+                * sc[:, :, i, None, None]).reshape(x.shape).bfloat16()
+               for i, x in enumerate((kf, vf))]
+        k_all = torch.cat([deq[0], kn], dim=1)[:, None]
+        v_all = torch.cat([deq[1], vn], dim=1)[:, None]
+        pos = torch.arange(k_all.shape[2], device="cuda")
+        mask = ((pos < far_len[0]) | ((pos >= kf.shape[1])
+                                      & (pos < kf.shape[1] + near_len[0])))
+        sdpa_in.append((k_all, v_all, mask[None, None, None, :].expand(
+            k_all.shape[0], 1, 1, -1)))
+    q_sdpa = q.bfloat16()[:, None]
+    lib_out = F.scaled_dot_product_attention(q_sdpa, *sdpa_in[0][:2],
+                                             attn_mask=sdpa_in[0][2])
+    out["library_ms"] = time_ms(lambda: [
+        F.scaled_dot_product_attention(q_sdpa, k_, v_, attn_mask=m_)
+        for k_, v_, m_ in sdpa_in]) / n_layers
+    kernel_out = ops.banded_decode_attention(q, *layer_segs[0], **kw)
+    out["max_abs_sdpa_vs_kernel"] = float(
+        (lib_out[:, 0].float() - kernel_out).abs().max())
+    kn, vn, near_len, kf, vf, sc, far_len = layer_segs[0]
+    near_n, far_n = int(near_len[0]), int(far_len[0])
+    bytes_moved = (2 * q.numel() * 4
+                   + 2 * rows * hd * (near_n * kn.element_size()
+                                      + far_n * kf.element_size())
+                   + sc.numel() * 4 + 2 * (q.numel() + 2 * rows * g) * 4)
+    flops = 4 * rows * g * hd * (near_n + far_n)
+    out.update(bytes=bytes_moved, flops=flops,
+               bound_ms=1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS),
+               bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+               else "operations")
+    return out
 
 
 def serving(scfg, results):
     """Phase 7: generate on llama3.2-1b, then every layer's served cache
     through the banded-precision attention, counted, compared and timed."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import LM_CONFIGS
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.mp_attention import ops, ref
     from repro_torch.kernels.mp_attention.mp_attention import launch
     from repro_torch.models import decode_step, init_lm, prefill
     from repro_torch.serve_lm import (banded_kv_attention, cache_bytes_saved,
@@ -1799,61 +1978,19 @@ def serving(scfg, results):
     torch.cuda.empty_cache()
 
     # times: each layer in turn, so that each layer's ~39 MB of K/V come
-    # from device memory (16 layers are 12x the 50 MB L2), per layer: the
-    # two segment launches alone (the kernel's time), their plain versions,
-    # and the whole banded call with its plain-PyTorch merge
-    n_layers = len(layer_segs)
-
-    def segments_all(fn):
-        for kn, vn, near_len, kf, vf, sc, far_len in layer_segs:
-            fn(q, kn, vn, None, near_len, **kw)
-            fn(q, kf, vf, sc, far_len, **kw)
-    ms = time_ms(lambda: segments_all(launch)) / n_layers
-    # the same launches under the profiler: device time by kernel against
-    # wall time says how much of `ms` is the wrapper's host work
-    wall_ms, busy, rows = device_profile(lambda: segments_all(launch))
+    # from device memory (16 layers are 12x the 50 MB L2); the segment
+    # launches under the profiler: device time by kernel against wall time
+    # says how much of the kernel's time is the wrapper's host work
+    wall_ms, busy, rows = device_profile(
+        lambda: attn_segments_all(launch, q, layer_segs, kw))
     emit(phase="serving_profile", what="mp_attention segments, all layers",
          wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
          top=[{"name": k[:90], "count": c, "ms": ms_} for k, c, ms_ in rows[:6]])
-    plain_ms = time_ms(lambda: segments_all(ref.flash_decode_segment)) / n_layers
-    merged_ms = time_ms(lambda: [ops.banded_decode_attention(q, *sg, **kw)
-                                 for sg in layer_segs]) / n_layers
-
-    # library yardstick: one SDPA call over the dequantized K/V (bf16) with
-    # the validity mask, G query heads as G queries of one KV head
-    sdpa_in = []
-    for kn, vn, near_len, kf, vf, sc, far_len in layer_segs:
-        nblk = kf.shape[1] // blk
-        deq = [(x.float().reshape(x.shape[0], nblk, blk, hd)
-                * sc[:, :, i, None, None]).reshape(x.shape).bfloat16()
-               for i, x in enumerate((kf, vf))]
-        k_all = torch.cat([deq[0], kn], dim=1)[:, None]
-        v_all = torch.cat([deq[1], vn], dim=1)[:, None]
-        pos = torch.arange(k_all.shape[2], device="cuda")
-        mask = ((pos < far_len[0]) | ((pos >= kf.shape[1])
-                                      & (pos < kf.shape[1] + near_len[0])))
-        sdpa_in.append((k_all, v_all, mask[None, None, None, :].expand(
-            k_all.shape[0], 1, 1, -1)))
-    q_sdpa = q.bfloat16()[:, None]
-    lib_out = F.scaled_dot_product_attention(q_sdpa, *sdpa_in[0][:2],
-                                             attn_mask=sdpa_in[0][2])
-    library_ms = time_ms(lambda: [
-        F.scaled_dot_product_attention(q_sdpa, k_, v_, attn_mask=m_)
-        for k_, v_, m_ in sdpa_in]) / n_layers
+    times = attn_layer_times(q, layer_segs, blk=blk, sm_scale=sm_scale)
+    ms, plain_ms, library_ms = times["ms"], times["plain_ms"], times["library_ms"]
+    bound_ms, bytes_moved = times["bound_ms"], times["bytes"]
     kn, vn, near_len, kf, vf, sc, far_len = layer_segs[0]
-    lib_vs_kernel = float((lib_out[:, 0].float() - ops.banded_decode_attention(
-        q, *layer_segs[0], **kw)).abs().max())
-
-    # bound: the bytes the two launches need per layer: q for each, the
-    # filled K/V rows of each segment, the far scales, each (acc, m, l)
-    rows = q.shape[0]
-    near_n, far_n = int(near_len[0]), int(far_len[0])
-    bytes_moved = (2 * q.numel() * 4
-                   + 2 * rows * hd * (near_n * kn.element_size()
-                                      + far_n * kf.element_size())
-                   + sc.numel() * 4 + 2 * (q.numel() + 2 * rows * g) * 4)
-    flops = 4 * rows * g * hd * (near_n + far_n)
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    near_n, far_n, rows = int(near_len[0]), int(far_len[0]), q.shape[0]
     saved = cache_bytes_saved(kn.shape[1], kf.shape[1])
     emit(phase="serving", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          batch=b, prompt=s, new_tokens=n_new, compute="bfloat16",
@@ -1869,15 +2006,14 @@ def serving(scfg, results):
          bound=ATTN_MAX_ABS, partials_rel=partials_rel, partials_rel_bound=1e-4,
          max_abs_plain=plain_max,
          max_abs_banded_vs_exact=vs_exact, max_abs_plain_vs_exact=plain_vs_exact,
-         max_abs_sdpa_vs_kernel=lib_vs_kernel, cache_bytes_saved=saved,
-         kernel_ms_per_layer=ms, plain_ms_per_layer=plain_ms,
-         banded_call_ms_per_layer=merged_ms, sdpa_ms_per_layer=library_ms,
-         bound_ms=bound_ms, bytes=bytes_moved)
+         max_abs_sdpa_vs_kernel=times["max_abs_sdpa_vs_kernel"],
+         cache_bytes_saved=saved, kernel_ms_per_layer=ms,
+         plain_ms_per_layer=plain_ms,
+         banded_call_ms_per_layer=times["banded_call_ms"],
+         sdpa_ms_per_layer=library_ms, bound_ms=bound_ms, bytes=bytes_moved)
     r = results["mp_attention"]
     r.update(launches=counts["mp_attention"], ms=ms, plain_ms=plain_ms,
-             bound_ms=bound_ms, library_ms=library_ms,
-             bound_by="bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-             else "operations",
+             bound_ms=bound_ms, library_ms=library_ms, bound_by=times["bound_by"],
              max_abs_err=max(r["max_abs_err"], vs_plain))
 
 
@@ -5141,14 +5277,21 @@ def _layer_param_count(cfg, idx_in_pattern: int = 0) -> int:
 
 
 def train_param_count(cfg) -> int:
-    """init_lm's parameter count of a model of any ported family (dense,
-    MoE, SSM, hybrid): the embedding (and the unembedding unless tied),
-    the layers, the final norm."""
-    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    """init_lm's parameter count of a model of any family (dense, MoE, SSM,
+    hybrid, vision stub, encoder-decoder): the embedding (and the
+    unembedding unless tied), the layers, the final norm; whisper's
+    encoder layers, their norm and each decoder layer's cross-attention
+    with its pre-norm; the vision stub's (d, d) adapter."""
+    d = cfg.d_model
+    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
     pattern = len(cfg.block_pattern)
     layers = sum(_layer_param_count(cfg, i % pattern)
                  for i in range(cfg.n_layers))
-    return embed + layers + cfg.d_model
+    extra = d * d if cfg.frontend == "vision_stub" else 0
+    if cfg.enc_dec:
+        extra += (cfg.n_enc_layers * _layer_param_count(cfg) + d
+                  + cfg.n_layers * (d + _mixer_param_count(cfg, "attn")))
+    return embed + layers + d + extra
 
 
 def train_peak_bytes(cfg, micro: int, seq: int) -> int:
@@ -5488,7 +5631,8 @@ def serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
                 at the first cycle;
       cache     the attention layers' prompt bf16 K/V cache (prefill fills
                 it layer by layer, allocated at the first) and its grown
-                copy `cache_grown` (both held while `_grow_cache` runs);
+                copy `cache_grown` (both held while `_grow_cache` runs); a
+                sliding window's cache is W slots and is not grown;
       scores    the fp32 scores of one query chunk (all of S x S below
                 `_QCHUNK_THRESHOLD`), two at once: the product beside its
                 scaled copy, then the softmax beside its input;
@@ -5515,34 +5659,66 @@ def serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
                 C, its decayed copy, the outer product, the new C);
       slstm     one sLSTM layer: the fp32 pre-activations (16 d bytes a
                 token), the step outputs and their stack (8 d);
-      residual  three (B, S, d) activations (x, its norm, a block's output).
-    `total` = params + state + the larger of prefill's moment (cache,
-    residual and the largest of scores + attention, dispatch, mamba,
-    mlstm, slstm) and the grow's (both caches).  `groups` and `capacity`
-    are the MoE prefill's (None without MoE)."""
+      residual  three (B, S, d) activations (x, its norm, a block's output);
+      inputs    the stub frames or patches, fp32, and their bf16 copy;
+      cross     whisper's cross cache, bf16 k and v (C, B, F, KV, hd),
+                allocated at the first cycle and passed through the grow;
+      cross_attention  one decoder layer's cross-attention: two fp32
+                (B, H, S, F) scores and the encoder memory's k, v, fp32 k;
+      encoder   the encoder's moment: its residual, the fp32 sinusoid,
+                scores and attention terms at F (its attention is never
+                query-chunked below _QCHUNK_THRESHOLD), and its FFN's
+                three (B, F, d_ff) activations.
+    With the vision stub S counts the patches: S = n_patches + prompt.
+    `total` = params + state + inputs + the larger of the encoder's moment,
+    prefill's (cache, cross, the encoder's bf16 output, residual and the
+    largest of scores + attention, cross_attention, dispatch, mamba,
+    mlstm, slstm) and the grow's (both caches and cross).  `groups` and
+    `capacity` are the MoE prefill's (None without MoE)."""
     from repro_torch.models import layers
     kinds = set(cfg.block_pattern)
     d, h = cfg.d_model, cfg.n_heads
     d_in = cfg.ssm_expand * d
-    t = batch * prompt
     out = dict.fromkeys(("cache", "cache_grown", "scores", "attention",
-                         "dispatch", "mamba", "mlstm", "slstm"), 0)
+                         "dispatch", "mamba", "mlstm", "slstm", "inputs",
+                         "cross", "cross_attention", "encoder"), 0)
+    if cfg.frontend == "vision_stub":
+        out["inputs"] = batch * cfg.n_patches * d * (4 + 2)
+        prompt += cfg.n_patches
+    t = batch * prompt
     out["params"] = 4 * train_param_count(cfg)
     out["state"] = ssm_state_bytes(cfg, batch)
     out["residual"] = 3 * t * d * 2
     groups = capacity = None
+    kv, hd = cfg.n_kv_heads, cfg.d_head
+
+    def attention_terms(b, s):  # (scores, attention) of one layer at s
+        chunked = (s >= layers._QCHUNK_THRESHOLD and s % layers._QCHUNK == 0)
+        qc = layers._QCHUNK if chunked else s
+        return (2 * b * h * qc * s * 4,
+                3 * b * s * h * hd * 2 + 3 * b * s * kv * hd * 2
+                + b * s * kv * hd * 4 + b * qc * h * hd * 4)
     if "attn" in kinds:
-        kv, hd = cfg.n_kv_heads, cfg.d_head
         n_attn = sum(cfg.layer_block_type(i) == "attn"
                      for i in range(cfg.n_layers))
         kv_row = n_attn * 2 * batch * kv * hd * 2
-        chunked = (prompt >= layers._QCHUNK_THRESHOLD
-                   and prompt % layers._QCHUNK == 0)
-        qc = layers._QCHUNK if chunked else prompt
-        out.update(cache=kv_row * prompt, cache_grown=kv_row * (prompt + new),
-                   scores=2 * batch * h * qc * prompt * 4,
-                   attention=(3 * t * h * hd * 2 + 3 * t * kv * hd * 2
-                              + t * kv * hd * 4 + batch * qc * h * hd * 4))
+        scores, attention = attention_terms(batch, prompt)
+        # a sliding window's cache is its W slots, and the grow keeps it
+        w = cfg.swa_window
+        out.update(cache=kv_row * (prompt if w is None else w),
+                   cache_grown=kv_row * (prompt + new) if w is None else 0,
+                   scores=scores, attention=attention)
+    enc_out = 0
+    if cfg.enc_dec:
+        f = cfg.n_enc_frames
+        out["inputs"] = batch * f * d * (4 + 2)
+        out["cross"] = cfg.n_layers * 2 * batch * f * kv * hd * 2
+        out["cross_attention"] = (2 * batch * h * prompt * f * 4
+                                  + batch * f * kv * hd * (2 + 2 + 4))
+        scores, attention = attention_terms(batch, f)
+        out["encoder"] = (3 * batch * f * d * 2 + f * d * 4 + scores
+                          + attention + 3 * batch * f * cfg.d_ff * 2)
+        enc_out = batch * f * d * 2
     if cfg.moe is not None:
         e, k, fe = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert
         groups = layers._moe_group_count(t, e)
@@ -5564,11 +5740,12 @@ def serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
         out["mlstm"] = 32 * t * d_in + 4 * batch * h * hd * hd * 4
     if "slstm" in kinds:
         out["slstm"] = 24 * t * d
-    prefill = out["cache"] + out["residual"] + max(
-        out["scores"] + out["attention"], out["dispatch"], out["mamba"],
-        out["mlstm"], out["slstm"])
-    out["total"] = out["params"] + out["state"] + max(
-        prefill, out["cache"] + out["cache_grown"])
+    prefill = out["cache"] + out["cross"] + enc_out + out["residual"] + max(
+        out["scores"] + out["attention"], out["cross_attention"],
+        out["dispatch"], out["mamba"], out["mlstm"], out["slstm"])
+    out["total"] = out["params"] + out["state"] + out["inputs"] + max(
+        out["encoder"], prefill,
+        out["cache"] + out["cache_grown"] + out["cross"])
     out.update(groups=groups, capacity=capacity)
     return out
 
@@ -5732,19 +5909,37 @@ def moe_smoke_vs_cpu(mcfg, smi):
                     f"{name} SMOKE train step card vs CPU: {key} {train_rel[key]} > {tol}")
 
 
+def stub_inputs(cfg, batch: int, gen, device="cuda") -> dict:
+    """The stub inputs `generate` and `prefill` take beside the prompt, fp32
+    standard normal from `gen`: whisper's frames (B, F, d), the vision
+    stub's extra_embeds (B, n_patches, d); none for the other families."""
+    import torch
+    if cfg.enc_dec:
+        return {"frames": torch.randn((batch, cfg.n_enc_frames, cfg.d_model),
+                                      generator=gen, device=device)}
+    if cfg.frontend == "vision_stub":
+        return {"extra_embeds": torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                            generator=gen, device=device)}
+    return {}
+
+
 def serve_full(phase, mcfg, pcfg, smi, results):
-    """18 (b), 19 (b), (c): one model at full width, depth as `mcfg` cuts
-    it (random weights from a seed, bf16 compute, fp32 params) through
+    """18 (b), 19 (b), (c), 20 (b), (c): one model at full width, depth as
+    `mcfg` cuts it (random weights from a seed, bf16 compute, fp32 params,
+    the stub frames or patches fp32 standard normal) through
     serve_lm.generate, then every attention layer's served cache through
-    the banded-precision attention: the predicted peak (the batch halved
-    past pcfg's peak_gib) beside the measured one, the recurrent state's
-    bytes per sequence, prefill seconds, ms per decode step, a decode step
-    and a `profile_prompt`-token prefill under the profiler (None: the
-    whole prompt), two prefills of `check_prompt` tokens the same bits (the
+    the banded-precision attention (a sliding window's slots in position
+    order, `window_in_order`; mcfg's `banded_self` False leaves the self
+    caches out), and whisper's cross caches too, at mcfg's `near` where it
+    has one, else pcfg's: the predicted peak (the batch halved past pcfg's
+    peak_gib) beside the measured one, the recurrent state's bytes per
+    sequence, prefill seconds, ms per decode step, a decode step and a
+    `profile_prompt`-token prefill under the profiler (None: the whole
+    prompt), two prefills of `check_prompt` tokens the same bits (the
     profiled one is the first where the prompts agree), with MoE each
     layer's share of that prefill's assignments dropped at capacity;
-    exactly 2 mp_attention launches an attention layer and no other kernel
-    of the port, the kernel against its plain version and exact attention.
+    exactly 2 mp_attention launches a cache and no other kernel of the
+    port, the kernel against its plain version and exact attention.
     Returns the launch counts."""
     import torch
     from repro_torch.configs import LM_CONFIGS
@@ -5754,7 +5949,7 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     full = LM_CONFIGS[mcfg["arch"]]
     cfg = full.scaled(n_layers=mcfg["layers"])
     b, s, n_new = mcfg["batch"], mcfg["prompt"], mcfg["new"]
-    near, blk = pcfg["near"], pcfg["blk"]
+    near, blk = mcfg.get("near", pcfg["near"]), pcfg["blk"]
     attn_slots = [f"b{i}" for i, bt in enumerate(cfg.block_pattern) if bt == "attn"]
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -5784,22 +5979,29 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     t0 = time.perf_counter()
     params = init_lm(gen, cfg)
     prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    stubs = stub_inputs(cfg, b, gen)
     kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
     q = torch.randn((b * kv, g, hd), generator=gen, device="cuda")
     t0 = lap("init", t0)
-    length = s + n_new - 1  # the last generated id is never written
+    s_tot = s + (cfg.n_patches if "extra_embeds" in stubs else 0)
+    length = s_tot + n_new - 1  # the last generated id is never written
 
     # the main path, counted: generate, then each attention layer's banded
-    # attention
+    # attention (and each cross cache's)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     stats = {}
-    ids, cache = generate(params, cfg, prompt, n_new, stats=stats)
+    ids, cache = generate(params, cfg, prompt, n_new, stats=stats, **stubs)
     peak = torch.cuda.max_memory_allocated() / 2**30
     t0 = lap("generate", t0)
-    banded = [(key, c, banded_kv_attention(cache[key]["k"][c], cache[key]["v"][c],
-                                           q, length, near=near, blk=blk))
-              for key in attn_slots for c in range(cfg.n_cycles)]
+    served = [(key, c, window_in_order(cache[key], c, length))
+              for key in attn_slots for c in range(cfg.n_cycles)
+              if mcfg.get("banded_self", True)]
+    served += [("cross", c, window_in_order(cache["cross"], c, cfg.n_enc_frames))
+               for c in range(cfg.n_cycles) if "cross" in cache]
+    banded = [(key, c, (k_, v_, n_),
+               banded_kv_attention(k_, v_, q, n_, near=near, blk=blk))
+              for key, c, (k_, v_, n_) in served]
     torch.cuda.synchronize()
     counts = launch_counts()
     expected = {"matern_cov": 0, "matern_cov_grad": 0, "blocked_potrf": 0,
@@ -5808,7 +6010,8 @@ def serve_full(phase, mcfg, pcfg, smi, results):
             f"expected {expected}")
     require(tuple(ids.shape) == (b, n_new) and int(ids.min()) >= 0
             and int(ids.max()) < cfg.vocab, f"generated ids {tuple(ids.shape)}")
-    state = {key: e for key, e in cache.items() if key not in attn_slots}
+    state = {key: e for key, e in cache.items()
+             if key not in attn_slots and key != "cross"}
     state_bytes = sum(t.numel() * t.element_size() for e in state.values()
                       for t in e.values())
     require(state_bytes == ssm_state_bytes(cfg, b),  # no S in the reckoning
@@ -5817,25 +6020,30 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     require(all(bool(torch.isfinite(t.float()).all()) for e in state.values()
                 for t in e.values()), f"{cfg.name}: recurrent state not finite")
 
-    # each attention layer's banded attention: the kernel against its plain
+    # each served cache's banded attention: the kernel against its plain
     # version (partials and merged, _attn_errors) and the main path's
     # output against exact attention
     vs_plain = vs_oracle = vs_exact = partials_rel = 0.0
     kw = dict(blk=blk, sm_scale=hd ** -0.5)
-    for key, c, (out, exact) in banded:
-        layer_k, layer_v = cache[key]["k"][c], cache[key]["v"][c]
-        require(tuple(layer_k.shape) == (b, s + n_new, kv, hd)
-                and bool(torch.isfinite(layer_k[:, :length]).all())
-                and bool(torch.isfinite(layer_v[:, :length]).all()),
+    for key, c, (layer_k, layer_v, n_), (out, exact) in banded:
+        # a window's filled slots, a cross cache's frames, a full cache's
+        # prompt and new rows
+        rows = (n_ if "pos" in cache.get(key, {}) else cfg.n_enc_frames
+                if key == "cross" else s_tot + n_new)
+        require(tuple(layer_k.shape) == (b, rows, kv, hd)
+                and bool(torch.isfinite(layer_k[:, :n_]).all())
+                and bool(torch.isfinite(layer_v[:, :n_]).all()),
                 f"{cfg.name} {key}: served cache wrong shape or not finite")
-        segs, _ = fold_banded(layer_k, layer_v, length, near=near, blk=blk)
+        segs, _ = fold_banded(layer_k, layer_v, n_, near=near, blk=blk)
         err = _attn_errors(q, segs, **kw)
         require(bool(torch.isfinite(out).all()), f"{cfg.name} {key}: banded not finite")
         vs_plain = max(vs_plain, err["vs_plain"], float((out - err["plain"]).abs().max()))
         vs_oracle = max(vs_oracle, err["vs_oracle"])
         partials_rel = max(partials_rel, err["partials_rel"])
         vs_exact = max(vs_exact, float((out - exact).abs().max()))
-    del banded
+    far_blocks = {key: max(n_ - near, 0) // blk  # as fold_banded cuts them
+                  for key, c, (_, _, n_), _ in banded if c == 0}
+    del banded, served
     if attn_slots:
         require(vs_plain <= ATTN_MAX_ABS and vs_oracle <= ATTN_MAX_ABS,
                 f"{cfg.name} served cache: kernel vs plain {vs_plain}, vs oracle "
@@ -5853,7 +6061,8 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     box, profiles = {}, {}
     for what, fn in (
             ("decode_step", lambda: decode_step(params, cache, ids[:, -1:], length, cfg)),
-            ("prefill", lambda: box.update(logits=prefill(params, short, cfg)[0]))):
+            ("prefill", lambda: box.update(logits=prefill(params, short, cfg,
+                                                          **stubs)[0]))):
         wall_ms, busy, rows = device_profile(fn)
         profiles[what] = dict(wall_ms=wall_ms, device_busy_ms=busy,
                               idle_share=1 - busy / wall_ms,
@@ -5871,9 +6080,9 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     # second with each MoE layer's routing recorded
     check = prompt[:, :mcfg["check_prompt"]]
     first = (box.pop("logits") if check.shape == short.shape
-             else prefill(params, check, cfg)[0])
+             else prefill(params, check, cfg, **stubs)[0])
     with moe_routing() as log:
-        again, _ = prefill(params, check, cfg)
+        again, _ = prefill(params, check, cfg, **stubs)
     same_bits = torch.equal(again, first)
     t0 = lap("second prefill", t0)
     require(bool(torch.isfinite(again).all()), f"{cfg.name} prefill logits not finite")
@@ -5883,7 +6092,8 @@ def serve_full(phase, mcfg, pcfg, smi, results):
                 for i in range(cfg.n_layers))
     require(len(shares) == n_moe, f"routing of {len(shares)} layers, {n_moe} MoE")
     emit(phase=phase, step="full", model=cfg.name, smi=smi,
-         layers=cfg.n_layers, batch=b, prompt=s, new_tokens=n_new,
+         layers=cfg.n_layers, batch=b, prompt=s, positions=s_tot, new_tokens=n_new,
+         stub_inputs={key: list(x.shape) for key, x in stubs.items()},
          compute="bfloat16", seconds=secs, prefill_seconds=stats["prefill_s"],
          decode_ms_per_step=1e3 * stats["decode_s"] / stats["decode_steps"],
          peak_gib=peak, peak_gib_predicted=predicted,
@@ -5895,7 +6105,7 @@ def serve_full(phase, mcfg, pcfg, smi, results):
          dropped_share_per_layer=shares,
          prefill_capacity=log[0]["capacity"] if log else None,
          ids_sha256=_ids_checksum(ids), ids_head=ids[0, :8].tolist(),
-         launches=counts,
+         launches=counts, far_blocks=far_blocks,
          max_abs_kernel_vs_plain=vs_plain if attn_slots else None,
          max_abs_kernel_vs_oracle=vs_oracle if attn_slots else None,
          bound=ATTN_MAX_ABS, partials_rel=partials_rel if attn_slots else None,
@@ -5940,48 +6150,54 @@ def _grad_norm(grads) -> float:
     return math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
 
 
-def ssm_smoke_vs_cpu(scfg, smi):
-    """19 (a): each recurrent SMOKE config in fp32 compute on the card and
-    on the CPU, one set of weights from a seed: forward_lm's and prefill's
-    logits within 1e-4 of max |logit|, then `steps` decode steps, each run
-    on both devices from a copy of the card's cache (phase 5's reason) with
-    the card's greedy id: logits within 1e-4 and the same greedy ids; then
-    lm_loss with remat (the sequence scans' chunk checkpoints taken at
-    S = 128) and its gradient within TRAIN_CPU_TOL's loss and grad_norm.
-    jamba's prompt is not a multiple of its mamba_chunk, so its scan pads
-    on the card.  The CPU runs one intra-op thread meanwhile: with one a
-    core its thousands of tiny ops took 11 s instead of about 1 (an xlstm
-    loss on the card's host)."""
+def smoke_vs_cpu(phase, seed, scfg, smi):
+    """19 (a), 20 (a): each SMOKE config of scfg["smoke"] in fp32 compute on
+    the card and on the CPU, one set of weights and stub inputs
+    (`stub_inputs`) from a seed: forward_lm's and prefill's logits within
+    1e-4 of max |logit|, then `steps` decode steps from pos = the prefill's
+    length, each run on both devices from a copy of the card's cache (phase
+    5's reason) with the card's greedy id: logits within 1e-4 and the same
+    greedy ids; then lm_loss with remat (the sequence scans' chunk
+    checkpoints taken at S = 128 for the SSMs) and its gradient within
+    TRAIN_CPU_TOL's loss and grad_norm.  jamba's prompt is not a multiple
+    of its mamba_chunk, so its scan pads on the card.  The CPU runs one
+    intra-op thread meanwhile: with one a core its thousands of tiny ops
+    took 11 s instead of about 1 (an xlstm loss on the card's host)."""
     import torch
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # the CPU's tiny ops: one intra-op thread
     try:
-        _ssm_smoke_vs_cpu(scfg, smi)
+        _smoke_vs_cpu(phase, seed, scfg, smi)
     finally:
         torch.set_num_threads(threads)
 
 
-def _ssm_smoke_vs_cpu(scfg, smi):
+def _smoke_vs_cpu(phase, seed, scfg, smi):
     import torch
     from repro_torch.configs import LM_SMOKE_CONFIGS
-    from repro_torch.models import decode_step, forward_lm, init_lm, lm_loss, prefill
+    from repro_torch.models import (decode_step, encode, forward_lm, init_lm,
+                                    lm_loss, prefill)
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.serve_lm import _grow_cache
     kw = dict(compute_dtype=torch.float32)
     for name in scfg["smoke"]:
         t_model = time.perf_counter()
         cfg = LM_SMOKE_CONFIGS[name]
-        gen = torch.Generator().manual_seed(19)
+        gen = torch.Generator().manual_seed(seed)
         params = {"cpu": init_lm(gen, cfg, device="cpu")}
         params["cuda"] = _to_device(params["cpu"], "cuda")
         prompt = torch.randint(0, cfg.vocab, scfg["smoke_prompt"], generator=gen)
+        stubs = stub_inputs(cfg, prompt.shape[0], gen, device="cpu")
         require(prompt.shape[1] % cfg.mamba_chunk != 0 or "mamba" not in cfg.block_pattern,
                 f"{name}: the prompt is a multiple of the mamba chunk")
         out, caches = {}, {}
         for dev, p in params.items():
-            tp = prompt.to(dev)
-            logits, _ = forward_lm(p, tp, cfg, **kw)
-            pre, caches[dev] = prefill(p, tp, cfg, **kw)
+            tp, st = prompt.to(dev), _to_device(stubs, dev)
+            fwd = {"extra_embeds": st.get("extra_embeds")}
+            if "frames" in st:
+                fwd["enc_out"] = encode(p, st["frames"], cfg, **kw)
+            logits, _ = forward_lm(p, tp, cfg, **fwd, **kw)
+            pre, caches[dev] = prefill(p, tp, cfg, **st, **kw)
             out[dev] = dict(forward=logits.cpu(), prefill=pre.cpu())
         rel = {}
         for what in ("forward", "prefill"):
@@ -5989,11 +6205,12 @@ def _ssm_smoke_vs_cpu(scfg, smi):
             require(bool(torch.isfinite(g).all()), f"{name} SMOKE {what}: not finite")
             rel[what] = float((g - w).abs().max() / w.abs().max())
         steps = scfg["smoke_steps"]
+        s_tot = out["cpu"]["forward"].shape[1]  # the prompt and any patches
         cache = _grow_cache(caches["cuda"], steps, kv_quant=False)
         tok = torch.argmax(out["cuda"]["prefill"][:, -1], dim=-1)[:, None]
         step_rel, same_ids, ids = 0.0, True, []
         for i in range(steps):
-            pos = prompt.shape[1] + i
+            pos = s_tot + i
             cpu_cache = _to_device(cache, "cpu")  # a copy: the step writes it
             lc, cache = decode_step(params["cuda"], cache, tok.cuda(), pos, cfg, **kw)
             lp, _ = decode_step(params["cpu"], cpu_cache, tok, pos, cfg, **kw)
@@ -6009,19 +6226,25 @@ def _ssm_smoke_vs_cpu(scfg, smi):
         lcfg = cfg.scaled(remat=True)
         tokens = torch.randint(0, cfg.vocab, scfg["smoke_loss"], generator=gen)
         labels = torch.randint(0, cfg.vocab, scfg["smoke_loss"], generator=gen)
+        batch = {"tokens": tokens, "labels": labels}
+        loss_stubs = stub_inputs(cfg, tokens.shape[0], gen, device="cpu")
+        if "frames" in loss_stubs:
+            batch["frames"] = loss_stubs["frames"]
+        if "extra_embeds" in loss_stubs:
+            batch["patches"] = loss_stubs["extra_embeds"]
         loss, norm, loss_s = {}, {}, {}
         for dev, p in params.items():
             t0 = time.perf_counter()
             leaves = tree_map(lambda x: x.clone().requires_grad_(True), p)
-            value, _ = lm_loss(leaves, {"tokens": tokens.to(dev),
-                                        "labels": labels.to(dev)}, lcfg, **kw)
+            value, _ = lm_loss(leaves, _to_device(batch, dev), lcfg, **kw)
             grads = torch.autograd.grad(value, tree_leaves(leaves))
             loss[dev], norm[dev] = float(value.detach()), _grad_norm(grads)
             loss_s[dev] = time.perf_counter() - t0
         train_rel = {"loss": abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"]),
                      "grad_norm": abs(norm["cuda"] - norm["cpu"]) / norm["cpu"]}
-        emit(phase="ssm_serving", step="card_vs_cpu", model=name + " SMOKE",
+        emit(phase=phase, step="card_vs_cpu", model=name + " SMOKE",
              smi=smi, compute="float32", prompt=list(prompt.shape),
+             stub_inputs={k_: list(x.shape) for k_, x in stubs.items()},
              mamba_chunk=cfg.mamba_chunk if "mamba" in cfg.block_pattern else None,
              decode_steps=steps, rel=rel, tol=1e-4, same_ids=same_ids,
              ids_card=ids, loss_tokens=list(tokens.shape), loss_card=loss["cuda"],
@@ -6043,7 +6266,8 @@ def ssm_serving(scfg, smi, results):
     import torch
     secs, counts = {}, {}
     t_all = time.perf_counter()
-    for name, fn in (("19a card vs CPU", lambda: ssm_smoke_vs_cpu(scfg, smi)),
+    for name, fn in (("19a card vs CPU", lambda: smoke_vs_cpu("ssm_serving", 19,
+                                                              scfg, smi)),
                      ("19b xlstm", lambda: counts.update(
                          xlstm=serve_full("ssm_serving", scfg["xlstm"], scfg, smi,
                                           results))),
@@ -6060,6 +6284,37 @@ def ssm_serving(scfg, smi, results):
     emit(phase="ssm_serving", step="seconds", smi=smi, total=total, **secs)
     require(total <= scfg["limit_s"], f"phase 19 took {total} s, over its "
             f"{scfg['limit_s']} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the rest of the zoo (whisper's encoder and cross-attention, the
+# vision stub, qwen3-4b, qwen3-32b, h2o-danube-1.8b at d_head 80)
+# ---------------------------------------------------------------------------
+
+def zoo_serving(zcfg, smi, results):
+    """Phase 20: (a) the five SMOKEs card against CPU (`smoke_vs_cpu`), (b)
+    whisper-tiny and (c) llava-next-34b and h2o-danube-1.8b through
+    `serve_full` (see the module docstring), its sub-steps timed into one
+    line."""
+    import torch
+    secs, counts = {}, {}
+    t_all = time.perf_counter()
+    steps = [("20a card vs CPU", lambda: smoke_vs_cpu("zoo_serving", 20, zcfg, smi))]
+    for part, key in (("20b", "whisper"), ("20c", "llava"), ("20c", "h2o")):
+        steps.append((f"{part} {key}", lambda key=key: counts.update(
+            {key: serve_full("zoo_serving", zcfg[key], zcfg, smi, results)})))
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    for key, row in results.items():
+        row["launches_zoo"] = sum(c.get(key, 0) for c in counts.values())
+    total = time.perf_counter() - t_all
+    emit(phase="zoo_serving", step="seconds", smi=smi, total=total, **secs,
+         mp_attention_launches={k: c["mp_attention"] for k, c in counts.items()})
+    require(total <= zcfg["limit_s"], f"phase 20 took {total} s, over its "
+            f"{zcfg['limit_s']} s")
 
 
 # ---------------------------------------------------------------------------
@@ -6319,6 +6574,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("19 SSM serving", ssm_serving, SSM_QUICK if args.quick else SSM, smi,
           results)
+    torch.cuda.empty_cache()
+    timed("20 zoo serving", zoo_serving, ZOO_QUICK if args.quick else ZOO, smi,
+          results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)
@@ -6330,7 +6588,9 @@ def main(argv=None):
                                   "launches_tiles", "launches_distributed",
                                   "launches_obs", "launches_analysis",
                                   "launches_training", "launches_moe",
-                                  "launches_ssm")
+                                  "launches_ssm", "launches_zoo", "ms_d80",
+                                  "plain_ms_d80", "bound_ms_d80",
+                                  "library_ms_d80")
          if k in r}
         for r in results.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,10 @@
 //     skipped.
 // The math of a tile: q (G x d), the dequantized K and V tiles and the
 // scores in shared memory; one warp per query head for the max and sum
-// (warp shuffles); each thread one column of d for up to 16 / (256 / d)
-// heads of fp32 accumulators.
+// (warp shuffles); in the P V product each of the first (256 / d) d threads
+// owns one column of d for up to ceil(16 / (256 / d)) heads of fp32
+// accumulators (d = 80: 3 groups of 80 threads, 6 heads each, and threads
+// 240-255 sit it out), so that every (head, column) pair has one owner.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,7 +127,8 @@ flash_chunk_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                    int blk, int chunk, float sm_scale) {
   constexpr int LDK = D + 1;             // padded: a warp reads one column of 32 rows
   constexpr int kGroups = kThreads / D;  // threads per column of d
-  constexpr int kHeads = kMaxG / kGroups;  // heads per thread in the P V product
+  // heads per thread in the P V product, rounded up: kGroups * kHeads >= kMaxG
+  constexpr int kHeads = (kMaxG + kGroups - 1) / kGroups;
   constexpr int kBytes = tile_bytes<KT, D>();
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* Kraw = smem_raw;             // 2 stages of a K tile as stored
@@ -166,7 +169,10 @@ flash_chunk_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     Ms[tid] = kNegInf;
     Ls[tid] = 0.f;
   }
+  // thread tid owns column col of heads g0, g0 + kGroups, ...; threads at
+  // or past kGroups * D (when D does not divide kThreads) own none
   const int col = tid % D, g0 = tid / D;
+  const bool owns = tid < kGroups * D;
   float acc[kHeads];
 #pragma unroll
   for (int h = 0; h < kHeads; ++h) acc[h] = 0.f;
@@ -230,10 +236,11 @@ flash_chunk_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     __syncthreads();
 
     // heads past G are skipped with a branch that is uniform over the block
-    // (h kGroups >= G), not predicated off head by head
+    // (h kGroups >= G), not predicated off head by head; a thread that owns
+    // no column skips the product
 #pragma unroll
     for (int h = 0; h < kHeads; ++h) {
-      if (h * kGroups >= G) break;
+      if (!owns || h * kGroups >= G) break;
       const int g = g0 + h * kGroups;
       if (g >= G) continue;
       const float* pr = Ps + g * kTile;
@@ -248,7 +255,7 @@ flash_chunk_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < kHeads; ++h) {
     const int g = g0 + h * kGroups;
-    if (g < G) acc_out[(part * G + g) * D + col] = acc[h];
+    if (owns && g < G) acc_out[(part * G + g) * D + col] = acc[h];
   }
   if (tid < G) {
     m_out[part * G + tid] = Ms[tid];
@@ -315,7 +322,11 @@ cudaError_t launch(const Args& a) {
 
 template <typename QT, typename KT>
 cudaError_t launch_d(const Args& a, int d) {
-  return d == 64 ? launch<QT, KT, 64>(a) : launch<QT, KT, 128>(a);
+  switch (d) {
+    case 64: return launch<QT, KT, 64>(a);
+    case 80: return launch<QT, KT, 80>(a);
+    default: return launch<QT, KT, 128>(a);
+  }
 }
 
 template <typename QT>
@@ -336,14 +347,14 @@ cudaError_t launch_kv(const Args& a, int d, int kv_dtype) {
 // of blk; with n_split = ceil(s / chunk) > 1 chunks per row the partials go
 // to the workspace ws_acc (batch, n_split, g, d), ws_m and ws_l (batch,
 // n_split, g) fp32 and a second launch combines them (else the workspace
-// may be null).  Requires 1 <= g <= 16, d in {64, 128}, blk % 64 == 0 and
+// may be null).  Requires 1 <= g <= 16, d in {64, 80, 128}, blk % 64 == 0 and
 // s % blk == 0.
 extern "C" int mp_attention_launch(const void* q, const void* k, const void* v,
                                    const void* scales, const void* seg_len, void* acc,
                                    void* m, void* l, void* ws_acc, void* ws_m, void* ws_l,
                                    int batch, int g, int d, int s, int blk, int chunk,
                                    float sm_scale, int q_bf16, int kv_dtype, void* stream) {
-  if (batch < 1 || g < 1 || g > kMaxG || (d != 64 && d != 128) || blk < kTile ||
+  if (batch < 1 || g < 1 || g > kMaxG || (d != 64 && d != 80 && d != 128) || blk < kTile ||
       blk % kTile || s < 0 || s % blk || chunk < blk || chunk % blk || kv_dtype < 0 ||
       kv_dtype > 2 || (kv_dtype == 2) != (scales != nullptr))
     return cudaErrorInvalidValue;

@@ -9,9 +9,11 @@ a restart re-partitions the same logical stream.
 The stream keeps the reference's law, not its random bits (JAX's threefry
 is not reproduced): each batch is drawn on the CPU from a torch.Generator
 seeded by the triple, then moved to the source's device, so the card and
-the CPU see the same tokens.  `FileSource` reads a flat .npy of tokens and
-gives the reference's batches bit for bit.  The reference's stub patches
-and frames come with the vision and whisper families (ROADMAP A 9).
+the CPU see the same tokens.  The vision stub's patches and whisper's
+frames (fp32 standard normal, the reference's law) are drawn from the same
+generator after the tokens, so the token stream of every family is the
+same with them or without.  `FileSource` reads a flat .npy of tokens and
+gives the reference's batches bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ class SyntheticTokenSource:
 
     Row r follows t_i = (t0 + a * i + noise_i) mod vocab with a in [1, 8),
     t0 in [0, vocab) and noise_i in [0, 3) drawn per row, so a real LM can
-    reduce its loss on it; labels are the tokens shifted by one."""
+    reduce its loss on it; labels are the tokens shifted by one.  With the
+    vision stub, patches (B, n_patches, d); with whisper, frames (B,
+    n_enc_frames, d); both fp32 standard normal, drawn after the tokens."""
 
     def __init__(self, cfg, dc: DataConfig, *, device="cuda"):
         self.cfg = cfg
@@ -64,8 +68,15 @@ class SyntheticTokenSource:
         noise = torch.randint(0, 3, (b, s + 1), generator=gen)
         idx = torch.arange(s + 1)[None, :]
         stream = ((t0 + a * idx + noise) % v).to(torch.int32)
-        return {"tokens": stream[:, :-1].contiguous().to(self.device),
-                "labels": stream[:, 1:].contiguous().to(self.device)}
+        batch = {"tokens": stream[:, :-1].contiguous(),
+                 "labels": stream[:, 1:].contiguous()}
+        if self.cfg.frontend == "vision_stub":
+            batch["patches"] = torch.randn(
+                (b, self.cfg.n_patches, self.cfg.d_model), generator=gen)
+        if self.cfg.enc_dec:
+            batch["frames"] = torch.randn(
+                (b, self.cfg.n_enc_frames, self.cfg.d_model), generator=gen)
+        return {k: x.to(self.device) for k, x in batch.items()}
 
 
 class FileSource:

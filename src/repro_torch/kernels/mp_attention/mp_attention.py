@@ -21,7 +21,7 @@ from .._build import check, library
 
 TILE = 64                 # keys per shared-memory tile of the kernel
 MAX_G = 16                # query heads per KV head
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)  # h2o-danube-1.8b's d_head is 80
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 TARGET_BLOCKS = 528       # four blocks for each of the H100's 132 SMs
 
@@ -40,15 +40,12 @@ def split_plan(b: int, s: int, blk: int) -> tuple[int, int]:
     return per_chunk * blk, max(1, -(-n_blk // per_chunk))
 
 
-def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
-    """(acc (B, G, d) f32, m (B, G, 1) f32, l (B, G, 1) f32) of one segment.
-
-    q: (B, G, d) fp32/bf16; k, v: (B, S, d) fp32, bf16 or int8 (then with
-    scales (B, S//blk, 2) fp32, else scales is None); seg_len: (B,) int32.
-    """
+def check_inputs(q, k, v, scales, seg_len, *, blk: int = 128):
+    """The kernel's checks of dtypes, shapes, layout and alignment, on any
+    device: (b, g, d, s, chunk, n_split) of the launch, or a ValueError,
+    or a NotImplementedError for a dtype, G or d the kernel does not
+    take."""
     tensors = [q, k, v, seg_len] + ([] if scales is None else [scales])
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("mp_attention kernel: every input must be a CUDA tensor")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("mp_attention kernel: inputs on different devices")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -82,6 +79,19 @@ def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
         raise ValueError("mp_attention kernel: inputs must be contiguous")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("mp_attention kernel: k and v must be 16-byte aligned")
+    return b, g, d, s, chunk, n_split
+
+
+def launch(q, k, v, scales, seg_len, *, blk: int = 128, sm_scale: float = 1.0):
+    """(acc (B, G, d) f32, m (B, G, 1) f32, l (B, G, 1) f32) of one segment.
+
+    q: (B, G, d) fp32/bf16; k, v: (B, S, d) fp32, bf16 or int8 (then with
+    scales (B, S//blk, 2) fp32, else scales is None); seg_len: (B,) int32.
+    """
+    tensors = [q, k, v, seg_len] + ([] if scales is None else [scales])
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("mp_attention kernel: every input must be a CUDA tensor")
+    b, g, d, s, chunk, n_split = check_inputs(q, k, v, scales, seg_len, blk=blk)
     acc = torch.empty((b, g, d), dtype=torch.float32, device=q.device)
     m, l = torch.empty((2, b, g, 1), dtype=torch.float32, device=q.device)
     ws = [None] * 3  # the chunks' partials (acc, m, l), for the second launch

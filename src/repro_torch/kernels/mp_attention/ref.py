@@ -98,9 +98,9 @@ def banded_decode_attention_ref(q, k_near, v_near, near_len,
     b, _, d = q.shape
     q = q.float()
 
-    def dequant(x, col):
+    def dequant(x, col):  # an empty far segment (no block) stays empty
         nblk = far_scales.shape[1]
-        xb = x.float().reshape(b, nblk, -1, d)
+        xb = x.float().reshape(b, nblk, x.shape[1] // max(nblk, 1), d)
         return (xb * far_scales[:, :, col][:, :, None, None]).reshape(b, -1, d)
 
     kf, vf = dequant(k_far, 0), dequant(v_far, 1)

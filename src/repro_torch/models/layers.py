@@ -1,9 +1,10 @@
 """Neural blocks of the model zoo: init + apply, plain functions on dicts.
 
 The port of `repro.models.layers` for the attention models: RMSNorm,
-rotary embeddings, GQA attention (with the query-chunked path for long
-sequences), the SwiGLU MLP and the top-k MoE FFN with its grouped
-capacity dispatch and load-balance aux loss.
+rotary embeddings, GQA attention (self- and cross-attention, causal or
+not, with the query-chunked path for long sequences), the SwiGLU MLP and
+the top-k MoE FFN with its grouped capacity dispatch and load-balance aux
+loss.
 
 Init functions take an explicit `torch.Generator` and draw fp32 params with
 the reference's shapes and scales (not its random bits); `stack` prepends
@@ -78,12 +79,16 @@ def attention_init(gen, cfg, *, stack=(), device="cuda"):
     return p
 
 
-def _attn_mask(sq, skv, *, swa: int | None, q_offset=0, device=None):
-    """(sq, skv) causal boolean mask, banded to the last `swa` keys when
-    swa is set. q_offset = absolute position of query 0."""
+def _attn_mask(sq, skv, *, causal: bool = True, swa: int | None,
+               q_offset=0, device=None):
+    """(sq, skv) boolean mask: causal (key position <= query position)
+    and/or banded to the last `swa` keys when swa is set. q_offset =
+    absolute position of query 0."""
     qpos = torch.arange(sq, device=device)[:, None] + q_offset
     kpos = torch.arange(skv, device=device)[None, :]
-    m = kpos <= qpos
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
     if swa is not None:
         m &= kpos > qpos - swa
     return m
@@ -93,29 +98,40 @@ _QCHUNK_THRESHOLD = 8192  # at and above this, query-chunk the S x S scores
 _QCHUNK = 2048
 
 
-def attention(p, x, cfg, *, positions):
-    """Causal GQA self-attention (sliding-window when cfg.swa_window is
-    set). x: (B, S, d).
+def attention(p, x, cfg, *, positions, kv_x=None, causal=True,
+              use_rope=True, mask=None):
+    """GQA attention. x: (B, S, d); kv_x (B, F, d): keys and values from
+    it instead of x (cross-attention: key positions arange(F), no sliding
+    window).  Causal and sliding-window (cfg.swa_window) by default;
+    `causal=False` drops the causal part; `use_rope=False` leaves q and k
+    unrotated; an explicit boolean `mask` (broadcast against the (B, KV,
+    G, S, F) scores) replaces the built one.
 
-    Long sequences go through query chunks of _QCHUNK, so the fp32 score
-    buffer is (B, KV, G, _QCHUNK, S) instead of (B, KV, G, S, S)."""
+    Long sequences without an explicit mask go through query chunks of
+    _QCHUNK, so the fp32 score buffer is (B, KV, G, _QCHUNK, F) instead of
+    (B, KV, G, S, F)."""
     b, sq, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // kv
     dt = x.dtype
+    src = x if kv_x is None else kv_x
+    skv = src.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(dt))
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_x is None else
+                 torch.arange(skv, device=x.device).expand(b, skv),
+                 cfg.rope_theta)
     qg = q.reshape(b, sq, kv, g, hd)
     k32 = k.float()
-    swa = cfg.swa_window
+    swa = cfg.swa_window if kv_x is None else None
 
-    def block(q_blk, q_offset):
+    def block(q_blk, blk_mask):
         # fp32 scores from exact fp32 copies of the operands, scaled into a
         # tensor of their own and masked in place, since at the chunk size
         # this buffer is GiBs (einsum returns a view: an in-place op on it
@@ -123,17 +139,23 @@ def attention(p, x, cfg, *, positions):
         # backward, twice)
         scores = torch.einsum("bskgh,btkh->bkgst", q_blk.float(), k32) \
             / math.sqrt(hd)
-        mask = _attn_mask(q_blk.shape[1], sq, swa=swa, q_offset=q_offset,
-                          device=x.device)
-        scores.masked_fill_(~mask, NEG_INF)
+        if blk_mask is not None:
+            scores.masked_fill_(~blk_mask, NEG_INF)
         scores = torch.softmax(scores, dim=-1)
         return torch.einsum("bkgst,btkh->bskgh", scores.to(dt), v)
 
-    if sq >= _QCHUNK_THRESHOLD and sq % _QCHUNK == 0:
-        out = torch.cat([block(qg[:, i:i + _QCHUNK], i)
-                         for i in range(0, sq, _QCHUNK)], dim=1)
+    if sq >= _QCHUNK_THRESHOLD and mask is None and sq % _QCHUNK == 0:
+        out = torch.cat([
+            block(qg[:, i:i + _QCHUNK],
+                  _attn_mask(_QCHUNK, skv, causal=causal, swa=swa,
+                             q_offset=i, device=x.device)
+                  if (causal or swa) else None)
+            for i in range(0, sq, _QCHUNK)], dim=1)
     else:
-        out = block(qg, 0)
+        if mask is None and (causal or swa):
+            mask = _attn_mask(sq, skv, causal=causal, swa=swa,
+                              device=x.device)
+        out = block(qg, mask)
     out = out.reshape(b, sq, h, hd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
 

@@ -1,22 +1,29 @@
-"""Full-model init, forward and loss of the decoder-only LM.
+"""Full-model init, forward and loss of every family of the model zoo.
 
-The port of `repro.models.transformer` for the dense, MoE, SSM (xLSTM)
-and hybrid (jamba) families: layers are grouped into cycles
+The port of `repro.models.transformer`: dense, MoE and vision-stub
+decoder-only LMs, the SSM (xLSTM) and hybrid (jamba) families, and the
+whisper encoder-decoder.  Layers are grouped into cycles
 (`cfg.block_pattern`) and the per-cycle params are stacked on a leading
 "cycles" axis, the reference's tree, so its weights carry across
 unchanged (`interop.lm_params_from_numpy`).  A block is a mixer
-(attention, mamba, mLSTM or sLSTM: `models/ssm.py`) and the reference's
+(attention, mamba, mLSTM or sLSTM: `models/ssm.py`), in whisper's decoder
+a cross-attention sub-block over the encoder's output, and the reference's
 FFN rule.  The forward pass loops over the cycle axis where the reference
 scans, and under autograd `cfg.remat` checkpoints it one cycle at a time
 (nested over groups of `cfg.remat_group` cycles) as the reference's
 `jax.checkpoint` does.  MoE layers add their load-balance aux loss,
 summed over every layer inside the checkpointed cycle.
 
-Not ported yet (ROADMAP A 9): the whisper encoder and cross-attention
-and the vision stub.
+whisper: stub frame embeddings (B, F, d) plus a sinusoid go through the
+encoder's bidirectional attention blocks (rotary at positions arange(F),
+as the reference's encoder applies them) to `enc_out`; each decoder block
+attends to it after its self-attention.  The vision stub: patch
+embeddings (B, P, d) through one linear adapter, prepended to the text.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,18 +39,13 @@ _SSM_FORWARD = {"mamba": mamba_forward, "mlstm": mlstm_forward,
                 "slstm": slstm_forward}
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP A 9")
-
-
 def _check_supported(cfg) -> None:
-    if cfg.enc_dec:
-        raise _not_ported("the encoder-decoder (whisper) family")
-    if cfg.frontend is not None:
-        raise _not_ported(f"the {cfg.frontend} frontend")
     for bt in cfg.block_pattern:
         if bt not in _INNER_INIT:
             raise ValueError(f"unknown block type {bt!r}")
+    if cfg.enc_dec and tuple(cfg.block_pattern) != ("attn",):
+        raise ValueError("an encoder-decoder takes the block pattern "
+                         f"('attn',), not {cfg.block_pattern}")
 
 
 def cycle_slice(tree, c: int):
@@ -54,15 +56,20 @@ def cycle_slice(tree, c: int):
     return tree[c]
 
 
-def _block_init(gen, cfg, idx_in_pattern: int, *, stack=(), device="cuda"):
-    """The block at `idx_in_pattern` of the cycle: its mixer and the
-    reference's FFN rule: attention and mamba blocks get an MoE FFN
+def _block_init(gen, cfg, idx_in_pattern: int, *, cross=False, stack=(),
+                device="cuda"):
+    """The block at `idx_in_pattern` of the cycle: its mixer, with `cross`
+    a cross-attention sub-block and its pre-norm (`norm_x`, `cross`), and
+    the reference's FFN rule: attention and mamba blocks get an MoE FFN
     (`ffn_moe`) where `cfg.layer_is_moe(idx_in_pattern)`, else the SwiGLU
     MLP where d_ff > 0; mLSTM and sLSTM blocks never get one."""
     bt = cfg.block_pattern[idx_in_pattern % len(cfg.block_pattern)]
     kw = dict(stack=stack, device=device)
     p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
          "inner": _INNER_INIT[bt](gen, cfg, **kw)}
+    if cross:
+        p["norm_x"] = rmsnorm_init(cfg.d_model, **kw)
+        p["cross"] = attention_init(gen, cfg, **kw)
     is_moe = cfg.layer_is_moe(idx_in_pattern)
     if bt in ("attn", "mamba") and (is_moe or cfg.d_ff > 0):
         p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
@@ -85,17 +92,31 @@ def _ffn(p, x, cfg):
     return x, None
 
 
-def _apply_block(p, x, cfg, bt: str, *, positions, state=None):
-    """One block of type bt: mixer + optional FFN, pre-norm residuals.
-    Returns (x, aux, new_state): aux as `_ffn`'s, new_state the recurrent
-    mixer's state after the sequence (None for attention), which starts
-    from `state` (None: the mixer's initial state)."""
+def _cross(p, x, cfg, enc_out):
+    """x plus the block's cross-attention of its pre-normed x over enc_out
+    (no rope, not causal)."""
+    h = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    return x + attention(p["cross"], h, cfg, positions=None, kv_x=enc_out,
+                         causal=False, use_rope=False)
+
+
+def _apply_block(p, x, cfg, bt: str, *, positions, state=None, enc_out=None,
+                 causal=True):
+    """One block of type bt: mixer, cross-attention over enc_out where the
+    block has one, optional FFN, pre-norm residuals.  Returns (x, aux,
+    new_state): aux as `_ffn`'s, new_state the recurrent mixer's state
+    after the sequence (None for attention), which starts from `state`
+    (None: the mixer's initial state)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if bt == "attn":
-        out, new_state = attention(p["inner"], h, cfg, positions=positions), None
+        out = attention(p["inner"], h, cfg, positions=positions, causal=causal)
+        new_state = None
     else:
         out, new_state = _SSM_FORWARD[bt](p["inner"], h, cfg, state=state)
-    x, aux = _ffn(p, x + out, cfg)
+    x = x + out
+    if "cross" in p:
+        x = _cross(p, x, cfg, enc_out)
+    x, aux = _ffn(p, x, cfg)
     return x, aux, new_state
 
 
@@ -104,16 +125,30 @@ def _apply_block(p, x, cfg, bt: str, *, positions, state=None):
 def init_lm(gen, cfg, *, device="cuda"):
     """Random fp32 params from `gen` (a torch.Generator on `device`), in the
     reference's tree: embed, [unembed], final_norm, cycles/b{i}/..., each
-    leaf of `cycles` with a leading (n_cycles,) axis."""
+    leaf of `cycles` with a leading (n_cycles,) axis; whisper adds
+    enc_cycles (one block, its leaves stacked over the n_enc_layers encoder
+    layers) and enc_norm, and its
+    decoder blocks their cross-attention; the vision stub adds
+    vision_adapter (d, d)."""
     _check_supported(cfg)
     p = {"embed": _init(gen, (cfg.vocab, cfg.d_model), scale=0.02,
                         device=device)}
     if not cfg.tie_embeddings:
         p["unembed"] = _init(gen, (cfg.d_model, cfg.vocab), device=device)
     p["final_norm"] = rmsnorm_init(cfg.d_model, device=device)
-    p["cycles"] = {f"b{i}": _block_init(gen, cfg, i, stack=(cfg.n_cycles,),
-                                        device=device)
+    p["cycles"] = {f"b{i}": _block_init(gen, cfg, i, cross=cfg.enc_dec,
+                                        stack=(cfg.n_cycles,), device=device)
                    for i in range(len(cfg.block_pattern))}
+    if cfg.enc_dec:
+        # the encoder's blocks are the "attn" block without cross-attention
+        p["enc_cycles"] = _block_init(gen, cfg, 0, stack=(cfg.n_enc_layers,),
+                                      device=device)
+        p["enc_norm"] = rmsnorm_init(cfg.d_model, device=device)
+    if cfg.frontend == "vision_stub":
+        # the anyres projector stub: one linear adapter on the patch
+        # embeddings
+        p["vision_adapter"] = _init(gen, (cfg.d_model, cfg.d_model),
+                                    device=device)
     return p
 
 
@@ -132,9 +167,61 @@ def _checkpointed(fn):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
-    """tokens: (B, S) integer -> (logits (B, S, vocab) fp32, aux loss): the
-    MoE layers' aux summed over the layers, 0 without MoE layers.
+def _sinusoid(positions, d):
+    """(S, d) fp32: sin then cos of positions times d / 2 frequencies
+    10000^(-i / (d / 2))."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, frames, cfg, *, compute_dtype=torch.bfloat16):
+    """whisper's encoder over stub frame embeddings (B, F, d): the frames
+    plus the sinusoid in the compute dtype, the encoder's blocks
+    (bidirectional attention, rotary at positions arange(F)), then
+    enc_norm.  -> (B, F, d) in the compute dtype.  Under autograd
+    `cfg.remat` checkpoints each layer."""
+    b, f, _ = frames.shape
+    x = frames.to(compute_dtype)
+    pos = torch.arange(f, device=x.device)
+    x = x + _sinusoid(pos, cfg.d_model).to(compute_dtype)
+    positions = pos.expand(b, f)
+
+    def layer_fn(x, c):
+        return _apply_block(cycle_slice(params["enc_cycles"], c), x, cfg,
+                            "attn", positions=positions, causal=False)[0]
+
+    fn = (_checkpointed(layer_fn) if cfg.remat and torch.is_grad_enabled()
+          else layer_fn)
+    for c in range(cfg.n_enc_layers):
+        x = fn(x, c)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def embed_inputs(params, tokens, compute_dtype, extra_embeds=None):
+    """The token embeddings (B, S, d) in the compute dtype, with the stub
+    patch embeddings (B, P, d) through the vision adapter (where the params
+    have one) prepended: (B, P + S, d)."""
+    x = params["embed"][tokens].to(compute_dtype)
+    if extra_embeds is None:
+        return x
+    pe = extra_embeds.to(compute_dtype)
+    if "vision_adapter" in params:
+        pe = pe @ params["vision_adapter"].to(compute_dtype)
+    return torch.cat([pe, x], dim=1)
+
+
+def forward_lm(params, tokens, cfg, *, extra_embeds=None, enc_out=None,
+               compute_dtype=torch.bfloat16):
+    """tokens: (B, S) integer -> (logits (B, S_total, vocab) fp32, aux loss):
+    the MoE layers' aux summed over the layers, 0 without MoE layers.
+
+    extra_embeds: (B, P, d) stub patch embeddings, prepended (S_total =
+    P + S; positions run over both).  enc_out: (B, F, d) the encoder's
+    output, which every decoder block's cross-attention reads.
 
     With `cfg.remat` and autograd recording, each cycle is checkpointed;
     when `cfg.remat_group` > 1 divides the cycle count, groups of that many
@@ -143,9 +230,9 @@ def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
     one cycle's intermediates at a time).  Without autograd (serving,
     `torch.no_grad()`) remat changes nothing."""
     _check_supported(cfg)
-    b, s = tokens.shape
-    x = params["embed"][tokens].to(compute_dtype)
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    x = embed_inputs(params, tokens, compute_dtype, extra_embeds)
+    b, s_tot = x.shape[:2]
+    positions = torch.arange(s_tot, device=x.device).expand(b, s_tot)
 
     # the carry is (x, aux), as the reference scans it: each cycle adds its
     # layers' aux inside the checkpointed function
@@ -153,7 +240,7 @@ def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
         cyc = cycle_slice(params["cycles"], c)
         for i, bt in enumerate(cfg.block_pattern):
             x, aux_i, _ = _apply_block(cyc[f"b{i}"], x, cfg, bt,
-                                       positions=positions)
+                                       positions=positions, enc_out=enc_out)
             if aux_i is not None:
                 aux = aux + aux_i
         return x, aux
@@ -180,14 +267,24 @@ def forward_lm(params, tokens, cfg, *, compute_dtype=torch.bfloat16):
 def lm_loss(params, batch, cfg, *, compute_dtype=torch.bfloat16):
     """Next-token cross-entropy + MoE aux: (loss, {"ce", "aux"}).
 
-    batch: {"tokens", "labels"} (B, S) integer; labels below 0 are masked
-    and the mean runs over the unmasked tokens.  The label's log-probability
-    is gathered where the reference contracts with a one-hot: the
-    contraction has one non-zero term, so the value is the same, without a
-    second (B, S, vocab) buffer."""
-    logits, aux = forward_lm(params, batch["tokens"], cfg,
-                             compute_dtype=compute_dtype)
+    batch: {"tokens", "labels"} (B, S) integer, with "frames" (B, F, d) for
+    whisper (through `encode`) or "patches" (B, P, d) for the vision stub
+    (prepended; the loss runs over the text's logits only).  Labels below
+    0 are masked and the mean runs over the unmasked tokens.  The label's
+    log-probability is gathered where the reference contracts with a
+    one-hot: the contraction has one non-zero term, so the value is the
+    same, without a second (B, S, vocab) buffer."""
+    enc_out = extra = None
+    if cfg.enc_dec:
+        enc_out = encode(params, batch["frames"], cfg,
+                         compute_dtype=compute_dtype)
+    if cfg.frontend == "vision_stub":
+        extra = batch["patches"]
+    logits, aux = forward_lm(params, batch["tokens"], cfg, extra_embeds=extra,
+                             enc_out=enc_out, compute_dtype=compute_dtype)
     labels = batch["labels"]
+    if extra is not None:
+        logits = logits[:, -labels.shape[1]:]  # the text's logits only
     logp = torch.log_softmax(logits, dim=-1)
     del logits  # log_softmax keeps its output, not its input
     mask = (labels >= 0).float()

@@ -1,4 +1,4 @@
-"""Serving the decoder-only LM: prefill a prompt, then batched greedy decode,
+"""Serving the LM zoo: prefill a prompt, then batched greedy decode,
 with the banded-precision KV option (near window bf16, far blocks int8 on
 the `mp_attention` kernel) compared against exact attention.
 
@@ -31,10 +31,12 @@ def _grow_cache(cache, n: int, *, kv_quant: bool):
     """Full-attention entries get n empty slots on the S axis (SWA entries
     are circular and keep their window); with kv_quant the rows become int8
     with per-row scales, as decode_step writes them.  The recurrent blocks'
-    entries are constant in S and pass through unchanged."""
+    entries and whisper's cross entry (the encoder's keys, all attended:
+    zero keys there would take softmax weight) are constant in S and pass
+    through unchanged, in bf16."""
     out = {}
     for key, entry in cache.items():
-        if "k" not in entry:
+        if key == "cross" or "k" not in entry:
             out[key] = entry
             continue
         entry = dict(entry)
@@ -55,18 +57,24 @@ def _wait(t) -> None:
 
 
 def generate(params, cfg, prompt, n_new: int, *, kv_quant: bool = False,
-             compute_dtype=torch.bfloat16, stats: dict | None = None):
-    """Greedy generation of n_new tokens after prompt (B, S).
+             frames=None, extra_embeds=None, compute_dtype=torch.bfloat16,
+             stats: dict | None = None):
+    """Greedy generation of n_new tokens after prompt (B, S), with whisper's
+    `frames` (B, F, d) or the vision stub's `extra_embeds` (B, P, d).
 
     Prefill, grow the cache by n_new slots, then n_new - 1 decode steps at
-    positions S, S + 1, ...: the last token is returned but never written.
-    Returns (ids (B, n_new) int64, cache).  A `stats` dict, if given,
-    receives prefill_s, decode_s and decode_steps, each timed up to a
-    device synchronisation.
+    positions S_total, S_total + 1, ... (S_total = P + S, the prefill's
+    length): the last token is returned but never written.  Returns (ids
+    (B, n_new) int64, cache).  A `stats` dict, if given, receives
+    prefill_s, decode_s and decode_steps, each timed up to a device
+    synchronisation.
     """
-    b, s = prompt.shape
+    s = prompt.shape[1]
+    if extra_embeds is not None:  # decode positions count the patches
+        s += extra_embeds.shape[1]
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt, cfg, compute_dtype=compute_dtype)
+    logits, cache = prefill(params, prompt, cfg, extra_embeds=extra_embeds,
+                            frames=frames, compute_dtype=compute_dtype)
     cache = _grow_cache(cache, n_new, kv_quant=kv_quant)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     if stats is not None:

@@ -138,6 +138,23 @@ def test_banded_attention_ragged_lengths_with_empty_far_segment():
                   ).max() <= 1e-3
 
 
+def test_oracle_takes_an_empty_far_segment():
+    # a served cache shorter than one key block past the near window folds
+    # to a far segment of no slots: the oracle is the near softmax alone
+    b, g, d, sn, blk = 2, 4, 64, 128, 64
+    q, kn, vn, _, _ = _problem(8, b, g, d, sn, blk)
+    empty = torch.zeros((b, 0, d), dtype=torch.int8)
+    near_len = torch.tensor([sn, 70], dtype=torch.int32)
+    got = ref.banded_decode_attention_ref(
+        _t(q), _t(kn), _t(vn), near_len, empty, empty,
+        torch.zeros((b, 0, 2)), torch.zeros((b,), dtype=torch.int32),
+        blk=blk, sm_scale=d ** -0.5)
+    for i, n in enumerate(near_len.tolist()):
+        scores = _t(q)[i] @ _t(kn)[i, :n].T * d ** -0.5
+        want = torch.softmax(scores, -1) @ _t(vn)[i, :n]
+        torch.testing.assert_close(got[i], want, rtol=1e-5, atol=1e-5)
+
+
 def test_merge_partials_matches_a_single_softmax():
     rng = np.random.default_rng(5)
     q = _t(rng.standard_normal((3, 2, 64)).astype(np.float32))
@@ -208,3 +225,121 @@ def test_cache_bytes_saved_at_the_serving_shape():
     # blocks (7,168 slots) and 1,152 bf16 near slots
     assert cache_bytes_saved(1152, 7168) == pytest.approx(0.4308, abs=1e-4)
     assert cache_bytes_saved(128, 0) == 0.0
+
+
+# ------------------------------------------------- d_head 80 (h2o-danube)
+
+@pytest.mark.parametrize("near_bf16", [False, True], ids=["near_f32", "near_bf16"])
+def test_segment_partials_at_d80_match_pallas_interpret(near_bf16):
+    # h2o-danube-1.8b's served shape: d_head 80, G = 4 (32 heads on 8 KV)
+    b, g, d, sn, sf, blk = 2, 4, 80, 128, 256, 128
+    q, kn, vn, kf, vf = _problem(7, b, g, d, sn, sf)
+    kq, vq, sc = ops.quantize_kv(_t(kf), _t(vf), blk=blk)
+    near_len = np.array([sn - 5, 70], np.int32)
+    far_len = np.array([sf, 0], np.int32)
+    sm = 1.0 / np.sqrt(d)
+    cases = [((_j_near(kn, near_bf16), _j_near(vn, near_bf16), None,
+               jnp.asarray(near_len)),
+              (_t_near(kn, near_bf16), _t_near(vn, near_bf16), None,
+               _t(near_len))),
+             ((jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+               jnp.asarray(sc.numpy()), jnp.asarray(far_len)),
+              (kq, vq, sc, _t(far_len)))]
+    for jargs, targs in cases:
+        want = j_segment(jnp.asarray(q), *jargs, blk=blk, sm_scale=sm,
+                         interpret=True)
+        got = ref.flash_decode_segment(_t(q), *targs, blk=blk, sm_scale=sm)
+        for name, w, o in zip("acc m l".split(), want, got):
+            w = np.asarray(w)
+            assert o.shape == w.shape == (b, g, d if name == "acc" else 1)
+            np.testing.assert_allclose(o.numpy(), w, rtol=2e-5, atol=2e-5,
+                                       err_msg=name)
+    # the merged output against JAX's ops and its oracle
+    t_args = (_t(q), _t(kn), _t(vn), _t(near_len), kq, vq, sc, _t(far_len))
+    j_args = tuple(jnp.asarray(t.numpy()) for t in t_args)
+    got = ops.banded_decode_attention(*t_args, blk=blk, sm_scale=sm).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(j_banded(*j_args, blk=blk, sm_scale=sm)),
+        rtol=2e-4, atol=2e-4)
+    assert np.abs(got - np.asarray(j_banded_ref(*j_args, blk=blk, sm_scale=sm))
+                  ).max() <= 1e-3
+
+
+@pytest.mark.parametrize("d,ok", [(64, True), (80, True), (128, True),
+                                  (72, False), (96, False)])
+def test_launch_checks_take_the_kernels_head_dims(d, ok):
+    from repro_torch.kernels.mp_attention.mp_attention import (HEAD_DIMS,
+                                                               check_inputs)
+    assert HEAD_DIMS == (64, 80, 128)
+    b, g, s, blk = 2, 4, 256, 128
+    q = torch.zeros((b, g, d))
+    k = torch.zeros((b, s, d), dtype=torch.int8)
+    sc = torch.ones((b, s // blk, 2))
+    seg_len = torch.full((b,), s, dtype=torch.int32)
+    if ok:
+        assert check_inputs(q, k, k.clone(), sc, seg_len, blk=blk)[:4] == (
+            b, g, d, s)
+    else:
+        with pytest.raises(NotImplementedError, match="d in"):
+            check_inputs(q, k, k.clone(), sc, seg_len, blk=blk)
+    with pytest.raises(ValueError, match="CUDA"):  # a CPU tensor never launches
+        from repro_torch.kernels.mp_attention.mp_attention import launch
+        launch(q, k, k.clone(), sc, seg_len, blk=blk)
+
+
+# The specification of flash_chunk_kernel's P V product's thread map,
+# written out in Python; csrc/mp_attention.cu is its one implementation
+# (kGroups, kHeads, `owns`, g0 and col in flash_chunk_kernel).
+K_THREADS, K_MAX_G = 256, 16
+
+
+def pv_owners(d, g, *, fixed=True):
+    """How many threads accumulate each (head, column) pair of the P V
+    product for G = g heads: kGroups = 256 // d threads per column, each
+    with heads g0, g0 + kGroups, ... (kHeads of them, rounded up);
+    threads at or past kGroups * d own nothing.  fixed=False: the map
+    before d = 80 (kHeads rounded down, no thread sitting out)."""
+    groups = K_THREADS // d
+    heads = -(-K_MAX_G // groups) if fixed else K_MAX_G // groups
+    owners = np.zeros((g, d), np.int64)
+    for tid in range(K_THREADS):
+        if fixed and tid >= groups * d:
+            continue
+        col, g0 = tid % d, tid // d
+        for h in range(heads):
+            if h * groups >= g:
+                break
+            head = g0 + h * groups
+            if head < g:
+                owners[head, col] += 1
+    return owners
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_kernel_thread_map_owns_each_head_column_once(d):
+    for g in range(1, K_MAX_G + 1):
+        assert (pv_owners(d, g) == 1).all(), (d, g)
+    if d == 80:  # the map before the repair: threads 240-255 (g0 = 3)
+        # race threads 0-15 on columns 0-15 of heads 3, 6, 9 and 12, and no
+        # thread owns columns 16-79 of head 15
+        old = pv_owners(d, K_MAX_G, fixed=False)
+        assert (old[[3, 6, 9, 12], :16] == 2).all()
+        assert (old[15, 16:] == 0).all() and (old[15, :16] == 1).all()
+        assert (old == 1).sum() == K_MAX_G * d - 4 * 16 - 64
+    else:  # where d divides 256 the two maps are one
+        assert (pv_owners(d, K_MAX_G, fixed=False) == 1).all()
+
+
+def test_kernel_source_has_the_specified_thread_map():
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "csrc" / "mp_attention.cu").read_text()
+    for line in ("constexpr int kThreads = 256;", "constexpr int kMaxG = 16;",
+                 "constexpr int kGroups = kThreads / D;",
+                 "constexpr int kHeads = (kMaxG + kGroups - 1) / kGroups;",
+                 "const int col = tid % D, g0 = tid / D;",
+                 "const bool owns = tid < kGroups * D;",
+                 "if (!owns || h * kGroups >= G) break;",
+                 "const int g = g0 + h * kGroups;",
+                 "case 80: return launch<QT, KT, 80>(a);"):
+        assert line in src, line

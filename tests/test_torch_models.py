@@ -211,15 +211,6 @@ def test_init_lm_draws_the_reference_tree_and_scales(weights):
     assert bool((pt["final_norm"]["scale"] == 1).all())
 
 
-def test_unported_families_raise():
-    gen = torch.Generator()
-    for cfg in (SMOKE.scaled(enc_dec=True, n_enc_layers=1),):
-        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
-            init_lm(gen, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
-            init_cache(cfg, 1, 8, device="cpu")
-
-
 # ------------------------------------------------------------- layers
 
 def _layer_params(weights, cfg=SMOKE):

@@ -130,17 +130,6 @@ def test_ssm_configs_are_the_references(name):
     assert config.get_arch(name) is mod.CONFIG
 
 
-def test_enc_dec_and_vision_still_raise():
-    gen = torch.Generator()
-    for cfg in (xlstm.SMOKE.scaled(enc_dec=True, n_enc_layers=1,
-                                   block_pattern=("attn",)),
-                jamba.SMOKE.scaled(frontend="vision_stub", n_patches=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
-            init_lm(gen, cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
-            init_cache(cfg, 1, 8, device="cpu")
-
-
 # ---------------------------------------------------------------- init
 
 @pytest.mark.parametrize("name", NAMES)

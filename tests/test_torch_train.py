@@ -144,15 +144,6 @@ def test_lm_loss_masks_labels_and_means_over_the_rest(weights):
     assert float(none) == 0.0
 
 
-def test_lm_loss_unported_families_raise():
-    for cfg in (SMOKE.scaled(enc_dec=True, n_enc_layers=1),
-                SMOKE.scaled(frontend="vision_stub", n_patches=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A 9"):
-            lm_loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                         "labels": torch.zeros((1, 4), dtype=torch.long)},
-                    cfg)
-
-
 # ------------------------------------------------------------------ remat
 
 REMAT = {"off": dict(remat=False), "per_cycle": dict(remat=True),
