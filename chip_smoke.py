@@ -108,7 +108,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      seconds forward and backward, peak, matern_cov_grad once under the
      profiler); fit_mle_adam as tests/test_mle_kriging.py runs it (120
      steps, lr 0.05) at n = 8,192 on phase 6's field against fit_mle, and
-     at n_obs for as many steps as fit in 25 s; 10.3 the tile engine's
+     at n_obs for as many steps as fit in 12 s; 10.3 the tile engine's
      gradient: mp_syrk_grad (mp_syrk's hand-written backward) against its
      plain version for the four pairs at 4,096 and 39,936 rows (k =
      1,024, band 2), timed beside its bound and a torch.matmul yardstick
@@ -302,6 +302,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      launches a cache, no other kernel of the port; none in 19 (b)) against
      its plain version and exact attention; each phase's seconds (at most
      90);
+ 21. the planning layer (repro_torch.launch.dryrun, .roofline, .costmodel),
+     rerunning nothing: (a) the whole dry-run in this process (every
+     applicable cell on the (16, 16) and (2, 16, 16) meshes at the H100's
+     rates, one line a cell, reports under chiprun_out/phase21_dryrun/),
+     each cell's fit against 80e9 B and the card's memory; (b) on the 1 x 1
+     mesh the runs measured above against their plans: phase 4's three
+     evaluations (geostat_cell_cost, square), 12 (b)'s sequential tile
+     factorizations (geostat_dag_cost), 14 (b)'s masked_full evaluation
+     and 17 (b)'s train step (their dry-run plans), each measured time at
+     least its roofline bound, with the measured-to-bound ratio, and the
+     peaks of 4, 14 (b), 17 (b) and the served ones of 18-20 within
+     PLAN_PEAK_TOL of their reckonings (plus what the process held); (c)
+     the phase's seconds (at most 30);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
 result line.
@@ -406,7 +419,7 @@ PAPER_LOGLIK_DRIFT = 1e-6
 # against; the peak an fp64 value-and-gradient evaluation may reach before
 # its n_obs is cut; 10.3's tile path: n_obs and nb (phase 8's)
 GRAD = dict(check_n=4_096, adam_n=8_192, adam_steps=120, adam_lr=0.05,
-            adam_seconds=25.0, nm_iters=60, peak_gib=70.0, tile_n=40_960,
+            adam_seconds=12.0, nm_iters=60, peak_gib=70.0, tile_n=40_960,
             tile_nb=1_024)
 GRAD_QUICK = dict(check_n=1_024, adam_n=2_048, adam_steps=20, adam_lr=0.05,
                   adam_seconds=5.0, nm_iters=20, peak_gib=70.0, tile_n=5_120,
@@ -555,6 +568,13 @@ HB_ATOL_US = 1.0
 # phase 12 (b): the scheduled log-likelihood against the sequential one,
 # relative (phase 8.1's limit for tpu(2), phase 9.1's for the pair)
 RUNTIME_LOGLIK_TOL = {"tpu(2)": 1e-3, "paper_cpu(2)": 1e-5}
+# phase 21: a measured peak may pass its reckoning by at most this share
+# of the reckoning (the runs it holds have come within 0.5 % where the
+# reckoning had its terms; one further below is reported)
+PLAN_PEAK_TOL = 0.02
+PLANNING = dict(limit_s=30.0)
+# what phases 4, 12 (b), 14 (b), 17 (b) and 18-20 measured, for phase 21
+MEASURED: dict = {}
 
 
 def emit(**obj):
@@ -731,6 +751,13 @@ def check_syrk_grad_build(lib):
             and all(v["HGMMA"] > 0 for k, v in sass.items()
                     if k.startswith("mp_syrk_grad_offband_wgmma_kernel")),
             f"mp_syrk_grad's engines are off their units: {sass}")
+
+
+def plan():
+    """`repro_torch.launch.costmodel`: the memory plans and FLOP reckonings
+    the phases predict with (importable once src/ is on the path)."""
+    from repro_torch.launch import costmodel
+    return costmodel
 
 
 def require(cond, what):
@@ -1376,6 +1403,9 @@ def main_path(ds, cfg, results):
                 [th0[0], th0[1] * 1.25, th0[2]]]
     total = {k: 0 for k, count in expected.items() if count}
     n_finite, first = 0, None
+    torch.cuda.synchronize()
+    run = MEASURED["4"] = dict(n=n, nb=nb, t=t, seconds=[], peak_gib=[],
+                               held_gib=torch.cuda.memory_allocated() / 2**30)
     for theta in requests:
         lls, secs, peaks, launched = {}, {}, {}, {}
         for impl in ("kernel", "plain"):
@@ -1404,6 +1434,8 @@ def main_path(ds, cfg, results):
         require(both_nan or close, f"theta {theta}: kernel {a} vs plain {b}")
         n_finite += close
         first = a if first is None else first
+        run["seconds"].append(secs["kernel"])
+        run["peak_gib"].append(peaks["kernel"])
         emit(phase="main", n=n, nb=nb, t=t, theta=theta, loglik_kernel=a,
              loglik_plain=b, rel_diff=abs(a - b) / abs(b) if close else None,
              seconds_kernel=secs["kernel"], seconds_plain=secs["plain"],
@@ -3467,27 +3499,10 @@ def gradient(gcfg, weak, fp64_field, results):
 # phase 11: the accuracy sweep (repro_torch.verify) on the card
 # ---------------------------------------------------------------------------
 
-def scale_peak_bytes(n, nb):
-    """The scale leg's predicted peak at n (bytes): the problem's fp32 Sigma
-    (4 n^2) and the fp64 oracle factor L_ref (8 n^2) live throughout; on
-    top, the larger of the oracle's moment (the fp64 upcast it factors,
-    8 n^2) and the paper pair's factorization, which peaks with its tiles
-    (the 2p - 1 band tiles in fp64, the rest of the lower triangle in
-    fp32), a U of step 0's size (fp64, (n - nb)^2) and its assembled fp64
-    factor (8 n^2) all live (measured on the card: 29.76 n^2 in all at
-    n = 40,960, nb = 1,024).  The pair factors the fp32 Sigma, without an
-    fp64 upcast of its own."""
-    p = n // nb
-    band = 2 * p - 1
-    tiles = (8 * band + 4 * (p * (p + 1) // 2 - band)) * nb * nb
-    pair = tiles + 8 * (n - nb) ** 2 + 8 * n * n
-    return 12 * n * n + max(8 * n * n, pair)
-
-
 def scale_n(n, nb, limit_gib):
     """n, or the largest multiple of nb below it whose predicted peak
     (`scale_peak_bytes`) stays under limit_gib."""
-    while n > nb and scale_peak_bytes(n, nb) / 2**30 > limit_gib:
+    while n > nb and plan().scale_peak_bytes(n, nb) / 2**30 > limit_gib:
         n -= nb
     return n
 
@@ -3631,7 +3646,7 @@ def accuracy_scale(scfg):
                 _record_line(rec, "scale")
             emit(phase="accuracy", step="scale problem", n=n, n_run=n_run,
                  regime=regime, nb=nb, seconds=time.perf_counter() - t0,
-                 predicted_peak_gib=scale_peak_bytes(n_run, nb) / 2**30,
+                 predicted_peak_gib=plan().scale_peak_bytes(n_run, nb) / 2**30,
                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                  limit_gib=scfg["peak_gib"])
             records += recs
@@ -3890,6 +3905,9 @@ def runtime_full(label, pol, locs, z, theta, regime, nb, rcfg, trace_path):
 
     tile_cholesky(sigma, nb, pol)  # warm-up
     l_seq, s_seq, peak_seq, c_seq = run(lambda: tile_cholesky(sigma, nb, pol))
+    MEASURED.setdefault("12b", {})[label] = dict(n=n, nb=nb, policy=pol,
+                                                 seconds=s_seq,
+                                                 peak_gib=peak_seq)
     ll_seq = float(loglik_from_factor(l_seq, z))
     tol = policy_bound(pol, regime).factor_rel
     out, first, profile = {}, None, None
@@ -4016,23 +4034,6 @@ def panel_grad_launches(p, t, fp32_band):
             "mp_syrk_grad": p - 1, "mp_attention": 0}
 
 
-def panel_grad_peak_gib(n, nb, t, hi_bytes, lo_bytes):
-    """Predicted peak GiB of one panel value-and-gradient evaluation: the
-    larger of (a) the solve's backward, the factor (band in hi, off in lo),
-    the band's cotangent and the off-band's twice (its tile rows' and
-    their stack), and (b) step 0 of the reverse sweep, the factor and its
-    cotangents, the dense cotangent dU of the trailing (p - 1) nb square
-    in hi and mp_syrk_grad's packed lo tiles of its lower half (in fp32 for
-    an fp64 hi: the kernel's pre-pass writes the paper pair's in fp32)."""
-    p = n // nb
-    band = p * t * nb * nb * hi_bytes
-    off = p * p * nb * nb * lo_bytes
-    m = (p - 1) * nb
-    solve = band + off + band + 2 * off
-    sweep = 2 * (band + off) + m * m * hi_bytes + m * m // 2 * lo_bytes
-    return max(solve, sweep) / 2 ** 30
-
-
 def held_on_card():
     """What the process holds on the card, allocated and reserved GiB: ~2.7
     GiB at phase 13's start on an NVIDIA H100 80GB HBM3 (700 W), none of it
@@ -4046,7 +4047,8 @@ def held_on_card():
 def panel_grad_n(n, nb, t, hi_bytes, lo_bytes, limit):
     """The largest multiple of nb, at most n, whose panel value-and-gradient
     evaluation is predicted (`panel_grad_peak_gib`) to stay under `limit`."""
-    while n > nb and panel_grad_peak_gib(n, nb, t, hi_bytes, lo_bytes) > limit:
+    while n > nb and plan().panel_grad_peak_gib(n, nb, t, hi_bytes,
+                                                lo_bytes) > limit:
         n -= nb
     return n
 
@@ -4376,7 +4378,7 @@ def panel_grad_evaluation(label, locs, z, pol, theta, nb, nu, results,
     p, t = n // nb, min(pol.diag_thick, n // nb)
     expected = panel_grad_launches(p, t, pol.hi == torch.float32)
     lo = pol.lo if pol.mode != "full" else pol.hi
-    predicted = base_gib + panel_grad_peak_gib(n, nb, t, pol.hi.itemsize,
+    predicted = base_gib + plan().panel_grad_peak_gib(n, nb, t, pol.hi.itemsize,
                                                lo.itemsize)
 
     def fn_of(impl):
@@ -4524,8 +4526,8 @@ def panel_grad(ds, cfg, hcfg, results):
     n_pair = panel_grad_n(n, nb, t, 8, 4, hcfg["peak_gib"] - base)
     emit(phase="panel_grad", step="paper pair size", n=n, n_pair=n_pair,
          held_gib=base,
-         predicted_peak_gib=base + panel_grad_peak_gib(n_pair, nb, t, 8, 4),
-         predicted_peak_gib_uncut=base + panel_grad_peak_gib(n, nb, t, 8, 4),
+         predicted_peak_gib=base + plan().panel_grad_peak_gib(n_pair, nb, t, 8, 4),
+         predicted_peak_gib_uncut=base + plan().panel_grad_peak_gib(n, nb, t, 8, 4),
          limit_gib=hcfg["peak_gib"])
     pair = step("13b paper_cpu", panel_grad_evaluation, f"paper_cpu({t})",
                 ds.locs[:n_pair].double().contiguous(),
@@ -4564,21 +4566,6 @@ def distributed_launches(p, t, fp32_band):
     return {"matern_cov": 1 + t, "blocked_potrf": p if fp32_band else 0,
             "mp_syrk": 0, "matern_cov_grad": 0, "mp_syrk_grad": 0,
             "mp_attention": 0}
-
-
-def distributed_peak_gib(n, nb, t, hi_bytes, lo_bytes, u_bytes):
-    """The memory one distributed evaluation on one rank adds at its peak,
-    predicted: off (n^2 lo) and the band (p t nb^2 hi), one row chunk of U
-    in its product's dtype (u_bytes) and, where that is not lo, rounded to
-    lo, three n x nb lo buffers of the panel column (the rank's piece, the
-    gathered pieces, c_lo) and two in hi (c_t, the lo TRSM)."""
-    from repro_torch.core.distributed import U_CHUNK_ELEMS
-    p = n // nb
-    rows = min(max(1, U_CHUNK_ELEMS // (nb * nb * p)), p) * nb
-    u = rows * n * (u_bytes + (lo_bytes if u_bytes != lo_bytes else 0))
-    total = (n * n * lo_bytes + p * t * nb * nb * hi_bytes + u
-             + 3 * n * nb * lo_bytes + 2 * n * nb * hi_bytes)
-    return total / 2 ** 30
 
 
 def _close(a, b, tol):
@@ -4712,10 +4699,11 @@ def distributed_cell(ds, cfg, grid, ll_panel, dcfg, results):
     from repro_torch.core import distributed as dd
     n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
     base = held_on_card()["allocated_gib"]
-    while base + distributed_peak_gib(n, nb, t, 4, 2, 2) > dcfg["peak_gib"]:
+    while (base + plan().distributed_peak_gib(n, nb, t, 4, 2, 2)
+           > dcfg["peak_gib"]):
         n -= nb
     p = n // nb
-    predicted = base + distributed_peak_gib(n, nb, t, 4, 2, 2)
+    predicted = base + plan().distributed_peak_gib(n, nb, t, 4, 2, 2)
     emit(phase="distributed", step="65k prediction", n=n, held_gib=base,
          predicted_peak_gib=predicted, limit_gib=dcfg["peak_gib"],
          lo_flops_masked_full=(p - 1) * 2 * n * n * nb,
@@ -4742,6 +4730,10 @@ def distributed_cell(ds, cfg, grid, ll_panel, dcfg, results):
         require(sum(cb.values()) == 0, f"{version}: plain path launched {cb}")
         require(_close(a, b, 1e-3), f"{version}: kernel {a} vs plain {b}")
         require(peak <= dcfg["peak_gib"] + 1, f"{version}: peak {peak} GiB")
+        if version == "masked_full":
+            MEASURED["14b"] = dict(n=n, nb=nb, t=t, seconds=secs,
+                                   peak_gib=peak, held_gib=base,
+                                   predicted_gib=predicted)
         emit(phase="distributed", step="65k", version=version, n=n, nb=nb,
              t=t, theta=th0, loglik_kernel=a, loglik_plain=b,
              rel_diff=abs(a - b) / abs(b) if math.isfinite(b) else None,
@@ -4773,7 +4765,7 @@ def distributed_pair(fp64_field, full64_ll, pcfg, grid, dcfg):
     pol = PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu")
     t = min(pol.diag_thick, p)
     base = held_on_card()["allocated_gib"]
-    predicted = base + distributed_peak_gib(n, nb, t, 8, 4, 4)
+    predicted = base + plan().distributed_peak_gib(n, nb, t, 8, 4, 4)
     require(predicted <= dcfg["peak_gib"], f"the pair's predicted {predicted} GiB")
     want = distributed_launches(p, t, False)
     theta = list(MEDIUM)
@@ -5244,105 +5236,19 @@ def analysis(acfg, results):
 # phase 17: LM training (repro_torch.train, .runtime, .checkpoint, .data)
 # ---------------------------------------------------------------------------
 
-def _mixer_param_count(cfg, bt: str) -> int:
-    """One mixer's params (`models/ssm.py`'s inits, `layers.attention_init`)."""
-    d, h = cfg.d_model, cfg.n_heads
-    d_in = cfg.ssm_expand * d
-    if bt == "mamba":
-        n, r = cfg.ssm_d_state, max(1, d // 16)
-        return (2 * d * d_in + d_in * cfg.ssm_conv + d_in + d_in * (r + 2 * n)
-                + r * d_in + d_in + d_in * n + d_in + d_in * d)
-    if bt == "mlstm":
-        return 2 * d * d_in + 3 * d_in * d_in + 2 * d_in * h + 2 * h + d_in + d_in * d
-    if bt == "slstm":
-        return 4 * d * d + h * (d // h) * 4 * (d // h) + 4 * d + d * d
-    kv, hd = cfg.n_kv_heads, cfg.d_head
-    return 2 * d * h * hd + 2 * d * kv * hd + (2 * hd if cfg.qk_norm else 0)
-
-
-def _layer_param_count(cfg, idx_in_pattern: int = 0) -> int:
-    """One block's params: the pre-norm, the mixer (attention with its
-    qk-norm scales, mamba, mLSTM or sLSTM) and, on attention and mamba
-    blocks, the SwiGLU MLP or, on an MoE layer, the router and the experts'
-    three weights, with their pre-norm (the reference's FFN rule)."""
-    d = cfg.d_model
-    bt = cfg.block_pattern[idx_in_pattern % len(cfg.block_pattern)]
-    n = d + _mixer_param_count(cfg, bt)
-    if bt not in ("attn", "mamba"):
-        return n
-    if cfg.layer_is_moe(idx_in_pattern):
-        e, fe = cfg.moe.n_experts, cfg.moe.d_expert
-        return n + d + d * e + 3 * e * d * fe
-    return n + (d + 3 * d * cfg.d_ff if cfg.d_ff > 0 else 0)
-
-
-def train_param_count(cfg) -> int:
-    """init_lm's parameter count of a model of any family (dense, MoE, SSM,
-    hybrid, vision stub, encoder-decoder): the embedding (and the
-    unembedding unless tied), the layers, the final norm; whisper's
-    encoder layers, their norm and each decoder layer's cross-attention
-    with its pre-norm; the vision stub's (d, d) adapter."""
-    d = cfg.d_model
-    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    pattern = len(cfg.block_pattern)
-    layers = sum(_layer_param_count(cfg, i % pattern)
-                 for i in range(cfg.n_layers))
-    extra = d * d if cfg.frontend == "vision_stub" else 0
-    if cfg.enc_dec:
-        extra += (cfg.n_enc_layers * _layer_param_count(cfg) + d
-                  + cfg.n_layers * (d + _mixer_param_count(cfg, "attn")))
-    return embed + layers + d + extra
-
-
-def train_peak_bytes(cfg, micro: int, seq: int) -> int:
-    """Predicted peak device bytes of one train step (bf16 compute, fp32
-    masters and moments, remat per cycle), the larger of two moments:
-    the backward of a microbatch of `micro` sequences -- the state (params,
-    m, v: 12 N), the step's fp32 gradient sum (4 N), bf16 compute copy (2
-    N) and bf16 gradients (2 N), the larger of one layer's (micro, H, S, S)
-    attention scores and the head's (micro, S, V) logits at 12 bytes an
-    element (the saved fp32 softmax output, the incoming fp32 gradient and
-    the softmax backward's output), and the bf16 carries saved at each
-    cycle; and the AdamW update -- old and new params, m and v, the
-    gradient sum and its clipped copy (32 N) and five temporaries of the
-    largest leaf (`adamw.update`'s m-hat and v-hat, held while the step's
-    terms and their sum are made)."""
-    n = train_param_count(cfg)
-    scores = micro * cfg.n_heads * seq * seq
-    logits = micro * seq * cfg.vocab
-    carries = cfg.n_cycles * micro * seq * cfg.d_model * 2
-    backward = 20 * n + 12 * max(scores, logits) + carries
-    leaf = max(cfg.vocab * cfg.d_model, cfg.n_layers * cfg.d_model * cfg.d_ff)
-    update = 32 * n + 5 * 4 * leaf
-    return max(backward, update)
-
-
 def train_microbatches(cfg, batch: int, count: int, seq: int,
                        limit_gib: float) -> int:
     """The microbatch count for `batch` sequences: `count`, doubled (the
     microbatch halved) while the predicted peak passes limit_gib; widths
     and depth are never cut.  Raises when one sequence a microbatch does
     not fit."""
-    while train_peak_bytes(cfg, batch // count, seq) > limit_gib * 2**30:
+    while (plan().train_peak_bytes(cfg, batch // count, seq)
+           > limit_gib * 2**30):
         if batch // count == 1:
             raise RuntimeError(f"{cfg.name}: one sequence of {seq} is "
                                f"predicted past {limit_gib} GiB")
         count *= 2
     return count
-
-
-def train_step_flops(cfg, batch: int, seq: int, *, remat: bool) -> dict:
-    """The model flops of one train step over batch x seq tokens: 6 N T
-    (forward 2 N T, backward 4 N T, the tied head counted once), the
-    attention's products over the full S x S (the causal mask is applied,
-    not skipped: 4 S^2 H d_head a sequence and layer forward, twice that
-    backward), and remat's recompute (the layers' forward once more, 2
-    N_layers T, and its attention products)."""
-    t = batch * seq
-    attn_fwd = 4 * seq * seq * cfg.n_heads * cfg.d_head * cfg.n_layers * batch
-    layers = cfg.n_layers * _layer_param_count(cfg)
-    return {"dense": 6 * train_param_count(cfg) * t, "attention": 3 * attn_fwd,
-            "remat": (2 * layers * t + attn_fwd) if remat else 0}
 
 
 def _update_rel(got, want, start):
@@ -5374,8 +5280,8 @@ def train_vs_cpu(tcfg, smi):
         cfg, dataclasses.replace(tc, compression="int8"))}
     src = SyntheticTokenSource(cfg, DataConfig(seed=17, global_batch=4,
                                                seq_len=32), device="cpu")
-    init = init_train_state(torch.Generator().manual_seed(17), cfg, tc,
-                            device="cpu")
+    init, _ = init_train_state(torch.Generator().manual_seed(17), cfg, tc,
+                               device="cpu")
     out = {}
     for dev in ("cpu", "cuda"):
         state, log = _to_device(init, dev), []
@@ -5433,19 +5339,20 @@ def train_full(tcfg, smi):
     held = torch.cuda.memory_allocated()
     micro = train_microbatches(cfg, batch, tcfg["microbatches"], seq,
                                tcfg["peak_gib"] - held / 2**30)
-    predicted = (train_peak_bytes(cfg, batch // micro, seq) + held) / 2**30
-    flops = train_step_flops(cfg, batch, seq, remat=cfg.remat)
+    predicted = (plan().train_peak_bytes(cfg, batch // micro, seq)
+                 + held) / 2**30
+    flops = plan().train_step_flops(cfg, batch, seq, remat=cfg.remat)
     emit(phase="training", step="full_predicted", model=cfg.name, smi=smi,
          layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
          tied=cfg.tie_embeddings, remat=cfg.remat,
-         params=train_param_count(cfg), seq=seq, global_batch=batch,
+         params=plan().train_param_count(cfg), seq=seq, global_batch=batch,
          microbatches=micro, tokens_per_step=batch * seq,
          peak_gib_predicted=predicted, held_gib=held / 2**30,
          flops_per_step=flops, flops_total=sum(flops.values()))
     tc = TrainConfig(microbatches=micro)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(170)
-    state = init_train_state(gen, cfg, tc, device="cuda")
+    state, _ = init_train_state(gen, cfg, tc, device="cuda")
     step_fn = make_train_step(cfg, tc)
     src = SyntheticTokenSource(cfg, DataConfig(seed=170, global_batch=batch,
                                                seq_len=seq), device="cuda")
@@ -5482,6 +5389,10 @@ def train_full(tcfg, smi):
         profile["fp32_gemm_share"] = fp32 / profile["device_busy_ms"]
         profile["fp32_gemm_kernels"] = sorted(
             {name[:80] for name, _, _ in rows if _fp32_gemm(name)})
+    MEASURED["17b"] = dict(cfg=cfg, batch=batch, seq=seq, micro=micro,
+                           seconds=median, peak_gib=peak,
+                           held_gib=held / 2**30, predicted_gib=predicted,
+                           flops=flops)
     emit(phase="training", step="full", model=cfg.name, smi=smi,
          step_seconds=seconds, median_s_steps_2_on=median,
          tokens_per_s=batch * seq / median, peak_gib=peak,
@@ -5520,7 +5431,7 @@ def train_loop(tcfg, smi):
     tc = TrainConfig(peak_lr=1e-3, warmup=max(10, steps // 20),
                      total_steps=steps)  # train_lm's
     gen = torch.Generator(device="cuda").manual_seed(171)
-    state = init_train_state(gen, cfg, tc, device="cuda")
+    state, _ = init_train_state(gen, cfg, tc, device="cuda")
     src = SyntheticTokenSource(cfg, DataConfig(
         seed=171, global_batch=tcfg["loop_batch"], seq_len=tcfg["loop_seq"]),
         device="cuda")
@@ -5568,7 +5479,7 @@ def train_loop(tcfg, smi):
                    zip(tree_leaves(final), tree_leaves(back)))
     losses = [m["loss"] for m in loop.metrics_log]
     emit(phase="training", step="loop", model=cfg.name, smi=smi,
-         params=train_param_count(cfg), batch=tcfg["loop_batch"],
+         params=plan().train_param_count(cfg), batch=tcfg["loop_batch"],
          seq=tcfg["loop_seq"], steps=steps, fail_at=list(tcfg["fail_at"]),
          restarts=loop.restarts, data_step=int(final["data_step"]),
          steps_run=[m["step"] for m in loop.metrics_log], seconds=run_s,
@@ -5606,152 +5517,6 @@ def training(tcfg, smi, results):
 # ---------------------------------------------------------------------------
 # phase 18: MoE serving (models.layers.moe through prefill and decode_step)
 # ---------------------------------------------------------------------------
-
-def ssm_state_bytes(cfg, batch: int) -> int:
-    """The recurrent blocks' cache entries (`init_cache`): mamba's bf16
-    conv state (B, K-1, d_in) and fp32 ssm state (B, d_in, N), the mLSTM's
-    fp32 C (B, H, hd, hd), n (B, H, hd), m (B, H) with hd = d_in / H, the
-    sLSTM's fp32 c, n, h, m (B, H, d / H); constant in S."""
-    d, h = cfg.d_model, cfg.n_heads
-    d_in = cfg.ssm_expand * d
-    hd = d_in // h
-    per = {"attn": 0,
-           "mamba": (cfg.ssm_conv - 1) * d_in * 2 + d_in * cfg.ssm_d_state * 4,
-           "mlstm": (h * hd * hd + h * hd + h) * 4,
-           "slstm": 4 * d * 4}
-    return batch * sum(per[cfg.layer_block_type(i)] for i in range(cfg.n_layers))
-
-
-def serve_peak_bytes(cfg, batch: int, prompt: int, new: int) -> dict:
-    """Predicted peak device bytes of `serve_lm.generate` (bf16 compute,
-    fp32 params) on an attention, MoE, recurrent or hybrid model, by term,
-    with T = B S (0 where the model has no such layer):
-      params    4 N;
-      state     the recurrent cache entries (`ssm_state_bytes`), allocated
-                at the first cycle;
-      cache     the attention layers' prompt bf16 K/V cache (prefill fills
-                it layer by layer, allocated at the first) and its grown
-                copy `cache_grown` (both held while `_grow_cache` runs); a
-                sliding window's cache is W slots and is not grown;
-      scores    the fp32 scores of one query chunk (all of S x S below
-                `_QCHUNK_THRESHOLD`), two at once: the product beside its
-                scaled copy, then the softmax beside its input;
-      attention q, k, v, rope'd k, k in fp32, a chunk's fp32 queries, the
-                chunks' outputs and their concatenation;
-      dispatch  one MoE layer: the tokens with their zero row, the gathered
-                slots (G E C, d) and their copy for the batched product,
-                three (G E C, fe) expert activations, the outputs and their
-                padded copy, one expert weight cast to bf16, the routing's
-                fp32 logits, softmax and sorted values with int64 indices;
-      mamba     one mamba layer at the end of its scan: xz (2 d_in bf16),
-                the conv's padded input (kept by the state's view) and its
-                activated output, dt, the scan's fp32 copies of dt and x_c
-                (padded to the chunk), its fp32 y chunks and their
-                concatenation (26 d_in bytes a token), the x_proj output
-                and fp32 B and C (2 (r + 2N) + 8 N); or, if larger, the
-                last chunk's moment (22 d_in + 2 (r + 2N) + 8 N bytes a
-                token, four (B, chunk, d_in, N) fp32 tensors: the scan's
-                pair, a product and the result it fills, three (B, d_in, N)
-                states and A);
-      mlstm     one mLSTM layer in its loop: xz, bf16 q, k, v, their fp32
-                copies, the step outputs and their stack (32 d_in bytes a
-                token) and four (B, H, hd, hd) fp32 memories (the carried
-                C, its decayed copy, the outer product, the new C);
-      slstm     one sLSTM layer: the fp32 pre-activations (16 d bytes a
-                token), the step outputs and their stack (8 d);
-      residual  three (B, S, d) activations (x, its norm, a block's output);
-      inputs    the stub frames or patches, fp32, and their bf16 copy;
-      cross     whisper's cross cache, bf16 k and v (C, B, F, KV, hd),
-                allocated at the first cycle and passed through the grow;
-      cross_attention  one decoder layer's cross-attention: two fp32
-                (B, H, S, F) scores and the encoder memory's k, v, fp32 k;
-      encoder   the encoder's moment: its residual, the fp32 sinusoid,
-                scores and attention terms at F (its attention is never
-                query-chunked below _QCHUNK_THRESHOLD), and its FFN's
-                three (B, F, d_ff) activations.
-    With the vision stub S counts the patches: S = n_patches + prompt.
-    `total` = params + state + inputs + the larger of the encoder's moment,
-    prefill's (cache, cross, the encoder's bf16 output, residual and the
-    largest of scores + attention, cross_attention, dispatch, mamba,
-    mlstm, slstm) and the grow's (both caches and cross).  `groups` and
-    `capacity` are the MoE prefill's (None without MoE)."""
-    from repro_torch.models import layers
-    kinds = set(cfg.block_pattern)
-    d, h = cfg.d_model, cfg.n_heads
-    d_in = cfg.ssm_expand * d
-    out = dict.fromkeys(("cache", "cache_grown", "scores", "attention",
-                         "dispatch", "mamba", "mlstm", "slstm", "inputs",
-                         "cross", "cross_attention", "encoder"), 0)
-    if cfg.frontend == "vision_stub":
-        out["inputs"] = batch * cfg.n_patches * d * (4 + 2)
-        prompt += cfg.n_patches
-    t = batch * prompt
-    out["params"] = 4 * train_param_count(cfg)
-    out["state"] = ssm_state_bytes(cfg, batch)
-    out["residual"] = 3 * t * d * 2
-    groups = capacity = None
-    kv, hd = cfg.n_kv_heads, cfg.d_head
-
-    def attention_terms(b, s):  # (scores, attention) of one layer at s
-        chunked = (s >= layers._QCHUNK_THRESHOLD and s % layers._QCHUNK == 0)
-        qc = layers._QCHUNK if chunked else s
-        return (2 * b * h * qc * s * 4,
-                3 * b * s * h * hd * 2 + 3 * b * s * kv * hd * 2
-                + b * s * kv * hd * 4 + b * qc * h * hd * 4)
-    if "attn" in kinds:
-        n_attn = sum(cfg.layer_block_type(i) == "attn"
-                     for i in range(cfg.n_layers))
-        kv_row = n_attn * 2 * batch * kv * hd * 2
-        scores, attention = attention_terms(batch, prompt)
-        # a sliding window's cache is its W slots, and the grow keeps it
-        w = cfg.swa_window
-        out.update(cache=kv_row * (prompt if w is None else w),
-                   cache_grown=kv_row * (prompt + new) if w is None else 0,
-                   scores=scores, attention=attention)
-    enc_out = 0
-    if cfg.enc_dec:
-        f = cfg.n_enc_frames
-        out["inputs"] = batch * f * d * (4 + 2)
-        out["cross"] = cfg.n_layers * 2 * batch * f * kv * hd * 2
-        out["cross_attention"] = (2 * batch * h * prompt * f * 4
-                                  + batch * f * kv * hd * (2 + 2 + 4))
-        scores, attention = attention_terms(batch, f)
-        out["encoder"] = (3 * batch * f * d * 2 + f * d * 4 + scores
-                          + attention + 3 * batch * f * cfg.d_ff * 2)
-        enc_out = batch * f * d * 2
-    if cfg.moe is not None:
-        e, k, fe = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_expert
-        groups = layers._moe_group_count(t, e)
-        capacity = max(4, int(cfg.moe.capacity_factor * (t // groups) * k / e))
-        slots = groups * e * capacity
-        out["dispatch"] = ((t + groups) * d * 2 + 2 * slots * d * 2
-                           + 3 * slots * fe * 2 + (2 * slots + groups) * d * 2
-                           + e * d * fe * 2 + t * e * (3 * 4 + 8))
-    if "mamba" in kinds:
-        n, r = cfg.ssm_d_state, max(1, d // 16)
-        chunk = min(cfg.mamba_chunk, prompt)
-        padded = batch * (prompt + (-prompt) % chunk)
-        per_token = 2 * (r + 2 * n) + 8 * n   # dbc, and B, C in fp32
-        scan = 4 * batch * chunk * d_in * n * 4 + (3 * batch + 1) * d_in * n * 4
-        out["mamba"] = max((26 * d_in + per_token) * padded,
-                           (22 * d_in + per_token) * padded + scan)
-    if "mlstm" in kinds:
-        hd = d_in // h
-        out["mlstm"] = 32 * t * d_in + 4 * batch * h * hd * hd * 4
-    if "slstm" in kinds:
-        out["slstm"] = 24 * t * d
-    prefill = out["cache"] + out["cross"] + enc_out + out["residual"] + max(
-        out["scores"] + out["attention"], out["cross_attention"],
-        out["dispatch"], out["mamba"], out["mlstm"], out["slstm"])
-    out["total"] = out["params"] + out["state"] + out["inputs"] + max(
-        out["encoder"], prefill,
-        out["cache"] + out["cache_grown"] + out["cross"])
-    out.update(groups=groups, capacity=capacity)
-    return out
-
-
-moe_serve_peak_bytes = serve_peak_bytes  # phase 18's name for it
-
 
 def moe_drop_share(counts, capacity: int) -> float:
     """A layer's share of assignments dropped at capacity: over every group
@@ -5872,8 +5637,8 @@ def moe_smoke_vs_cpu(mcfg, smi):
                          compute_dtype="float32")
         src = SyntheticTokenSource(cfg, DataConfig(seed=18, global_batch=4,
                                                    seq_len=32), device="cpu")
-        init = init_train_state(torch.Generator().manual_seed(18), cfg, tc,
-                                device="cpu")
+        init, _ = init_train_state(torch.Generator().manual_seed(18), cfg,
+                                   tc, device="cpu")
         step_fn = make_train_step(cfg, tc)
         trained = {dev: step_fn(_to_device(init, dev), _to_device(src.batch_at(0), dev))
                    for dev in ("cpu", "cuda")}
@@ -5953,17 +5718,17 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     attn_slots = [f"b{i}" for i, bt in enumerate(cfg.block_pattern) if bt == "attn"]
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    pred = serve_peak_bytes(cfg, b, s, n_new)
+    pred = plan().serve_peak_bytes(cfg, b, s, n_new)
     while b > 1 and (pred["total"] + held) / 2**30 > pcfg["peak_gib"]:
         b //= 2
-        pred = serve_peak_bytes(cfg, b, s, n_new)
+        pred = plan().serve_peak_bytes(cfg, b, s, n_new)
     predicted = (pred["total"] + held) / 2**30
     emit(phase=phase, step="predicted", model=cfg.name, smi=smi,
          layers=cfg.n_layers, layers_of=full.n_layers, d_model=cfg.d_model,
          block_pattern=list(cfg.block_pattern), moe=cfg.moe is not None
          and dict(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
                   d_expert=cfg.moe.d_expert), vocab=cfg.vocab,
-         params=train_param_count(cfg), batch=b, prompt=s, new_tokens=n_new,
+         params=plan().train_param_count(cfg), batch=b, prompt=s, new_tokens=n_new,
          peak_gib_predicted=predicted, held_gib=held / 2**30,
          terms_gib={key: v / 2**30 for key, v in pred.items()
                     if key not in ("groups", "capacity")},
@@ -5993,6 +5758,9 @@ def serve_full(phase, mcfg, pcfg, smi, results):
     stats = {}
     ids, cache = generate(params, cfg, prompt, n_new, stats=stats, **stubs)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    MEASURED.setdefault("serve", []).append(dict(
+        phase=phase, model=cfg.name, layers=cfg.n_layers, batch=b, prompt=s,
+        new=n_new, peak_gib=peak, predicted_gib=predicted))
     t0 = lap("generate", t0)
     served = [(key, c, window_in_order(cache[key], c, length))
               for key in attn_slots for c in range(cfg.n_cycles)
@@ -6014,9 +5782,10 @@ def serve_full(phase, mcfg, pcfg, smi, results):
              if key not in attn_slots and key != "cross"}
     state_bytes = sum(t.numel() * t.element_size() for e in state.values()
                       for t in e.values())
-    require(state_bytes == ssm_state_bytes(cfg, b),  # no S in the reckoning
+    # no S in the reckoning
+    require(state_bytes == plan().ssm_state_bytes(cfg, b),
             f"{cfg.name}: recurrent state {state_bytes} bytes, reckoned "
-            f"{ssm_state_bytes(cfg, b)}")
+            f"{plan().ssm_state_bytes(cfg, b)}")
     require(all(bool(torch.isfinite(t.float()).all()) for e in state.values()
                 for t in e.values()), f"{cfg.name}: recurrent state not finite")
 
@@ -6318,6 +6087,125 @@ def zoo_serving(zcfg, smi, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the planning layer (repro_torch.launch.dryrun, .roofline,
+# .costmodel) held to what phases 4, 12 (b), 14 (b), 17 (b) and 18-20 measured
+# ---------------------------------------------------------------------------
+
+def smoke_report(name, cost):
+    """A cell cost on the 1 x 1 mesh as a roofline report at the H100's
+    rates."""
+    from repro_torch.launch.mesh import H100
+    from repro_torch.launch.roofline import RooflineReport
+    return RooflineReport(
+        name=name, mesh="smoke", chips=1, flops_per_chip=cost.flops,
+        bytes_per_chip=cost.hbm_bytes,
+        collective_bytes_per_chip=cost.collective_bytes_per_chip,
+        model_flops=cost.model_flops).finalize(H100)
+
+
+def peak_held(run, got, want, smi, failures, **extra):
+    """A measured peak (GiB) against its reckoning: past it by more than
+    PLAN_PEAK_TOL of it fails; under it by more is reported (`loose`)."""
+    rel = (got - want) / want
+    if rel > PLAN_PEAK_TOL:
+        failures.append(f"{run}: peak {got} GiB over its reckoning {want} "
+                        f"GiB by {rel:.2%}")
+    emit(phase="planning", step="peak", run=run, smi=smi, peak_gib=got,
+         predicted_gib=want, rel=rel, tol=PLAN_PEAK_TOL,
+         loose=rel < -PLAN_PEAK_TOL, **extra)
+
+
+def bound_held(run, seconds, rep, smi, failures, **extra):
+    """Measured seconds against the roofline bound max(t_compute,
+    t_memory, t_collective): a bound above the measured time fails."""
+    if seconds < rep.t_bound:
+        failures.append(f"{run}: {seconds} s under its roofline bound "
+                        f"{rep.t_bound} s")
+    emit(phase="planning", step="bound", run=run, smi=smi, seconds=seconds,
+         bound_s=rep.t_bound, t_compute_s=rep.t_compute,
+         t_memory_s=rep.t_memory, t_collective_s=rep.t_collective,
+         bottleneck=rep.bottleneck, measured_over_bound=seconds / rep.t_bound,
+         **extra)
+
+
+def planning(pcfg, smi, results):
+    """Phase 21, rerunning nothing: (a) the whole dry-run (every applicable
+    cell on (16, 16) and (2, 16, 16), in this process, reports under
+    chiprun_out/phase21_dryrun/), each cell's fit against the data sheet's
+    80e9 B and the card's total memory; (b) on the 1 x 1 mesh each measured
+    run against its plan: phase 4's panel evaluations (geostat_cell_cost,
+    square; panel_peak_bytes), 12 (b)'s sequential tile factorizations
+    (geostat_dag_cost, tile), 14 (b)'s masked_full evaluation
+    (plan_geostat_cell) and 17 (b)'s train step (plan_lm_cell; lm_model_flops
+    beside train_step_flops): seconds at least the roofline bound, peaks
+    within PLAN_PEAK_TOL of the plan (plus what the process held); the
+    served peaks of 18-20 against serve_peak_bytes; (c) the phase's seconds
+    (at most pcfg's limit_s)."""
+    import shutil
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import H100, make_smoke_mesh
+    from repro_torch.launch.roofline import lm_model_flops
+    t0 = time.perf_counter()
+    card = torch.cuda.get_device_properties(0).total_memory
+    out_dir = ROOT / "chiprun_out" / "phase21_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    reports, failed = dryrun.run_all(["single", "multi"], str(out_dir))
+    require(reports and not failed, f"the dry-run's cells failed: {failed}")
+    peaks = [r.extras["peak_bytes_per_chip"] for r in reports]
+    emit(phase="planning", step="dryrun", smi=smi, cells=len(reports),
+         rates=H100.source, fits_80e9=sum(p <= H100.hbm_bytes for p in peaks),
+         fits_card=sum(p <= card for p in peaks), card_bytes=card,
+         seconds=time.perf_counter() - t0)
+
+    failures, smoke = [], make_smoke_mesh()
+    m = MEASURED.get("4")
+    if m:
+        rep = smoke_report("4", plan().geostat_cell_cost(
+            m["n"], m["nb"], m["t"], chips=1, off_update="square"))
+        want = m["held_gib"] + plan().panel_peak_bytes(
+            m["n"], m["nb"], m["t"], 4, 2) / 2**30
+        for i, (secs, peak) in enumerate(zip(m["seconds"], m["peak_gib"])):
+            bound_held(f"4 request {i}", secs, rep, smi, failures, n=m["n"])
+            peak_held(f"4 request {i}", peak, want, smi, failures)
+    for label, m in MEASURED.get("12b", {}).items():
+        rep = smoke_report(f"12 (b) {label}", plan().geostat_dag_cost(
+            m["n"], m["nb"], m["policy"], chips=1, variant="tile"))
+        bound_held(f"12 (b) {label} tile_cholesky", m["seconds"], rep, smi,
+                   failures, n=m["n"])
+    m = MEASURED.get("14b")
+    if m:
+        pl = dryrun.plan_geostat_cell("geostat_65k", smoke, "masked_full",
+                                      n=m["n"])
+        bound_held("14 (b) masked_full", m["seconds"],
+                   dryrun.report(pl, "smoke"), smi, failures, n=m["n"])
+        peak_held("14 (b) masked_full", m["peak_gib"], m["held_gib"]
+                  + (pl.args["storage"] + pl.work) / 2**30, smi, failures)
+    m = MEASURED.get("17b")
+    if m:
+        shape = ShapeSpec("train_4k", "train", m["seq"], m["batch"])
+        pl = dryrun.plan_lm_cell(m["cfg"].name, shape, smoke,
+                                 microbatches=m["micro"], cfg=m["cfg"])
+        bound_held("17 (b) train step", m["seconds"],
+                   dryrun.report(pl, "smoke"), smi, failures,
+                   lm_model_flops=lm_model_flops(m["cfg"], shape),
+                   train_step_flops=sum(m["flops"].values()))
+        peak_held("17 (b) train step", m["peak_gib"],
+                  m["held_gib"] + pl.peak_bytes / 2**30, smi, failures)
+    for m in MEASURED.get("serve", []):
+        peak_held(f"{m['phase']} {m['model']}", m["peak_gib"],
+                  m["predicted_gib"], smi, failures, layers=m["layers"],
+                  batch=m["batch"], prompt=m["prompt"])
+    secs = time.perf_counter() - t0
+    emit(phase="planning", step="seconds", smi=smi, seconds=secs,
+         limit_s=pcfg["limit_s"], held=sorted(MEASURED))
+    require(not failures, f"phase 21: {failures}")
+    require(secs <= pcfg["limit_s"], f"phase 21 took {secs} s, over its "
+            f"{pcfg['limit_s']} s")
+
+
+# ---------------------------------------------------------------------------
 # --e2e-ab: two versions of the port, end to end, in one run on one card
 # ---------------------------------------------------------------------------
 
@@ -6577,6 +6465,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     timed("20 zoo serving", zoo_serving, ZOO_QUICK if args.quick else ZOO, smi,
           results)
+    torch.cuda.empty_cache()
+    timed("21 planning", planning, PLANNING, smi, results)
     emit(phase="seconds", **seconds)
 
     print(smi_line(), flush=True)

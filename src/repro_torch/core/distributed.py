@@ -60,7 +60,9 @@ log-determinant share are broadcast, and each rank pushes its off slab's
 column j into its partial residual.
 
 Collectives run over the grid's groups: NCCL for CUDA tensors, gloo for CPU
-ones; a tensor whose device does not match the backend raises.  `impl`
+ones; a tensor whose device does not match the backend raises.  Under
+`launch.roofline.count_collectives()` each collective adds the bytes it
+moves on this rank to COLLECTIVE_COUNT (off, one None check a call).  `impl`
 picks the kernels ("kernel": `matern_cov` and `blocked_potrf` through their
 `ops`, the CUDA kernels on a CUDA tensor) or their plain versions
 ("plain"), as the panel engine's does.  The engine is not differentiable:
@@ -89,6 +91,18 @@ _OFF_AXES = {"masked_full": ("geo_rows", "geo_cols"),
              "fori": ("geo_rows2d", None)}
 # elements of one row chunk of U (2^28: 512 MiB in bf16, 1 GiB in fp32)
 U_CHUNK_ELEMS = 1 << 28
+# the active count of `launch.roofline.count_collectives` (None: off)
+COLLECTIVE_COUNT: list = [None]
+
+
+def _count(kind: str, group, *tensors):
+    """Add the bytes of `tensors` (a collective's result on this rank) to
+    the active count, where `group` spans more than this rank (a group of
+    one, which a 1-wide grid dimension has, moves nothing)."""
+    out = COLLECTIVE_COUNT[0]
+    if out is not None and dist.get_world_size(group) > 1:
+        out[kind] += sum(x.numel() * x.element_size() for x in tensors)
+        out["count"] += 1
 
 
 def slab_bounds(p: int, parts: int) -> tuple:
@@ -324,6 +338,7 @@ def _fp32_reductions():
 def _bcast(group, tensor, src):
     if group is not None:
         dist.broadcast(tensor, src=src, group=group)
+        _count("broadcast", group, tensor)
 
 
 def _gather_rows(lay: Layout, x, nb):
@@ -339,6 +354,7 @@ def _gather_rows(lay: Layout, x, nb):
     buf[..., :x.shape[-2], :] = x
     pieces = [torch.empty_like(buf) for _ in members]
     dist.all_gather(pieces, buf, group=group)
+    _count("all-gather", group, *pieces)
     out = x.new_empty(x.shape[:-2] + (nb, x.shape[-1]))
     for c, got in zip(members, pieces):
         a, b = bounds[c]
@@ -356,6 +372,7 @@ def _panel_column(lay: Layout, piece, p, nb):
     else:
         pieces = [torch.empty_like(piece) for _ in members]
         dist.all_gather(pieces, piece, group=group)
+        _count("all-gather", group, *pieces)
     out = torch.empty((p * nb, nb), dtype=piece.dtype, device=piece.device)
     for s, got in zip(members, pieces):
         a, b = lay.row_bounds[s]
@@ -520,6 +537,7 @@ def loglik_distributed(off, band, z, t: int, *, grid: Grid | None = None,
             if row_group is not None:
                 dist.reduce(rhs, dst=owner, op=dist.ReduceOp.SUM,
                             group=row_group)
+                _count("reduce", row_group, rhs)
         if g.ranks[g.rank] == owner:
             for d in range(1, min(j + 1, t)):
                 rhs = rhs - bj[d] @ w[(j - d) * nb:(j - d + 1) * nb]

@@ -61,7 +61,7 @@ def main(argv=None):
                      total_steps=args.steps, microbatches=args.microbatches,
                      compression=args.compression)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    state = init_train_state(gen, cfg, tc, device=args.device)
+    state, _axes = init_train_state(gen, cfg, tc, device=args.device)
     n_params = sum(x.numel() for x in tree_leaves(state["params"]))
     n_proc, proc = _processes()
     print(f"[train] arch={args.arch} preset={args.preset} "

@@ -1,7 +1,7 @@
 from .config import ArchConfig, MoESpec, get_arch, register_arch
 from .decode import decode_step, init_cache, prefill
-from .transformer import encode, forward_lm, init_lm, lm_loss
+from .transformer import encode, forward_lm, init_lm, lm_axes, lm_loss
 
 __all__ = ["ArchConfig", "MoESpec", "get_arch", "register_arch",
            "decode_step", "init_cache", "prefill", "encode", "forward_lm",
-           "init_lm", "lm_loss"]
+           "init_lm", "lm_axes", "lm_loss"]

@@ -12,7 +12,10 @@ leading axes, which is how the per-cycle params get their cycle axis.
 Apply functions take activations in the compute dtype with fp32 params,
 cast each param to the activation dtype at its product, and compute
 attention scores in fp32 (the reference's `preferred_element_type`).
-Sharding constraints are not ported: with no mesh they are the identity.
+Each init has an `*_axes` twin: the logical axes of its params (one packed
+name string a leaf, `sharding.ax`), the reference's second return value.
+Activations pass through `sharding.constrain` at the reference's sites;
+with no mesh installed it hands its input back.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import activation_mesh, ax, constrain
 
 NEG_INF = -1e30  # masked scores: a finite value, as the reference uses
 
@@ -37,6 +42,10 @@ def _init(gen, shape, scale=None, *, stack=(), device="cuda"):
 def rmsnorm_init(d, *, stack=(), device="cuda"):
     return {"scale": torch.ones(tuple(stack) + (d,), dtype=torch.float32,
                                 device=device)}
+
+
+def rmsnorm_axes():
+    return {"scale": ax(".")}
 
 
 def rmsnorm(p, x, eps=1e-5):
@@ -77,6 +86,17 @@ def attention_init(gen, cfg, *, stack=(), device="cuda"):
         p["q_norm"] = rmsnorm_init(hd, **kw)
         p["k_norm"] = rmsnorm_init(hd, **kw)
     return p
+
+
+def attention_axes(cfg):
+    a = {"wq": ax("embed", "heads", "head_dim"),
+         "wk": ax("embed", "kv_heads", "head_dim"),
+         "wv": ax("embed", "kv_heads", "head_dim"),
+         "wo": ax("heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = rmsnorm_axes()
+        a["k_norm"] = rmsnorm_axes()
+    return a
 
 
 def _attn_mask(sq, skv, *, causal: bool = True, swa: int | None,
@@ -137,8 +157,14 @@ def attention(p, x, cfg, *, positions, kv_x=None, causal=True,
         # this buffer is GiBs (einsum returns a view: an in-place op on it
         # would make autograd clone the whole buffer's gradient in the
         # backward, twice)
-        scores = torch.einsum("bskgh,btkh->bkgst", q_blk.float(), k32) \
-            / math.sqrt(hd)
+        scores = torch.einsum("bskgh,btkh->bkgst", q_blk.float(), k32)
+        if activation_mesh() is not None:
+            # the reference pins batch and the merged (kv, g) head dim (one
+            # spec entry cannot split a mesh axis over two dims)
+            scores = constrain(scores.flatten(1, 2),
+                               ax("act_batch", "act_heads", ".", "."),
+                               allow_uneven=True).unflatten(1, (kv, g))
+        scores = scores / math.sqrt(hd)
         if blk_mask is not None:
             scores.masked_fill_(~blk_mask, NEG_INF)
         scores = torch.softmax(scores, dim=-1)
@@ -169,9 +195,15 @@ def mlp_init(gen, cfg, *, stack=(), device="cuda"):
             "w_down": _init(gen, (f, d), **kw)}
 
 
+def mlp_axes(cfg):
+    return {"w_gate": ax("embed", "ffn"), "w_up": ax("embed", "ffn"),
+            "w_down": ax("ffn", "embed")}
+
+
 def mlp(p, x):
     dt = x.dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    h = constrain(h, ax("act_batch", ".", "act_ffn"))
     return h @ p["w_down"].to(dt)
 
 
@@ -188,6 +220,13 @@ def moe_init(gen, cfg, *, stack=(), device="cuda"):
             "w_gate": _init(gen, (e, d, fe), **kw),
             "w_up": _init(gen, (e, d, fe), **kw),
             "w_down": _init(gen, (e, fe, d), scale=1.0 / math.sqrt(fe), **kw)}
+
+
+def moe_axes(cfg):
+    return {"router": ax("embed", "experts"),
+            "w_gate": ax("experts", "embed", "expert_ffn"),
+            "w_up": ax("experts", "embed", "expert_ffn"),
+            "w_down": ax("experts", "expert_ffn", "embed")}
 
 
 _MOE_GROUPS = 32  # dispatch groups (GShard-style), as the reference's
@@ -224,7 +263,7 @@ def moe_route(p, x, spec):
     g_cnt = _moe_group_count(t, e)
     tg = t // g_cnt
     c = max(4, int(spec.capacity_factor * tg * k / e))
-    xf = x.reshape(g_cnt, tg, d)
+    xf = constrain(x.reshape(g_cnt, tg, d), ax("act_moe_groups", ".", "."))
     logits = (xf @ p["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     # a stable descending sort keeps the lower index first among equal
@@ -279,11 +318,15 @@ def moe(p, x, spec):
     table = table[:, :-1]
     xz = torch.cat([x.reshape(g_cnt, tg, d),
                     torch.zeros((g_cnt, 1, d), dtype=dt, device=dev)], dim=1)
-    xe = xz[rows, table].reshape(g_cnt, e, c, d)
+    xg = constrain(xz[rows, table], ax("act_moe_groups", ".", "."))
+    xe = constrain(xg.reshape(g_cnt, e, c, d),
+                   ax("act_moe_groups", "act_experts", ".", "."))
 
     h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt)))
          * torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt)))
+    h = constrain(h, ax("act_moe_groups", "act_experts", ".", "act_ffn"))
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    ye = constrain(ye, ax("act_moe_groups", "act_experts", ".", "."))
     # the trash slot E*C reads a zero row
     ye = torch.cat([ye.reshape(g_cnt, e * c, d),
                     torch.zeros((g_cnt, 1, d), dtype=dt, device=dev)], dim=1)
@@ -294,6 +337,7 @@ def moe(p, x, spec):
     y = ye[rows, slot_sorted[..., 0]].float() * gate[..., 0, None]
     for i in range(1, k):
         y = y + ye[rows, slot_sorted[..., i]].float() * gate[..., i, None]
+    y = constrain(y, ax("act_moe_groups", ".", "."))
     y = y.reshape(b, s, d).to(dt)
 
     frac_tokens = torch.sum(r["counts"], 0).float() / (b * s * k)

@@ -4,7 +4,8 @@ The port of `repro.models.ssm`.  Each block type has an init, a sequence
 form for training and prefill that takes and returns its state, and a
 state init (the decode cache's entry: constant in S).  Init functions take
 an explicit `torch.Generator` and draw fp32 params with the reference's
-shapes and scales; `stack` prepends leading axes (the cycle axis).  Apply
+shapes and scales; `stack` prepends leading axes (the cycle axis); each
+has an `*_axes` twin, its params' logical axes.  Apply
 functions keep the reference's casts: projections in the activation dtype,
 the recurrences in fp32.
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import _init, rmsnorm
+from .sharding import ax
 
 NEG_STATE = -1e30  # the stabiliser m's initial value, as the reference's
 
@@ -67,6 +69,18 @@ def mamba_init(gen, cfg, *, stack=(), device="cuda"):
         "d_skip": _full((d_in,), 1.0, **kw),
         "out_proj": _init(gen, (d_in, d), scale=1.0 / math.sqrt(d_in), **kw),
     }
+
+
+def mamba_axes(cfg):
+    return {"in_proj": ax("embed", "ssm_inner"),
+            "conv_w": ax("ssm_inner", "conv"),
+            "conv_b": ax("ssm_inner"),
+            "x_proj": ax("ssm_inner", "."),
+            "dt_proj": ax(".", "ssm_inner"),
+            "dt_bias": ax("ssm_inner"),
+            "a_log": ax("ssm_inner", "ssm_state"),
+            "d_skip": ax("ssm_inner"),
+            "out_proj": ax("ssm_inner", "embed")}
 
 
 def _causal_conv(x, w, b, conv_state=None):
@@ -239,6 +253,17 @@ def mlstm_init(gen, cfg, *, stack=(), device="cuda"):
     }
 
 
+def mlstm_axes(cfg):
+    return {"up_proj": ax("embed", "ssm_inner"),
+            "wq": ax("ssm_inner", "."), "wk": ax("ssm_inner", "."),
+            "wv": ax("ssm_inner", "."),
+            "w_igate": ax("ssm_inner", "heads"),
+            "w_fgate": ax("ssm_inner", "heads"),
+            "b_igate": ax("heads"), "b_fgate": ax("heads"),
+            "out_norm": ax("ssm_inner"),
+            "down_proj": ax("ssm_inner", "embed")}
+
+
 def _mlstm_step(carry, xs):
     c_mat, n_vec, m = carry
     qt, kt, vt, igt, fgt = xs                         # (B,H,hd) x3, (B,H) x2
@@ -316,6 +341,13 @@ def slstm_init(gen, cfg, *, stack=(), device="cuda"):
         "b": bias,
         "out_proj": _init(gen, (d, d), **kw),
     }
+
+
+def slstm_axes(cfg):
+    return {"w_in": ax("embed", "."),
+            "r": ax("heads", "head_dim", "."),
+            "b": ax("."),
+            "out_proj": ax("embed", "embed_no_fsdp")}
 
 
 def slstm_forward(p, x, cfg, *, state=None):

@@ -12,7 +12,10 @@ FFN rule.  The forward pass loops over the cycle axis where the reference
 scans, and under autograd `cfg.remat` checkpoints it one cycle at a time
 (nested over groups of `cfg.remat_group` cycles) as the reference's
 `jax.checkpoint` does.  MoE layers add their load-balance aux loss,
-summed over every layer inside the checkpointed cycle.
+summed over every layer inside the checkpointed cycle.  `lm_axes` gives
+the params' logical axes (the reference's second return of `init_lm`),
+built by the same block code (`_block_tree`), and the activations pass
+through `sharding.constrain` at the reference's sites.
 
 whisper: stub frame embeddings (B, F, d) plus a sinusoid go through the
 encoder's bidirectional attention blocks (rotary at positions arange(F),
@@ -28,13 +31,21 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (_init, attention, attention_init, mlp, mlp_init, moe,
-                     moe_init, rmsnorm, rmsnorm_init)
-from .ssm import (mamba_forward, mamba_init, mlstm_forward, mlstm_init,
-                  slstm_forward, slstm_init)
+from .layers import (_init, attention, attention_axes, attention_init, mlp,
+                     mlp_axes, mlp_init, moe, moe_axes, moe_init, rmsnorm,
+                     rmsnorm_axes, rmsnorm_init)
+from .sharding import ax, constrain
+from .ssm import (mamba_axes, mamba_forward, mamba_init, mlstm_axes,
+                  mlstm_forward, mlstm_init, slstm_axes, slstm_forward,
+                  slstm_init)
 
 _INNER_INIT = {"attn": attention_init, "mamba": mamba_init,
                "mlstm": mlstm_init, "slstm": slstm_init}
+# a block's parts: the mixers, the FFNs
+_PART_INIT = dict(_INNER_INIT, moe=moe_init, mlp=mlp_init)
+_PART_AXES = {"attn": attention_axes, "mamba": mamba_axes,
+              "mlstm": mlstm_axes, "slstm": slstm_axes, "moe": moe_axes,
+              "mlp": mlp_axes}
 _SSM_FORWARD = {"mamba": mamba_forward, "mlstm": mlstm_forward,
                 "slstm": slstm_forward}
 
@@ -56,28 +67,52 @@ def cycle_slice(tree, c: int):
     return tree[c]
 
 
-def _block_init(gen, cfg, idx_in_pattern: int, *, cross=False, stack=(),
-                device="cuda"):
-    """The block at `idx_in_pattern` of the cycle: its mixer, with `cross`
-    a cross-attention sub-block and its pre-norm (`norm_x`, `cross`), and
-    the reference's FFN rule: attention and mamba blocks get an MoE FFN
-    (`ffn_moe`) where `cfg.layer_is_moe(idx_in_pattern)`, else the SwiGLU
-    MLP where d_ff > 0; mLSTM and sLSTM blocks never get one."""
+def _block_tree(cfg, idx_in_pattern: int, make, *, cross=False):
+    """The block at `idx_in_pattern` of the cycle, its parts from
+    make(part) ("norm", a mixer, "moe" or "mlp"): its pre-norm and mixer,
+    with `cross` a cross-attention sub-block and its pre-norm (`norm_x`,
+    `cross`), and the reference's FFN rule: attention and mamba blocks get
+    an MoE FFN (`ffn_moe`) where `cfg.layer_is_moe(idx_in_pattern)`, else
+    the SwiGLU MLP where d_ff > 0; mLSTM and sLSTM blocks never get one."""
     bt = cfg.block_pattern[idx_in_pattern % len(cfg.block_pattern)]
-    kw = dict(stack=stack, device=device)
-    p = {"norm1": rmsnorm_init(cfg.d_model, **kw),
-         "inner": _INNER_INIT[bt](gen, cfg, **kw)}
+    p = {"norm1": make("norm"), "inner": make(bt)}
     if cross:
-        p["norm_x"] = rmsnorm_init(cfg.d_model, **kw)
-        p["cross"] = attention_init(gen, cfg, **kw)
+        p["norm_x"] = make("norm")
+        p["cross"] = make("attn")
     is_moe = cfg.layer_is_moe(idx_in_pattern)
     if bt in ("attn", "mamba") and (is_moe or cfg.d_ff > 0):
-        p["norm2"] = rmsnorm_init(cfg.d_model, **kw)
+        p["norm2"] = make("norm")
         if is_moe:
-            p["ffn_moe"] = moe_init(gen, cfg, **kw)
+            p["ffn_moe"] = make("moe")
         else:
-            p["ffn"] = mlp_init(gen, cfg, **kw)
+            p["ffn"] = make("mlp")
     return p
+
+
+def _block_init(gen, cfg, idx_in_pattern: int, *, cross=False, stack=(),
+                device="cuda"):
+    """The block's params (`_block_tree`), drawn from gen in tree order."""
+    kw = dict(stack=stack, device=device)
+
+    def make(part):
+        if part == "norm":
+            return rmsnorm_init(cfg.d_model, **kw)
+        return _PART_INIT[part](gen, cfg, **kw)
+    return _block_tree(cfg, idx_in_pattern, make, cross=cross)
+
+
+def _stacked_axes(tree):
+    """The axes of a stacked block: "cycles " before each leaf's names."""
+    if isinstance(tree, dict):
+        return {k: _stacked_axes(v) for k, v in tree.items()}
+    return "cycles " + tree
+
+
+def _block_axes(cfg, idx_in_pattern: int, *, cross=False):
+    """The logical axes of `_block_init`'s params, unstacked."""
+    return _block_tree(cfg, idx_in_pattern,
+                       lambda part: rmsnorm_axes() if part == "norm"
+                       else _PART_AXES[part](cfg), cross=cross)
 
 
 def _ffn(p, x, cfg):
@@ -150,6 +185,28 @@ def init_lm(gen, cfg, *, device="cuda"):
         p["vision_adapter"] = _init(gen, (cfg.d_model, cfg.d_model),
                                     device=device)
     return p
+
+
+def lm_axes(cfg):
+    """The logical axes of `init_lm`'s params: the same tree, each leaf a
+    packed string with one name a dim (`sharding.ax`), as the reference's
+    init_lm returns them.  Leaves stacked over cycles (or whisper's encoder
+    layers) carry the reference's "cycles " prefix.  Needs no generator
+    and no device."""
+    _check_supported(cfg)
+    a = {"embed": ax("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        a["unembed"] = ax("embed", "vocab")
+    a["final_norm"] = rmsnorm_axes()
+    a["cycles"] = {f"b{i}": _stacked_axes(_block_axes(cfg, i,
+                                                      cross=cfg.enc_dec))
+                   for i in range(len(cfg.block_pattern))}
+    if cfg.enc_dec:
+        a["enc_cycles"] = _stacked_axes(_block_axes(cfg, 0))
+        a["enc_norm"] = rmsnorm_axes()
+    if cfg.frontend == "vision_stub":
+        a["vision_adapter"] = ax("embed", "embed_no_fsdp")
+    return a
 
 
 # ------------------------------------------------------------- forward
@@ -238,12 +295,13 @@ def forward_lm(params, tokens, cfg, *, extra_embeds=None, enc_out=None,
     # layers' aux inside the checkpointed function
     def cycle_fn(x, aux, c):
         cyc = cycle_slice(params["cycles"], c)
+        x = constrain(x, ax("act_batch", ".", "."))
         for i, bt in enumerate(cfg.block_pattern):
             x, aux_i, _ = _apply_block(cyc[f"b{i}"], x, cfg, bt,
                                        positions=positions, enc_out=enc_out)
             if aux_i is not None:
                 aux = aux + aux_i
-        return x, aux
+        return constrain(x, ax("act_batch", ".", ".")), aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -261,7 +319,8 @@ def forward_lm(params, tokens, cfg, *, extra_embeds=None, enc_out=None,
         for c in range(cfg.n_cycles):
             x, aux = inner(x, aux, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed_logits(params, x, cfg), aux
+    logits = unembed_logits(params, x, cfg)
+    return constrain(logits, ax("act_batch", ".", "act_vocab")), aux
 
 
 def lm_loss(params, batch, cfg, *, compute_dtype=torch.bfloat16):

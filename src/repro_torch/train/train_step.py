@@ -11,8 +11,8 @@ The port of `repro.train.train_step`.  Flags on TrainConfig:
   * remat is a model-config flag (ArchConfig.remat), applied per cycle.
 
 The step is functional: it returns a new state and leaves the one it was
-given as it was.  The reference also returns the params' logical axes;
-those wait for `models/sharding.py`, so the port returns the state alone.
+given as it was.  `init_train_state` returns the state and the params'
+logical axes (`models.transformer.lm_axes`), as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from ..models.transformer import init_lm, lm_loss
+from ..models.transformer import init_lm, lm_axes, lm_loss
 from ..optim import adamw
 from ..optim.adamw import tree_map
 from ..runtime.compression import compress_with_feedback, init_residual
@@ -43,15 +43,17 @@ class TrainConfig:
 
 
 def init_train_state(gen, cfg, tc: TrainConfig, *, device="cuda"):
-    """{"params", "opt", "data_step"[, "residual"]} with params from `gen`
-    (a torch.Generator on `device`)."""
+    """(state, axes): the state {"params", "opt", "data_step"[,
+    "residual"]} with params from `gen` (a torch.Generator on `device`),
+    and the params' logical axes (the params' tree, a packed name string a
+    leaf)."""
     params = init_lm(gen, cfg, device=device)
     state = {"params": params,
              "opt": adamw.init(params, moment_dtype=_DTYPES[tc.moment_dtype]),
              "data_step": torch.zeros((), dtype=torch.int32, device=device)}
     if tc.compression != "none":
         state["residual"] = init_residual(params)
-    return state
+    return state, lm_axes(cfg)
 
 
 def make_train_step(cfg, tc: TrainConfig):

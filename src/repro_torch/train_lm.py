@@ -53,7 +53,7 @@ def main(argv=None):
     tc = TrainConfig(peak_lr=args.lr, warmup=max(10, args.steps // 20),
                      total_steps=args.steps, compression=args.compression)
     gen = torch.Generator(device=args.device).manual_seed(0)
-    state = init_train_state(gen, cfg, tc, device=args.device)
+    state, _ = init_train_state(gen, cfg, tc, device=args.device)
     n_params = sum(x.numel() for x in tree_leaves(state["params"]))
     print(f"model: {n_params/1e6:.1f}M params, device {args.device}")
 

@@ -24,6 +24,7 @@ from repro_torch.core import PrecisionPolicy as P
 from repro_torch.core import distributed as td
 from repro_torch.core import panel_cholesky as tpc
 from repro_torch.launch.mesh import grid_num_ranks, make_grid, make_smoke_grid
+from repro_torch.launch import costmodel
 
 # pytest runs several workers on a few cores: one intra-op thread each
 # keeps these small-shape tests from oversubscribing them
@@ -533,23 +534,23 @@ def test_chip_smoke_distributed_launches_are_the_engines_calls(pol, data,
 
 
 def test_chip_smoke_distributed_peaks():
-    """The phase's predicted peaks: off (n^2 lo), the band (p t nb^2 hi),
-    one row chunk of U (4 tile rows at 65,536, 6 at 40,960) in its
-    product's dtype (and in lo where that differs), three n x nb lo and two
-    n x nb hi panel buffers: 11.375 GiB for geostat_65k under tpu(8) with
-    the card's bf16 product, 8.906 GiB for the pair at 40,960 under
+    """The phase's predicted peaks: off (n^2 lo) and the band (p t nb^2
+    hi), and the largest of a step's moments, which the engine never
+    overlaps: the lo update's c_lo and one row chunk of U (4 tile rows at
+    65,536, 6 at 40,960) in its product's dtype (and in lo where that
+    differs) decides in each case: 10.625 GiB for geostat_65k under tpu(8)
+    with the card's bf16 product, 7.96875 GiB for the pair at 40,960 under
     paper_cpu(2) (DP(10%) at p = 40); the CPU's fp32-upcast U adds its lo
-    copy."""
-    cs = _chip_smoke()
+    copy.  (Measured on an H100: 10.63 and 7.98 GiB.  The reckoning used
+    to add the panel column's five buffers to U: 11.375 and 8.906.)"""
     gib = 2 ** 30
-    a = cs.distributed_peak_gib(65_536, 1_024, 8, 4, 2, 2)
+    a = costmodel.distributed_peak_gib(65_536, 1_024, 8, 4, 2, 2)
     assert a * gib == (65_536 ** 2 * 2 + 64 * 8 * 1_024 ** 2 * 4
-                       + 4_096 * 65_536 * 2 + 3 * 65_536 * 1_024 * 2
-                       + 2 * 65_536 * 1_024 * 4)
-    assert a == 11.375
-    b = cs.distributed_peak_gib(40_960, 1_024, 2, 8, 4, 4)
+                       + 65_536 * 1_024 * 2 + 4_096 * 65_536 * 2)
+    assert a == 10.625
+    b = costmodel.distributed_peak_gib(40_960, 1_024, 2, 8, 4, 4)
     assert b * gib == (40_960 ** 2 * 4 + 40 * 2 * 1_024 ** 2 * 8
-                       + 6_144 * 40_960 * 4 + 3 * 40_960 * 1_024 * 4
-                       + 2 * 40_960 * 1_024 * 8)
-    c = cs.distributed_peak_gib(65_536, 1_024, 8, 4, 2, 4)
+                       + 40_960 * 1_024 * 4 + 6_144 * 40_960 * 4)
+    assert b == 7.96875
+    c = costmodel.distributed_peak_gib(65_536, 1_024, 8, 4, 2, 4)
     assert c == a + 4_096 * 65_536 * 4 / gib

@@ -46,6 +46,7 @@ from repro_torch.models.transformer import (cycle_slice, forward_lm, init_lm,
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.serve_lm import _grow_cache, generate
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.launch import costmodel
 
 # pytest runs several workers on a few cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -573,8 +574,8 @@ def test_train_step_matches_jax(name, microbatches):
 def test_smoke_forward_and_train_step(name):
     cfg = _smoke(name)
     tc = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=10)
-    state = init_train_state(torch.Generator().manual_seed(0), cfg, tc,
-                             device="cpu")
+    state, _ = init_train_state(torch.Generator().manual_seed(0), cfg, tc,
+                                device="cpu")
     src = SyntheticTokenSource(cfg, DataConfig(seed=0, global_batch=2,
                                                seq_len=16), device="cpu")
     state, metrics = make_train_step(cfg, tc)(state, src.batch_at(0))
@@ -630,12 +631,12 @@ def test_chip_smoke_moe_param_count_is_the_models(name):
     cs = _chip_smoke()
     cfg = _smoke(name)
     params = init_lm(torch.Generator(), cfg, device="cpu")
-    assert cs.train_param_count(cfg) == sum(x.numel() for x in tree_leaves(params))
+    assert costmodel.train_param_count(cfg) == sum(x.numel() for x in tree_leaves(params))
     # the full configs: qwen3-moe-30b-a3b a layer 623.1 M (604.0 M in
     # experts), 16 layers and the untied embedding and head 10.59 B
     full = LM_CONFIGS["qwen3-moe-30b-a3b"]
-    assert cs._layer_param_count(full) == 623_120_640
-    assert cs.train_param_count(full.scaled(n_layers=16)) == 10_592_262_144
+    assert costmodel.layer_param_count(full) == 623_120_640
+    assert costmodel.train_param_count(full.scaled(n_layers=16)) == 10_592_262_144
 
 
 def test_chip_smoke_moe_serve_peak_against_a_cpu_run(monkeypatch):
@@ -658,7 +659,7 @@ def test_chip_smoke_moe_serve_peak_against_a_cpu_run(monkeypatch):
         box["ids"], box["cache"] = generate(params, cfg, prompt, new,
                                             compute_dtype=torch.bfloat16)
     measured = _cpu_peak_bytes(run)
-    pred = cs.moe_serve_peak_bytes(cfg, b, s, new)
+    pred = costmodel.serve_peak_bytes(cfg, b, s, new)
     assert pred["params"] == sum(x.numel() * 4 for x in tree_leaves(params))
     assert pred["cache_grown"] == sum(
         t.numel() * t.element_size() for e in box["cache"].values()
@@ -676,7 +677,7 @@ def test_chip_smoke_moe_serve_peak_at_full_width():
     under 70 GiB with the batch of 4."""
     cs = _chip_smoke()
     cfg = LM_CONFIGS["qwen3-moe-30b-a3b"].scaled(n_layers=16)
-    pred = cs.moe_serve_peak_bytes(cfg, 4, 8_192, 64)
+    pred = costmodel.serve_peak_bytes(cfg, 4, 8_192, 64)
     assert pred["params"] / 2**30 == pytest.approx(39.46, abs=0.01)
     assert pred["scores"] == 2 * 4 * 32 * 2_048 * 8_192 * 4
     assert (pred["groups"], pred["capacity"]) == (32, 80)

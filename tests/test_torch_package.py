@@ -19,6 +19,7 @@ from repro_torch.models import init_cache, init_lm
 from repro_torch.serve_lm import generate
 from repro_torch import verify
 from repro_torch.verify import golden
+from repro_torch.launch import costmodel
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -45,6 +46,13 @@ def _imported_roots(path):
 def test_port_file_imports_no_jax_and_no_reference(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_covers_the_planning_layer():
+    """The AST scan above reads the modules this layer adds."""
+    for rel in ("models/sharding.py", "launch/roofline.py",
+                "launch/dryrun.py", "launch/costmodel.py", "launch/mesh.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -117,6 +125,11 @@ def test_entry_points_default_to_the_card():
         SyntheticTokenSource(SMOKE, DataConfig()).batch_at(0)
     with pytest.raises((RuntimeError, AssertionError)):
         launch_train.main(["--arch", "llama3.2-1b", "--steps", "1"])
+    # the planning layer's allocator trace measures the card only; the
+    # dry-run touches no device at all (tests/test_torch_dryrun.py)
+    from repro_torch.launch import peak_trace
+    with pytest.raises(RuntimeError):
+        peak_trace.main([])
     with pytest.raises((RuntimeError, AssertionError)):
         train_lm.main(["--steps", "1"])
 
@@ -176,7 +189,7 @@ def test_chip_smoke_scale_peak_reckoning():
     on the card 29.76 n^2, 46.50 GiB); under 70 GiB, so n stays."""
     cs = _chip_smoke()
     n, nb = 40_960, 1_024
-    peak = cs.scale_peak_bytes(n, nb)
+    peak = costmodel.scale_peak_bytes(n, nb)
     tiles = (8 * 79 + 4 * (820 - 79)) * nb * nb
     assert peak == 12 * n * n + tiles + 8 * (n - nb) ** 2 + 8 * n * n
     assert peak / 2**30 == pytest.approx(46.64, abs=0.01)
@@ -190,8 +203,8 @@ def test_chip_smoke_scale_cuts_n_to_fit(limit):
     cs = _chip_smoke()
     n = cs.scale_n(40_960, 1_024, limit)
     assert n % 1_024 == 0 and n < 40_960
-    assert cs.scale_peak_bytes(n, 1_024) / 2**30 <= limit
-    assert cs.scale_peak_bytes(n + 1_024, 1_024) / 2**30 > limit
+    assert costmodel.scale_peak_bytes(n, 1_024) / 2**30 <= limit
+    assert costmodel.scale_peak_bytes(n + 1_024, 1_024) / 2**30 > limit
 
 
 def _scale_records(**over):

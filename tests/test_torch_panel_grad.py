@@ -32,6 +32,7 @@ from repro_torch.kernels.matern_cov import matern_cov as mc_kernel
 from repro_torch.kernels.matern_cov import ops as mc_ops
 from repro_torch.kernels.matern_cov import ref as mc_ref
 from repro_torch.kernels.mp_gemm import ops as syrk_ops
+from repro_torch.launch import costmodel
 from test_torch_mle_adam import _chip_smoke, _field
 from test_torch_panel import _port_policy
 
@@ -549,11 +550,11 @@ def test_chip_smoke_panel_grad_peaks():
     pair there ~78.8 GiB, past 70, so its n is cut to 61,440 (~69.6 GiB);
     at 49,152 ~45.6 GiB."""
     cs = _chip_smoke()
-    assert cs.panel_grad_peak_gib(65_536, 1_024, 8, 4, 2) == pytest.approx(
+    assert costmodel.panel_grad_peak_gib(65_536, 1_024, 8, 4, 2) == pytest.approx(
         39.38, abs=0.01)
-    assert cs.panel_grad_peak_gib(65_536, 1_024, 8, 8, 4) == pytest.approx(
+    assert costmodel.panel_grad_peak_gib(65_536, 1_024, 8, 8, 4) == pytest.approx(
         78.76, abs=0.01)
     assert cs.panel_grad_n(65_536, 1_024, 8, 8, 4, 70.0) == 61_440
-    assert cs.panel_grad_peak_gib(61_440, 1_024, 8, 8, 4) <= 70.0
-    assert cs.panel_grad_peak_gib(49_152, 1_024, 8, 8, 4) == pytest.approx(
+    assert costmodel.panel_grad_peak_gib(61_440, 1_024, 8, 8, 4) <= 70.0
+    assert costmodel.panel_grad_peak_gib(49_152, 1_024, 8, 8, 4) == pytest.approx(
         45.57, abs=0.01)

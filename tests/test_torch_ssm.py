@@ -47,6 +47,7 @@ from repro_torch.models.transformer import (cycle_slice, forward_lm, init_lm,
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.serve_lm import _grow_cache, generate
 from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.launch import costmodel
 
 # pytest runs several workers on a few cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -772,8 +773,8 @@ def test_smoke_train_step_in_bf16(name):
     from repro_torch.train import init_train_state
     cfg = _smoke(name)
     tc = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=10)
-    state = init_train_state(torch.Generator().manual_seed(0), cfg, tc,
-                             device="cpu")
+    state, _ = init_train_state(torch.Generator().manual_seed(0), cfg, tc,
+                                device="cpu")
     src = SyntheticTokenSource(cfg, DataConfig(seed=0, global_batch=2,
                                                seq_len=16), device="cpu")
     state, metrics = make_train_step(cfg, tc)(state, src.batch_at(0))
@@ -852,13 +853,13 @@ def test_chip_smoke_param_count_is_the_models(name):
     cs = _chip_smoke()
     cfg = _smoke(name)
     params = init_lm(torch.Generator(), cfg, device="cpu")
-    assert cs.train_param_count(cfg) == sum(x.numel() for x in tree_leaves(params))
+    assert costmodel.train_param_count(cfg) == sum(x.numel() for x in tree_leaves(params))
     full = LM_CONFIGS[name]
     if name == "xlstm-1.3b":
         want, cut = 2_623_146_176, full
     else:
         want, cut = 13_295_235_072, full.scaled(n_layers=8)
-    assert cs.train_param_count(cut) == want
+    assert costmodel.train_param_count(cut) == want
     shapes = jax.eval_shape(lambda k: j_init_lm(k, cut)[0], jax.random.PRNGKey(0))
     assert sum(math.prod(x.shape) for x in jax.tree.leaves(shapes)) == want
 
@@ -873,7 +874,7 @@ def test_chip_smoke_state_bytes_are_the_caches(name):
         cache = init_cache(cfg, b, max_len, device="cpu")
         got = sum(t.numel() * t.element_size() for key, e in cache.items()
                   if "k" not in e for t in e.values())
-        assert cs.ssm_state_bytes(cfg, b) == got
+        assert costmodel.ssm_state_bytes(cfg, b) == got
 
 
 # (config, batch, prompt, new) at which each term decides the CPU peak: the
@@ -903,7 +904,7 @@ def test_chip_smoke_ssm_serve_peak_against_a_cpu_run(case):
         box["ids"], box["cache"] = generate(params, cfg, prompt, new,
                                             compute_dtype=torch.bfloat16)
     measured = _cpu_peak_bytes(run)
-    pred = cs.serve_peak_bytes(cfg, b, s, new)
+    pred = costmodel.serve_peak_bytes(cfg, b, s, new)
     assert pred["params"] == sum(x.numel() * 4 for x in tree_leaves(params))
     held = {k: sum(t.numel() * t.element_size() for t in e.values())
             for k, e in box["cache"].items()}
@@ -922,16 +923,16 @@ def test_chip_smoke_ssm_serve_peak_at_full_width():
     attention layer's two fp32 (B, H, S, S) score buffers add 16 GiB and
     the total passes 65 GiB, at 2 x 4,096 it is under 60."""
     cs = _chip_smoke()
-    x = cs.serve_peak_bytes(LM_CONFIGS["xlstm-1.3b"], 4, 1_024, 64)
+    x = costmodel.serve_peak_bytes(LM_CONFIGS["xlstm-1.3b"], 4, 1_024, 64)
     assert x["params"] / 2**30 == pytest.approx(9.772, abs=1e-3)
     assert x["state"] == 24 * 4 * 4 * (1_024 ** 2 + 1_024 + 1) * 4 \
         + 24 * 4 * 4 * 2_048 * 4
     assert x["scores"] == x["cache"] == x["dispatch"] == 0
     assert x["total"] / 2**30 < 15
     j = LM_CONFIGS["jamba-v0.1-52b"].scaled(n_layers=8)
-    j4 = cs.serve_peak_bytes(j, 4, 4_096, 32)
+    j4 = costmodel.serve_peak_bytes(j, 4, 4_096, 32)
     assert j4["params"] / 2**30 == pytest.approx(49.53, abs=0.01)
     assert j4["scores"] == 2 * 4 * 32 * 4_096 * 4_096 * 4
     assert (j4["groups"], j4["capacity"]) == (32, 80)
     assert 65 < j4["total"] / 2**30 < 70
-    assert cs.serve_peak_bytes(j, 2, 4_096, 32)["total"] / 2**30 < 60
+    assert costmodel.serve_peak_bytes(j, 2, 4_096, 32)["total"] / 2**30 < 60
