@@ -201,6 +201,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      share of a masked_full evaluation; (c) the pair at DP(10%) on phase
      9's fp64 medium field through aligned and masked_full, kernels and
      plain: within 1e-5 of each other and 1e-4 |ll| of 9.1's full(fp64);
+     (d) the gradient in theta and z (DistributedMaternCov,
+     DistributedCholesky, DistributedLoglik): (d.1) (a)'s three policies
+     through every version, the NCCL grid's ll and gradients the no-group
+     call's bits, masked_full and fori the same bits, ll with grad the bits
+     without, kernels against plain within DIST_KERNEL_TOL over s_k,
+     exact launches (matern_cov_grad 1 + t); (d.2) geostat_65k's
+     masked_full, n cut by distributed_grad_peak_gib: one warm-up whose
+     backward runs under the profiler, then the kernels timed (forward,
+     backward, peak against its prediction), each matern_cov_grad launch
+     of that run held to its plain version on the same slab and G within
+     DIST_CHECK_TOL of the scale (the plain's seconds taken out of the
+     backward's), the gradient beside 13 (b)'s panel gradient (reported:
+     C 18); (d.3) the pair at DP(10%) on 9's field through aligned at
+     10.1's full(fp64) n, kernels and plain (over s_k), its gradient within
+     DIST_PAIR_FP64_TOL over s_k of 10.1's full(fp64) gradient;
  15. telemetry (repro_torch.obs) on the card: (a) the calibrator's task
      times (CUDA events behind a spin) of the tile DAG at p = 6, nb =
      1,024 under tpu(2): exactly the DAG's (kind, tier) keys, one
@@ -312,8 +327,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      factorizations (geostat_dag_cost), 14 (b)'s masked_full evaluation
      and 17 (b)'s train step (their dry-run plans), each measured time at
      least its roofline bound, with the measured-to-bound ratio, and the
-     peaks of 4, 14 (b), 17 (b) and the served ones of 18-20 within
-     PLAN_PEAK_TOL of their reckonings (plus what the process held); (c)
+     peaks of 4, 14 (b), 14 (d.2) (distributed_grad_peak_gib), 17 (b) and
+     the served ones of 18-20 within PLAN_PEAK_TOL of their reckonings
+     (plus what the process held); (c)
      the phase's seconds (at most 30);
 then the card's name and power limit, one JSON line of every kernel's
 numbers (the fp64 instantiations in rows of their own), and last the
@@ -568,12 +584,34 @@ HB_ATOL_US = 1.0
 # phase 12 (b): the scheduled log-likelihood against the sequential one,
 # relative (phase 8.1's limit for tpu(2), phase 9.1's for the pair)
 RUNTIME_LOGLIK_TOL = {"tpu(2)": 1e-3, "paper_cpu(2)": 1e-5}
+# 14 (d.2)'s plain check of each matern_cov_grad launch: G's elements per
+# plain call (a 512 MiB |G| chunk in bf16), and the limit over the scale:
+# the kernel's fp32 terms are the plain version's at nu = 0.5 and the fp64
+# sums come in other orders (read at most 6.6e-19, NVIDIA H100 80GB HBM3,
+# 700 W); an exp's last bits (2.4e-7 a term, GRAD_KERNEL_TOL) averaged over
+# the 6e7 or more terms of a call stay under 1e-10
+GRAD_ELEMS_CHECK = 2 ** 28
+DIST_CHECK_TOL = 1e-9
+# phase 14 (d.1), (d.3): the distributed gradient, kernels against plain,
+# over s_k = sum |G| dSigma/dtheta_k, by the locations' dtype: read at
+# n = 1,024 4.6e-9 tpu(2), 6.4e-9 full(fp32) (the factor's kernels and
+# bf16 roundings, not matern_cov_grad's: GRAD_KERNEL_TOL), 0 for fp64
+# locations, also at 38,912 (NVIDIA H100 80GB HBM3, 700 W); fifteen times
+# the largest fp32 reading, and fp64's sums in other orders
+DIST_KERNEL_TOL = {"torch.float32": 1e-7, "torch.float64": 1e-12}
+# phase 14 (d.3): the pair's distributed gradient against 10.1's dense
+# full(fp64) one on the same field, max_k |delta_k| / s_k: read 2.1e-11
+# (theta1) and 1.0e-11 (theta2); the gradient is 1.7e-7 and 1.0e-7 of s_k
+# there (its terms cancel), so this is 1.0e-4 of its largest component.
+# The pair's fp32 off-band storage, not the adjoint: PERF.md, PR 33
+DIST_PAIR_FP64_TOL = 5e-11
 # phase 21: a measured peak may pass its reckoning by at most this share
 # of the reckoning (the runs it holds have come within 0.5 % where the
 # reckoning had its terms; one further below is reported)
 PLAN_PEAK_TOL = 0.02
 PLANNING = dict(limit_s=30.0)
-# what phases 4, 12 (b), 14 (b), 17 (b) and 18-20 measured, for phase 21
+# what phases 4, 12 (b), 14 (b), 14 (d.2), 17 (b) and 18-20 measured, for
+# phase 21 (and 10.1's full(fp64) and 13 (b)'s tpu gradients, for 14 (d))
 MEASURED: dict = {}
 
 
@@ -2825,23 +2863,29 @@ def check_matern_grad(fields, gcfg, results):
             library_ms=None)
 
 
-def _value_and_grad(fn, theta):
+def _value_and_grad(fn, theta, z=None):
     """ll and its gradient in a host fp32 theta, as fit_mle_adam takes them:
-    (ll, grad list, forward s, backward s, peak GiB, launch counts)."""
+    (ll, grad list, forward s, backward s, peak GiB, launch counts); given
+    z, ll = fn(theta, z) and z's gradient follows the launch counts."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    th = torch.tensor(theta, dtype=torch.float32, requires_grad=True)
+    args = [torch.tensor(theta, dtype=torch.float32, requires_grad=True)]
+    if z is not None:
+        args.append(z.detach().clone().requires_grad_())
     t0 = time.perf_counter()
-    ll = fn(th)
+    ll = fn(*args)
     value = float(ll.detach())  # waits for the device
     t1 = time.perf_counter()
-    (g,) = torch.autograd.grad(ll, th)  # a host tensor: waits
+    grads = torch.autograd.grad(ll, args)
+    g = grads[0].tolist()  # theta's gradient is a host tensor: waits
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return (value, g.tolist(), t1 - t0, t2 - t1,
-            torch.cuda.max_memory_allocated() / 2 ** 30, launch_counts())
+    return (value, g, t1 - t0, t2 - t1,
+            torch.cuda.max_memory_allocated() / 2 ** 30, launch_counts(),
+            *grads[1:])
 
 
 def gradient_evaluation(label, locs, z, theta, results, key):
@@ -2887,6 +2931,7 @@ def gradient_evaluation(label, locs, z, theta, results, key):
          matern_cov_grad_device_ms=sum(ms for _, _, ms in grad_rows),
          top=[{"name": k[:90], "count": c, "ms": ms} for k, c, ms in rows[:10]])
     results.setdefault(key, {})["launches"] = ca["matern_cov_grad"]
+    MEASURED[f"10.1 {label}"] = dict(n=locs.shape[0], grad=ga, loglik=a)
     return fa + ba, pa
 
 
@@ -4096,6 +4141,79 @@ def panel_grad_scale(locs, z, pol, theta, nb, nu, metric="euclidean",
     return [float(v) for v in sum(rec.sums).tolist()]
 
 
+def _dist_loglik(locs, z, th, pol, nb, matern, nu=0.5, version="masked_full",
+                 grid=None, impl="kernel"):
+    """geostat_loglik_distributed's graph for a theta that requires grad
+    (its three Functions), with `matern` as the build's backward module
+    (`_ScaleRecorder`, `_PlainCheck`)."""
+    import functools
+    from repro_torch.core import distributed as dd
+    n = locs.shape[0]
+    kw = dict(nb=nb, policy=pol, nu_static=nu, grid=grid, version=version)
+    build = functools.partial(dd.build_covariance_distributed, locs,
+                              impl=impl, **kw)
+    off, band = dd.DistributedMaternCov.apply(locs, th, build,
+                                              dict(kw, impl=impl), matern)
+    off, band = dd.DistributedCholesky.apply(off, band, pol, version, grid,
+                                             n, impl)
+    return dd.DistributedLoglik.apply(off, band, z, band.shape[1], grid,
+                                      version, n)
+
+
+def distributed_grad_scale(locs, z, pol, theta, nb, nu=0.5,
+                           version="masked_full", grid=None, impl="kernel"):
+    """s_k = sum |G| dSigma/dtheta_k for k = 1, 2, G = dl/d(off, band) of the
+    distributed engine at theta (its graph with `_ScaleRecorder` as the
+    build's backward module), summed over the grid: the same on every
+    rank."""
+    import torch
+    from repro_torch.core import distributed as dd
+    from repro_torch.core import panel_cholesky as pc
+    th = torch.tensor([float(v) for v in theta], requires_grad=True,
+                      dtype=torch.promote_types(locs.dtype, torch.float32))
+    rec = _ScaleRecorder(pc._impl(impl)[0])
+    ll = _dist_loglik(locs, z, th, pol, nb, rec, nu, version, grid, impl)
+    torch.autograd.grad(ll, th)
+    scale = sum(rec.sums)
+    dd._all_reduce(grid.group if grid is not None else None, scale)
+    return [float(v) for v in scale.tolist()]
+
+
+class _PlainCheck:
+    """A stand-in for the matern_cov module in `DistributedMaternCov`'s
+    backward on the card: each matern_cov_grad_tiles call launches the
+    kernel (the path's launch, counted) and then runs the plain version on
+    the same locations and G, and on |G| for the scale, over rows of G
+    of GRAD_ELEMS_CHECK elements at a time (the off slab's |G| whole is
+    8 GiB at 65,536); `calls` keeps (G's shape, its dtype, kernel, plain,
+    scale, the plain pass's seconds) and `seconds` both passes' host
+    time."""
+
+    def __init__(self):
+        from repro_torch.kernels.matern_cov import ops, ref
+        self.ops, self.ref, self.calls, self.seconds = ops, ref, [], 0.0
+
+    def matern_cov_grad_tiles(self, locs_i, locs_j, theta, g, **kw):
+        import torch
+        got = self.ops.matern_cov_grad_tiles(locs_i, locs_j, theta, g, **kw)
+        torch.cuda.synchronize()
+        step = max(1, GRAD_ELEMS_CHECK // (g.shape[0] * g.shape[2]))
+        sums, secs = [], []
+        for fn in (lambda x: x, torch.abs):
+            t0 = time.perf_counter()
+            acc = 0
+            for r0 in range(0, g.shape[1], step):
+                acc = acc + self.ref.matern_cov_grad_tiles(
+                    locs_i[:, r0:r0 + step], locs_j, theta,
+                    fn(g[:, r0:r0 + step]), **kw)
+            sums.append(acc.tolist())  # a host list: waits
+            secs.append(time.perf_counter() - t0)
+        self.calls.append((tuple(g.shape), str(g.dtype), got.tolist(), *sums,
+                           secs[0]))
+        self.seconds += sum(secs)
+        return got
+
+
 def grad_tiles_bound(n_elems, n_locs, loc_bytes, g_bytes, fp32):
     """(bound ms, bound_by) of a tile-stack matern_cov_grad launch over
     n_elems G entries: G and the locations read once, against grad_bound's
@@ -4523,6 +4641,7 @@ def panel_grad(ds, cfg, hcfg, results):
     main = step("13b tpu", panel_grad_evaluation, f"tpu({t})", ds.locs, ds.z,
                 PrecisionPolicy.tpu(t), th0, nb, cfg["nu"], results,
                 "matern_cov_grad_tiles", "euclidean", base)
+    MEASURED["13b tpu"] = main["grad_kernel"]
     n_pair = panel_grad_n(n, nb, t, 8, 4, hcfg["peak_gib"] - base)
     emit(phase="panel_grad", step="paper pair size", n=n, n_pair=n_pair,
          held_gib=base,
@@ -4559,13 +4678,16 @@ def panel_grad(ds, cfg, hcfg, results):
 # phase 14: the distributed panel engine (core/distributed.py) on NCCL
 # ---------------------------------------------------------------------------
 
-def distributed_launches(p, t, fp32_band):
+def distributed_launches(p, t, fp32_band, grad=False):
     """Kernel launches of one distributed evaluation: matern_cov once over
     the off slab and once per band sub-diagonal, blocked_potrf once per step
-    for an fp32 band (an fp64 band's diagonal tiles go to cuSOLVER)."""
+    for an fp32 band (an fp64 band's diagonal tiles go to cuSOLVER); with
+    `grad`, of one value-and-gradient evaluation: its backward's
+    matern_cov_grad as often as the forward's matern_cov (the reverse sweeps
+    launch no kernel)."""
     return {"matern_cov": 1 + t, "blocked_potrf": p if fp32_band else 0,
-            "mp_syrk": 0, "matern_cov_grad": 0, "mp_syrk_grad": 0,
-            "mp_attention": 0}
+            "mp_syrk": 0, "matern_cov_grad": 1 + t if grad else 0,
+            "mp_syrk_grad": 0, "mp_attention": 0}
 
 
 def _close(a, b, tol):
@@ -4734,6 +4856,7 @@ def distributed_cell(ds, cfg, grid, ll_panel, dcfg, results):
             MEASURED["14b"] = dict(n=n, nb=nb, t=t, seconds=secs,
                                    peak_gib=peak, held_gib=base,
                                    predicted_gib=predicted)
+            ll_masked = a
         emit(phase="distributed", step="65k", version=version, n=n, nb=nb,
              t=t, theta=th0, loglik_kernel=a, loglik_plain=b,
              rel_diff=abs(a - b) / abs(b) if math.isfinite(b) else None,
@@ -4748,6 +4871,7 @@ def distributed_cell(ds, cfg, grid, ll_panel, dcfg, results):
     emit(phase="distributed", step="65k profile", version="masked_full", **prof)
     for k in ("matern_cov", "blocked_potrf"):
         results[k]["launches_distributed"] = want[k]
+    return n, ll_masked
 
 
 def distributed_pair(fp64_field, full64_ll, pcfg, grid, dcfg):
@@ -4790,10 +4914,243 @@ def distributed_pair(fp64_field, full64_ll, pcfg, grid, dcfg):
         torch.cuda.empty_cache()
 
 
+def _dist_grad_gap(ga, gb, scale):
+    """max_k |ga_k - gb_k| / s_k over theta1, theta2."""
+    return max(abs(a - b) / s for a, b, s in zip(ga[:2], gb[:2], scale))
+
+
+def distributed_grad_small(dcfg, grid):
+    """14 (d.1): the gradient of (a)'s three policies at n = small_n through
+    every version: the NCCL grid's ll, theta and z gradients the no-group
+    call's bits, masked_full and fori the same bits, ll with grad the bits
+    without, kernels against plain within DIST_KERNEL_TOL over s_k (the
+    kernels' s_k), exact launches."""
+    import torch
+    from repro_torch.core import PrecisionPolicy as P
+    from repro_torch.core import distributed as dd
+    from repro_torch.covariance import make_dataset
+    n, nb, t = dcfg["small_n"], dcfg["small_nb"], dcfg["small_t"]
+    p = n // nb
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ds = make_dataset(gen, n, WEAK, nu_static=0.5)
+    th = list(WEAK)
+    cases = (("tpu(2)", P.tpu(t), ds.locs, ds.z),
+             ("full(fp32)", P.full(torch.float32), ds.locs, ds.z),
+             ("paper_cpu(2)", P.paper_cpu(t), ds.locs.double(),
+              ds.z.double()))
+    for label, pol, locs, z in cases:
+        want = distributed_launches(p, min(pol.diag_thick, p),
+                                    pol.hi == torch.float32, grad=True)
+        tol = DIST_KERNEL_TOL[str(locs.dtype)]
+        scale = distributed_grad_scale(locs, z, pol, th, nb, grid=grid)
+        out = {}
+        for version in dd.VERSIONS:
+            def fn(g, impl="kernel"):
+                return lambda th_, z_: dd.geostat_loglik_distributed(
+                    locs, z_, th_, nb=nb, policy=pol, version=version,
+                    grid=g, impl=impl)
+            runs = {key: _value_and_grad(fn(g), th, z)
+                    for key, g in (("no group", None), ("nccl 1x1", grid))}
+            for key, r in runs.items():
+                require(r[5] == want, f"{label} {version} {key}: launches "
+                        f"{r[5]}, expected {want}")
+            a, b = runs["no group"], runs["nccl 1x1"]
+            require(a[0] == b[0] and a[1] == b[1] and torch.equal(a[6], b[6]),
+                    f"{label} {version}: the NCCL grid's gradient is not the "
+                    "no-group call's")
+            plain = _value_and_grad(fn(grid, "plain"), th, z)
+            require(sum(plain[5].values()) == 0,
+                    f"{label} {version}: the plain path launched {plain[5]}")
+            with torch.no_grad():
+                no_grad = float(dd.geostat_loglik_distributed(
+                    locs, z, torch.tensor(th, dtype=torch.float32), nb=nb,
+                    policy=pol, version=version, grid=grid))
+            gap = _dist_grad_gap(b[1], plain[1], scale)
+            require(b[0] == no_grad, f"{label} {version}: ll {b[0]} with "
+                    f"grad, {no_grad} without")
+            require(all(map(math.isfinite, b[1])) and b[1][2] == 0.0
+                    and gap <= tol, f"{label} {version}: kernel {b[1]} vs "
+                    f"plain {plain[1]}, {gap} of s_k {scale}")
+            out[version] = b
+            emit(phase="distributed", step="grad small", policy=label, n=n,
+                 nb=nb, t=min(pol.diag_thick, p), version=version,
+                 loglik=b[0], grad_kernel=b[1], grad_plain=plain[1],
+                 grad_scale=scale, grad_gap_over_scale=gap, tol=tol,
+                 z_grad_max_abs_diff=float((b[6] - plain[6]).abs().max()),
+                 seconds_forward=b[2], seconds_backward=b[3],
+                 launches_kernel=want, nccl_equals_no_group=True)
+        a, b = out["masked_full"], out["fori"]
+        require(a[0] == b[0] and a[1] == b[1] and torch.equal(a[6], b[6]),
+                f"{label}: masked_full and fori gradients differ")
+
+
+def distributed_grad_cell(ds, cfg, grid, dcfg, ll_14b, results):
+    """14 (d.2): geostat_65k's value and gradient (theta and z) through
+    masked_full on the NCCL grid at the n distributed_grad_peak_gib keeps
+    under dcfg's peak: one warm-up through geostat_loglik_distributed whose
+    backward runs under the profiler (exact launches), then timed through
+    the same Functions with `_PlainCheck` as the build's backward module
+    (exact launches, each matern_cov_grad launch within DIST_CHECK_TOL of
+    the scale of its plain version on the same slab and G, the plain's
+    seconds taken out of the backward's, ll equal to 14 (b)'s no-grad ll
+    at the same n, the peak against its prediction); the gradient beside
+    13 (b)'s panel gradient (reported, not gated: the reference's
+    lo-rounded band panel, C 18)."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.core import distributed as dd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    n, nb, t = cfg["n"], cfg["nb"], cfg["t"]
+    base = held_on_card()["allocated_gib"]
+    while (n > nb and base + plan().distributed_grad_peak_gib(n, nb, t, 4, 2, 2)
+           > dcfg["peak_gib"]):
+        n -= nb
+    p = n // nb
+    predicted = base + plan().distributed_grad_peak_gib(n, nb, t, 4, 2, 2)
+    emit(phase="distributed", step="grad 65k prediction", n=n, held_gib=base,
+         predicted_peak_gib=predicted, limit_gib=dcfg["peak_gib"],
+         predicted_forward_gib=base + plan().distributed_peak_gib(
+             n, nb, t, 4, 2, 2))
+    pol = PrecisionPolicy.tpu(t)
+    locs, z = ds.locs[:n], ds.z[:n]
+    th0 = [float(v) for v in ds.theta0.tolist()]
+    want = distributed_launches(p, t, True, grad=True)
+    th = torch.tensor(th0, dtype=torch.float32, requires_grad=True)
+    zz = z.clone().requires_grad_()
+    reset_launch_counts()
+    ll = dd.geostat_loglik_distributed(locs, zz, th, nb=nb, policy=pol,
+                                       nu_static=cfg["nu"], grid=grid)
+    float(ll.detach())
+    prof = stream_profile(lambda: torch.autograd.grad(ll, (th, zz)),
+                          keep_rows=True)
+    warm = launch_counts()
+    require(warm == want, f"grad 65k warm-up: launches {warm}, expected {want}")
+    del ll, th, zz
+    # the build's backward: matern_cov_grad over the off slab (bf16 G, the
+    # general form) and over each band sub-diagonal (fp32 G)
+    mc_rows = [(k, c, ms) for k, c, ms in prof.pop("rows")
+               if "matern_cov_grad_kernel" in k]
+    off_rows = [(c, ms) for k, c, ms in mc_rows if "bf16" in k
+                or "bfloat16" in k]
+    off_bound, off_by = grad_tiles_bound(n * n, 2 * n, 4, 2, True)
+    torch.cuda.empty_cache()
+    check = _PlainCheck()
+    a, ga, fa, ba, pa, ca, gza = _value_and_grad(
+        lambda th_, z_: _dist_loglik(locs, z_, th_, pol, nb, check,
+                                     cfg["nu"], grid=grid), th0, z)
+    require(ca == want, f"grad 65k: launches {ca}, expected {want}")
+    tol = DIST_CHECK_TOL
+    checked = [dict(g_shape=shape, g_dtype=gdt, grad=got, grad_plain=plain,
+                    err_over_scale=_grad_ratio(got, plain, scale),
+                    plain_ms=1e3 * secs)
+               for shape, gdt, got, plain, scale, secs in check.calls]
+    worst = max(c["err_over_scale"] for c in checked)
+    require(len(checked) == want["matern_cov_grad"] and worst <= tol,
+            f"grad 65k: matern_cov_grad against plain {checked}, tol {tol}")
+    if ll_14b is not None and ll_14b[0] == n:
+        no_grad = ll_14b[1]
+    else:
+        with torch.no_grad():
+            no_grad = float(dd.geostat_loglik_distributed(
+                locs, z, torch.tensor(th0, dtype=torch.float32), nb=nb,
+                policy=pol, nu_static=cfg["nu"], grid=grid))
+    require(a == no_grad, f"grad 65k: ll {a} with grad, {no_grad} without")
+    require(math.isfinite(a) and all(map(math.isfinite, ga)) and ga[2] == 0.0
+            and bool(torch.isfinite(gza).all()), f"grad 65k: {a} {ga}")
+    require(pa <= dcfg["peak_gib"] + 1, f"grad 65k: peak {pa} GiB")
+    ba_kernels = ba - check.seconds
+    MEASURED["14d"] = dict(n=n, nb=nb, t=t, seconds=fa + ba_kernels,
+                           peak_gib=pa, held_gib=base, predicted_gib=predicted)
+    line = dict(version="masked_full", n=n, nb=nb, t=t, theta=th0,
+                loglik=a, loglik_no_grad=no_grad, grad_kernel=ga,
+                z_grad_norm=float(gza.double().norm()),
+                seconds_forward=fa, seconds_backward=ba_kernels,
+                seconds_backward_with_check=ba,
+                seconds_plain_check=check.seconds, peak_gib=pa,
+                predicted_peak_gib=predicted, launches_kernel=ca,
+                matern_cov_grad_vs_plain=checked,
+                matern_cov_grad_tol=tol,
+                panel_grad_13b=MEASURED.get("13b tpu"),
+                profile_backward=prof,
+                matern_cov_grad_rows=[{"name": k[:90], "count": c, "ms": ms}
+                                      for k, c, ms in mc_rows],
+                matern_cov_grad_off_slab=dict(
+                    launches=sum(c for c, _ in off_rows),
+                    ms=sum(ms for _, ms in off_rows), bound_ms=off_bound,
+                    bound_by=off_by))
+    del gza
+    emit(phase="distributed", step="grad 65k", **line)
+    results.setdefault("matern_cov_grad_tiles", {})["launches_distributed"] = (
+        want["matern_cov_grad"])
+
+
+def distributed_grad_pair(fp64_field, pcfg, grid, dcfg):
+    """14 (d.3): the pair at DP(10%) on phase 9's fp64 medium field through
+    aligned, at the n where 10.1 kept its full(fp64) gradient: kernels and
+    plain (which records s_k) within DIST_KERNEL_TOL over s_k, exact
+    launches, and the gradient within DIST_PAIR_FP64_TOL over s_k of
+    10.1's (max_k |delta_k| / s_k; over max_k |grad_k| reported)."""
+    import torch
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.core import distributed as dd
+    from repro_torch.core import panel_cholesky as pc
+    dense = MEASURED.get("10.1 full(fp64)")
+    locs, z = fp64_field
+    nb = pcfg["nb"]
+    n = dense["n"] if dense else locs.shape[0]
+    locs, z = locs[:n].contiguous(), z[:n].contiguous()
+    p = n // nb
+    pol = PrecisionPolicy.from_dp_percent(p, 0.10, "paper_cpu")
+    t = min(pol.diag_thick, p)
+    base = held_on_card()["allocated_gib"]
+    predicted = base + plan().distributed_grad_peak_gib(n, nb, t, 8, 4, 4)
+    require(predicted <= dcfg["peak_gib"], f"the pair's predicted {predicted} GiB")
+    want = distributed_launches(p, t, False, grad=True)
+    theta = list(MEDIUM)
+
+    a, ga, fa, ba, pa, ca, gza = _value_and_grad(
+        lambda th_, z_: dd.geostat_loglik_distributed(
+            locs, z_, th_, nb=nb, policy=pol, version="aligned", grid=grid),
+        theta, z)
+    del gza
+    rec = _ScaleRecorder(pc._impl("plain")[0])
+    b, gb, fb, bb, pb, cb, gzb = _value_and_grad(
+        lambda th_, z_: _dist_loglik(locs, z_, th_, pol, nb, rec,
+                                     version="aligned", grid=grid,
+                                     impl="plain"), theta, z)
+    del gzb
+    scale = [float(v) for v in sum(rec.sums).tolist()]
+    gap = _dist_grad_gap(ga, gb, scale)
+    tol = DIST_KERNEL_TOL[str(locs.dtype)]
+    require(ca == want, f"the pair's gradient: launches {ca}, expected {want}")
+    require(sum(cb.values()) == 0, f"the pair's gradient: plain launched {cb}")
+    require(gap <= tol, f"the pair's gradient: kernel {ga} vs plain {gb}, "
+            f"{gap} of s_k {scale}")
+    line = dict(version="aligned", n=n, nb=nb, t=t, theta=theta, loglik=a,
+                loglik_plain=b, grad_kernel=ga, grad_plain=gb,
+                grad_scale=scale, grad_gap_over_scale=gap, tol=tol,
+                seconds_forward=fa, seconds_backward=ba,
+                seconds_forward_plain=fb, seconds_backward_plain=bb,
+                peak_gib=pa, peak_gib_plain=pb, predicted_peak_gib=predicted,
+                launches_kernel=ca)
+    if dense:
+        g64 = dense["grad"]
+        rel = max(abs(x - y) for x, y in zip(ga[:2], g64[:2])) / max(
+            abs(v) for v in g64[:2])
+        gap64 = _dist_grad_gap(ga, g64, scale)
+        line.update(grad_full_fp64=g64, loglik_full_fp64=dense["loglik"],
+                    gap_to_full_fp64_over_scale=gap64,
+                    rel_to_full_fp64=rel, fp64_tol=DIST_PAIR_FP64_TOL)
+        require(gap64 <= DIST_PAIR_FP64_TOL, f"the pair's gradient {ga} vs "
+                f"full(fp64)'s {g64}: {gap64} of s_k {scale}")
+    emit(phase="distributed", step="grad pair", **line)
+    torch.cuda.empty_cache()
+
+
 def distributed(ds, cfg, fp64_field, full64_ll, ll_panel, dcfg, pcfg, results):
     """Phase 14: the distributed panel engine on a 1 x 1 NCCL grid (see the
     module docstring), sub-steps timed into one line; the process group is
-    destroyed at the end."""
+    destroyed at the end.  (d) is its gradient."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_grid
@@ -4815,9 +5172,14 @@ def distributed(ds, cfg, fp64_field, full64_ll, ll_panel, dcfg, pcfg, results):
         secs["init"] = time.perf_counter() - t0
         step("14a lo product", check_lo_product, cfg["n"], cfg["nb"])
         step("14a small", distributed_small, dcfg, grid)
-        step("14b 65k", distributed_cell, ds, cfg, grid, ll_panel, dcfg,
-             results)
+        ll_14b = step("14b 65k", distributed_cell, ds, cfg, grid, ll_panel,
+                      dcfg, results)
         step("14c pair", distributed_pair, fp64_field, full64_ll, pcfg, grid,
+             dcfg)
+        step("14d.1 grad small", distributed_grad_small, dcfg, grid)
+        step("14d.2 grad 65k", distributed_grad_cell, ds, cfg, grid, dcfg,
+             ll_14b, results)
+        step("14d.3 grad pair", distributed_grad_pair, fp64_field, pcfg, grid,
              dcfg)
     finally:
         dist.destroy_process_group()
@@ -6182,6 +6544,11 @@ def planning(pcfg, smi, results):
                    dryrun.report(pl, "smoke"), smi, failures, n=m["n"])
         peak_held("14 (b) masked_full", m["peak_gib"], m["held_gib"]
                   + (pl.args["storage"] + pl.work) / 2**30, smi, failures)
+    m = MEASURED.get("14d")
+    if m:
+        peak_held("14 (d.2) masked_full gradient", m["peak_gib"],
+                  m["held_gib"] + plan().distributed_grad_peak_gib(
+                      m["n"], m["nb"], m["t"], 4, 2, 2), smi, failures)
     m = MEASURED.get("17b")
     if m:
         shape = ShapeSpec("train_4k", "train", m["seq"], m["batch"])

@@ -34,7 +34,8 @@ The port of `repro.launch.costmodel`, in three parts.
    port's counterpart of a compiled module's memory analysis, each
    reckoned term by term from what the path allocates and held on the
    card (`chip_smoke.py`): `train_peak_bytes`, `serve_peak_bytes`,
-   `distributed_peak_gib`, `panel_grad_peak_gib`, `scale_peak_bytes`;
+   `distributed_peak_gib`, `distributed_grad_peak_gib`,
+   `panel_grad_peak_gib`, `scale_peak_bytes`;
    and one step's model FLOPs, `train_step_flops`.
 """
 
@@ -509,6 +510,29 @@ def distributed_peak_gib(n, nb, t, hi_bytes, lo_bytes, u_bytes):
     predicted, in GiB (`distributed_peak_bytes` on a 1 x 1 grid)."""
     return distributed_peak_bytes(n, nb, t, hi_bytes, lo_bytes,
                                   u_bytes)["total"] / 2 ** 30
+
+
+def distributed_grad_peak_gib(n, nb, t, hi_bytes, lo_bytes, u_bytes):
+    """The memory one distributed value-and-gradient evaluation on one rank
+    adds at its peak, predicted, in GiB: the larger of the forward's
+    (`distributed_peak_bytes`, the slabs and a step's moment) and the
+    factorization's reverse sweep at step 0, where the slabs (saved for it)
+    and their cotangents (their sizes again) live beside the larger of two
+    moments, each over the n x nb panel column: the band updates' (c_lo in
+    lo; c_t, its cotangent and one product in hi; C's three cotangent sums
+    in the accumulator, fp32 or lo's width) and the lo update's (c_lo and
+    the three sums, and where the product is upcast, u_bytes != lo_bytes
+    as on a CPU, its two operands in the accumulator).  The solve's sweep
+    (the slabs, their cotangents and one tile row's outer product) and the
+    build's (the cotangents) stay under it."""
+    fwd = distributed_peak_bytes(n, nb, t, hi_bytes, lo_bytes, u_bytes)
+    acc = max(4, lo_bytes)
+    column = n * nb
+    band_moment = column * (lo_bytes + 3 * hi_bytes + 3 * acc)
+    lo_moment = column * (lo_bytes + 3 * acc) + (
+        2 * column * acc if u_bytes != lo_bytes else 0)
+    sweep = 2 * fwd["storage"] + max(band_moment, lo_moment)
+    return max(fwd["total"], sweep) / 2 ** 30
 
 
 def train_peak_bytes(cfg, micro: int, seq: int, *, shard: float = 1.0) -> int:

@@ -437,16 +437,9 @@ def test_layout_follows_the_rules(dims, version, rows, cols):
 # refusals
 # ---------------------------------------------------------------------
 
-def test_refuses_theta_that_requires_grad(data):
-    locs, z = (torch.from_numpy(a) for a in _inputs("tpu2", data))
-    theta = torch.tensor(THETA, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A 16"):
-        td.geostat_loglik_distributed(locs, z, theta, nb=NB, policy=P.tpu(T))
-
-
 def test_refuses_locations_that_require_grad(data):
     locs, z = (torch.from_numpy(a) for a in _inputs("tpu2", data))
-    with pytest.raises(NotImplementedError, match="A 16"):
+    with pytest.raises(NotImplementedError, match="C 26"):
         td.geostat_loglik_distributed(locs.requires_grad_(), z, THETA, nb=NB,
                                       policy=P.tpu(T))
 
